@@ -64,6 +64,8 @@ import pytest  # noqa: E402
 def pytest_configure(config):
     config.addinivalue_line("markers",
                             "slow: long-running integration test")
+    config.addinivalue_line("markers",
+                            "cuda: needs a CUDA card; skips without one")
 
 
 @pytest.fixture(scope="session")
