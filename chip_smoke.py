@@ -3,25 +3,39 @@
 
     python3 chip_smoke.py
 
-1. Builds the CUDA kernels from ``src/repro_torch/kernels/hsic_gram/csrc/
-   nhsic.cu`` with ``nvcc`` and prints the build time.
+1. Builds the CUDA kernels (``kernels/hsic_gram/csrc/nhsic.cu``, K1-K3, and
+   ``kernels/flash_attention/csrc/flash_attention.cu``, K4) with ``nvcc``,
+   one compiler per source, all started together; prints the build time.
 2. Kernel phase: each kernel's wrapper against its plain PyTorch version on
-   the card (forward, and the autograd backward of nHSIC), at the main
-   path's shapes and at batches/widths off the 32-row tile, with TF32 off.
-   Bar: scale-relative 1e-3 in f32.  Times each kernel and its plain version
-   at the main path's shapes (CUDA events, median of 30 calls).
-3. Main path: the port's ``NeuLiteServer`` (sequential runtime, nHSIC
+   the card, with TF32 off.  K1-K3 (forward, and the autograd backward of
+   nHSIC) at both main paths' shapes and at batches/widths off the 32-row
+   tile; K4 at the ViT-12 shape, the reference's audit shapes (bf16, ragged
+   S=200, windowed), GQA, causal with Sq != Skv, causal+window with empty
+   rows (exactly 0), and its autograd gradient.  Bar: scale-relative 1e-3
+   in f32, 2e-2 in bf16.  Times each kernel, its plain version and, for K4,
+   ``F.scaled_dot_product_attention`` as a yardstick (CUDA events, median
+   of 30 calls).
+3. Main path 1: the port's ``NeuLiteServer`` (sequential runtime, nHSIC
    through the kernels) on the paper's ResNet18 at full width, 32x32x3,
    10 classes, batch 32, 4 stages: four rounds, one per stage, over a
-   100-device fleet, then an evaluation.  The kernels' launch counts are set
-   to 0 just before and read just after; every kernel must have launched.
-4. Checks the kernel path against the plain nHSIC on one full-width step of
-   each stage, then profiles five steps of each stage (``torch.profiler``):
-   wall time, device busy time, idle share, the nHSIC kernels' share.
+   100-device fleet, then an evaluation.  Then one full-width step per
+   stage, kernel path against plain path, and a profile of five steps per
+   stage (``torch.profiler``).
+4. Main path 2: the paper's ViT-12 at full width (d_model 384, 6 heads of
+   64, 64x64x3, 100 classes, 64 patches), attention through K4, batch 32,
+   3 stages: three rounds, one per stage, then an evaluation.  K4 must
+   launch exactly once per attention layer run per local step (4, 8, 12 at
+   stages 0, 1, 2) and K1-K3 twice per step.  Then the same step check
+   (kernel path against ``use_flash_kernel=False``, plain nHSIC; the bar
+   takes the plain path's own sensitivity into account, see
+   ``step_check``), each of the 12 periods alone, kernel path against
+   plain path (``period_check``), and the profile.
 
-Prints the card's name and power limit, a JSON line of per-kernel numbers,
-and as the last line ``{"ok": true, "device": {...}}``.  Any failure exits
-non-zero.  Details go to ``chiprun_out/chip_smoke.json``.
+Each main path is driven with the launch counts set to 0 just before it
+and read just after.  Prints the card's name and power limit, a JSON line
+of per-kernel numbers, and as the last line ``{"ok": true, "device":
+{...}}``.  Any failure exits non-zero.  Details go to
+``chiprun_out/chip_smoke.json``.
 """
 import dataclasses
 import json
@@ -40,15 +54,41 @@ FP32_FLOPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 TOL = 1e-3
 SEED = 0
 
-# (B, Dx, Dz, linear_x): h_xz at the four ResNet18 stages, then h_yz
+# (B, Dx, Dz, linear_x): h_xz at the four ResNet18 stages, then h_yz;
+# then the ViT-12's h_xz (every stage) and h_yz
 MAIN_PATH_SHAPES = [(32, 3, 64, False), (32, 64, 128, False),
                     (32, 128, 256, False), (32, 256, 512, False),
-                    (32, 10, 64, True)]
+                    (32, 10, 64, True), (32, 384, 384, False),
+                    (32, 100, 64, True)]
 # off the tile: B in {48, 256}, D in {1, 512}; then identical rows
 EXTRA_SHAPES = [(48, 1, 512, False), (48, 512, 1, True), (256, 1, 512, False),
                 (256, 512, 1, True), (256, 512, 512, False)]
 DEGENERATE_SHAPES = [(32, 5, 8, False), (48, 10, 64, True)]
-TIMED_SHAPE = (32, 256, 512, False)   # the main path's largest call
+TIMED_SHAPE = (32, 256, 512, False)   # the ResNet path's largest call
+
+# K4: (B, Sq, Skv, H, KV, D, causal, window, dtype).  The ViT-12 shape,
+# the reference's AUDIT_CASES (kernels/flash_attention/ops.py), GQA with
+# H=4, KV=2, causal with Sq != Skv, causal+window with empty rows
+FLASH_VIT = (32, 64, 64, 6, 6, 64, False, 0, "float32")
+FLASH_CASES = [FLASH_VIT,
+               (2, 1024, 1024, 2, 2, 64, True, 0, "float32"),
+               (2, 512, 512, 2, 2, 64, True, 0, "bfloat16"),
+               (1, 200, 200, 2, 2, 64, True, 0, "float32"),
+               (1, 512, 512, 1, 1, 32, False, 64, "float32"),
+               (2, 256, 256, 4, 2, 64, True, 0, "float32"),
+               (2, 70, 150, 4, 2, 64, True, 0, "float32"),
+               (2, 150, 70, 4, 2, 64, True, 0, "float32"),
+               (1, 41, 14, 2, 2, 16, True, 4, "float32"),
+               (2, 130, 100, 4, 2, 128, True, 7, "float32")]
+FLASH_GRAD_CASES = [FLASH_VIT, FLASH_CASES[5], FLASH_CASES[8]]
+BF16_TOL = 2e-2
+
+# main path sizes (a CPU rehearsal shrinks them)
+RESNET = dict(arch="resnet18", num_classes=10, image_size=32, width_mult=1.0)
+RESNET_IMAGES = 16000
+VIT = dict(num_classes=100, image_size=64, num_layers=12, d_model=384)
+VIT_IMAGES = 9600
+TEST_IMAGES = 512
 
 
 class SmokeError(RuntimeError):
@@ -94,7 +134,25 @@ def gram_flops(B, D, linear):
     return 2 * B * B * D + (0 if linear else 6 * B * B)
 
 
-def work(name, B, Dx, Dz, lx, lz=False):
+def flash_work(B, Sq, Skv, H, KV, D, causal, window, dtype):
+    """Bytes and FLOPs of one K4 call: q, k, v read once, o written once;
+    QK^T and PV (2 D FLOPs each per allowed (query, key) pair) plus the
+    softmax (max, subtract, exp, sum, rescale: 5 per pair) and q's scale.
+    Only the pairs the masks allow count."""
+    size = 2 if dtype == "bfloat16" else 4
+    nbytes = size * (2 * B * Sq * H * D + 2 * B * Skv * KV * D)
+    pairs = 0
+    for i in range(Sq):
+        lo = max(0, i - window + 1) if window > 0 else 0
+        hi = min(Skv - 1, i) if causal else Skv - 1
+        pairs += max(0, hi - lo + 1)
+    pairs *= B * H
+    return nbytes, 4 * pairs * D + 5 * pairs + B * Sq * H * D
+
+
+def work(name, B, Dx, Dz, lx, *rest, lz=False):
+    if name == "flash_attention_fwd":
+        return flash_work(B, Dx, Dz, lx, *rest)
     grams = gram_flops(B, Dx, lx) + gram_flops(B, Dz, lz)
     act = 4 * B * (Dx + Dz)
     if name == "nhsic_rowsums":
@@ -215,7 +273,134 @@ def timing_phase(torch, kernel, ref, hsic):
     return rows
 
 
-def main_path(torch, kernel, np):
+def flash_inputs(torch, case):
+    B, Sq, Skv, H, KV, D, _, _, dtype = case
+    g = torch.Generator().manual_seed(Sq * 1009 + Skv * 7 + H)
+    q, k, v = (torch.randn(s, generator=g) for s in
+               [(B, Sq, H, D), (B, Skv, KV, D), (B, Skv, KV, D)])
+    dt = getattr(torch, dtype)
+    return q.cuda().to(dt), k.cuda().to(dt), v.cuda().to(dt)
+
+
+def flash_phase(torch, fkernel, fops, fref):
+    """K4 against its plain version at every listed shape; rows with no
+    allowed key must be exactly 0.  Then its autograd gradient against
+    autograd of the plain version."""
+    max_abs = 0.0
+    for case in FLASH_CASES:
+        causal, window, dtype = case[6], case[7], case[8]
+        q, k, v = flash_inputs(torch, case)
+        got = fkernel.flash_attention_fwd(q, k, v, causal=causal,
+                                          window=window)
+        want = fref.attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        rel, ab = rel_abs(got.float(), want.float())
+        tol = BF16_TOL if dtype == "bfloat16" else TOL
+        check(got.dtype == q.dtype and rel <= tol,
+              f"flash_attention_fwd at {case}: rel err {rel}")
+        mask = fref.attention_mask(case[1], case[2], causal, window, q.device)
+        empty = ~mask.any(dim=1)
+        check(bool((got[:, empty] == 0).all()),
+              f"flash_attention_fwd at {case}: empty rows are not 0")
+        max_abs = max(max_abs, ab)
+        print(f"  check flash {case}: rel err {rel:.2e}, empty rows "
+              f"{int(empty.sum())}", flush=True)
+    for case in FLASH_GRAD_CASES:
+        causal, window = case[6], case[7]
+        q, k, v = flash_inputs(torch, case)
+        g = torch.randn(q.shape, generator=torch.Generator().manual_seed(1))
+        g = g.cuda()
+        a = [t.clone().requires_grad_() for t in (q, k, v)]
+        b = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fops.flash_attention(*a, causal=causal, window=window)
+        out.backward(g)
+        fref.attention_ref(*b, causal=causal, window=window).backward(g)
+        rel_o, _ = rel_abs(out.detach(), fref.attention_ref(
+            q, k, v, causal=causal, window=window))
+        rel_g, _ = rel_abs([x.grad for x in a], [y.grad for y in b])
+        check(rel_o <= TOL and rel_g <= TOL,
+              f"autograd flash at {case}: {rel_o}, {rel_g}")
+        check(all(bool(torch.isfinite(x.grad).all()) for x in a),
+              "non-finite flash grad")
+        print(f"  check flash autograd {case}: out {rel_o:.2e}, grads "
+              f"{rel_g:.2e}", flush=True)
+    return max_abs
+
+
+def flash_timing(torch, fkernel, fref):
+    """K4, its plain version and ``F.scaled_dot_product_attention`` (a
+    yardstick, timed here only) at the ViT-12 shape."""
+    import torch.nn.functional as F
+    case = FLASH_VIT
+    causal, window = case[6], case[7]
+    q, k, v = flash_inputs(torch, case)
+    ms = time_ms(torch, lambda: fkernel.flash_attention_fwd(
+        q, k, v, causal=causal, window=window))
+    plain = time_ms(torch, lambda: fref.attention_ref(
+        q, k, v, causal=causal, window=window))
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal))
+    b_ms, b_by = bound_ms("flash_attention_fwd", case)
+    print(f"  time flash_attention_fwd {case}: kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.2e} ms "
+          f"({b_by})", flush=True)
+    return {"name": "flash_attention_fwd", "shape": list(case), "ms": ms,
+            "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def reset_all(kernels):
+    for k in kernels:
+        k.reset_launches()
+
+
+def read_all(kernels):
+    return {n: c for k in kernels for n, c in k.LAUNCHES.items()}
+
+
+def record_outcomes(server):
+    """Keep each round's ``RoundOutcome`` (its true local step counts)."""
+    outcomes = []
+    run = server.runtime.run_round
+
+    def recorded(*a, **kw):
+        out = run(*a, **kw)
+        outcomes.append(out)
+        return out
+
+    server.runtime.run_round = recorded
+    return outcomes
+
+
+def run_rounds(torch, server, kernels, n):
+    """``n`` rounds; per round the seconds, peak allocated bytes, local
+    steps and each kernel's launches."""
+    outcomes = record_outcomes(server)
+    rounds = []
+    for r in range(n):
+        before = read_all(kernels)
+        done = len(outcomes)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rr = server.run_round(r)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        after = read_all(kernels)
+        launches = {n_: after[n_] - before[n_] for n_ in after}
+        steps = sum(sum(o.num_batches) for o in outcomes[done:])
+        rounds.append(dict(vars(rr), seconds=sec, peak_bytes=peak,
+                           launches=launches, local_steps=steps))
+        print(f"  round {r}: {rr}", flush=True)
+        print(f"    {sec:.3f} s, peak allocated {peak / 2**20:.1f} MiB, "
+              f"{steps} local steps, launches {launches}", flush=True)
+    return rounds
+
+
+def main_path(torch, kernels, np):
+    """Main path 1: four rounds of full-width ResNet18, one per stage, with
+    an evaluation each round."""
     from repro_torch.core.progressive import make_adapter
     from repro_torch.data.loader import Batcher
     from repro_torch.data.partition import dirichlet_partition
@@ -223,45 +408,36 @@ def main_path(torch, kernel, np):
     from repro_torch.federated.server import FLConfig, NeuLiteServer
     from repro_torch.models.cnn import CNNConfig
 
-    ccfg = CNNConfig(name="resnet18", arch="resnet18", num_classes=10,
-                     image_size=32, width_mult=1.0)
+    ccfg = CNNConfig(name="resnet18", **RESNET)
     flc = FLConfig(n_devices=100, clients_per_round=4, local_epochs=1,
                    batch_size=32, num_stages=4, use_hsic_kernel=True,
                    runtime="sequential", seed=SEED)
     adapter = make_adapter(ccfg, flc.num_stages)
-    ds = make_image_dataset(SEED, 16000, num_classes=10, image_size=32)
+    size, classes = ccfg.image_size, ccfg.num_classes
+    ds = make_image_dataset(SEED, RESNET_IMAGES, num_classes=classes,
+                            image_size=size)
     parts = dirichlet_partition(SEED, ds.labels, flc.n_devices,
                                 alpha=flc.alpha)
-    test = Batcher(make_image_dataset(SEED + 1, 512, num_classes=10,
-                                      image_size=32), 32, seed=SEED)
+    test = Batcher(make_image_dataset(SEED + 1, TEST_IMAGES,
+                                      num_classes=classes, image_size=size),
+                   32, seed=SEED)
     server = NeuLiteServer(adapter, [ds.subset(p) for p in parts], flc,
                            test_batcher=test)
     steps = [b.steps_per_epoch for b in server.batchers]
     print(f"  clients: {len(steps)}, local steps per epoch: min {min(steps)} "
           f"median {int(np.median(steps))} max {max(steps)}", flush=True)
 
-    kernel.reset_launches()
-    rounds = []
-    for r in range(flc.num_stages):
-        before = dict(kernel.LAUNCHES)
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        rr = server.run_round(r)
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
-        launches = {n: kernel.LAUNCHES[n] - before[n] for n in before}
-        row = dict(vars(rr), seconds=sec, peak_bytes=peak,
-                   launches=launches)
-        rounds.append(row)
-        print(f"  round {r}: {rr}", flush=True)
-        print(f"    {sec:.3f} s, peak allocated {peak / 2**20:.1f} MiB, "
-              f"launches {launches}", flush=True)
-    counts = dict(kernel.LAUNCHES)
+    reset_all(kernels)
+    rounds = run_rounds(torch, server, kernels, flc.num_stages)
+    counts = read_all(kernels)
 
-    check(all(c > 0 for c in counts.values()), f"a kernel never ran: {counts}")
-    check(len(set(counts.values())) == 1 and counts["nhsic_grad"] % 2 == 0,
-          f"expected 2 launches of each kernel per step: {counts}")
+    hsic = {n: counts[n] for n in kernels[0].LAUNCHES}
+    n_steps = sum(r["local_steps"] for r in rounds)
+    check(all(c > 0 for c in hsic.values()), f"a kernel never ran: {hsic}")
+    check(set(hsic.values()) == {2 * n_steps},
+          f"expected 2 launches of each nHSIC kernel per step "
+          f"({n_steps} steps): {hsic}")
+    check(counts["flash_attention_fwd"] == 0, "flash attention in a CNN")
     check(any(r["n_feasible"] > 0 for r in rounds), "no feasible round")
     check(all(math.isfinite(r["mean_loss"]) for r in rounds
               if r["n_selected"] > 0), "non-finite round loss")
@@ -269,7 +445,72 @@ def main_path(torch, kernel, np):
               _leaves(server.params)), "non-finite params")
     acc = rounds[-1]["test_acc"]
     check(acc is not None and 0.0 <= acc <= 1.0, f"bad accuracy {acc}")
-    return server, rounds, counts
+    return server, rounds, hsic
+
+
+def vit_main_path(torch, kernels, np):
+    """Main path 2: three rounds of full-width ViT-12, one per stage,
+    attention through K4, then an evaluation.  K4 must launch once per
+    attention layer run per local step, K1-K3 twice per step."""
+    from repro_torch.configs.paper_models import vit
+    from repro_torch.core.progressive import make_adapter
+    from repro_torch.data.loader import Batcher
+    from repro_torch.data.partition import dirichlet_partition
+    from repro_torch.data.synthetic import make_image_dataset
+    from repro_torch.federated.server import FLConfig, NeuLiteServer
+
+    cfg = dataclasses.replace(vit(**VIT), use_flash_kernel=True)
+    flc = FLConfig(n_devices=100, clients_per_round=4, local_epochs=1,
+                   batch_size=32, num_stages=3, use_hsic_kernel=True,
+                   runtime="sequential", seed=SEED)
+    adapter = make_adapter(cfg, flc.num_stages)
+    t0 = time.perf_counter()
+    ds = make_image_dataset(SEED, VIT_IMAGES, num_classes=cfg.vocab_size,
+                            image_size=cfg.image_size)
+    parts = dirichlet_partition(SEED, ds.labels, flc.n_devices,
+                                alpha=flc.alpha)
+    server = NeuLiteServer(adapter, [ds.subset(p) for p in parts], flc)
+    steps = [b.steps_per_epoch for b in server.batchers]
+    print(f"  data and server {time.perf_counter() - t0:.2f} s; clients: "
+          f"{len(steps)}, local steps per epoch: min {min(steps)} median "
+          f"{int(np.median(steps))} max {max(steps)}; plan "
+          f"{adapter.plan.bounds}", flush=True)
+    attn = sum(1 for kind, _ in cfg.pattern if kind == "attn")
+
+    reset_all(kernels)
+    rounds = run_rounds(torch, server, kernels, flc.num_stages)
+    server.test_batcher = Batcher(make_image_dataset(
+        SEED + 1, TEST_IMAGES, num_classes=cfg.vocab_size,
+        image_size=cfg.image_size), 32, seed=SEED)
+    before = read_all(kernels)["flash_attention_fwd"]
+    acc = server.evaluate()
+    eval_launches = read_all(kernels)["flash_attention_fwd"] - before
+    counts = read_all(kernels)
+
+    for r in rounds:
+        t = r["stage"]
+        layers = adapter.plan.stage_ranges(t)[2][1] * attn
+        r["attention_layers_per_step"] = layers
+        n = r["local_steps"]
+        check(r["n_selected"] > 0 and n > 0, f"round {r['round_idx']} "
+              f"trained no client")
+        check(r["launches"]["flash_attention_fwd"] == n * layers,
+              f"round {r['round_idx']}: {r['launches']} flash launches, "
+              f"expected {n} steps x {layers} attention layers")
+        check(all(r["launches"][k] == 2 * n for k in kernels[0].LAUNCHES),
+              f"round {r['round_idx']}: expected 2 nHSIC launches per step")
+    n_eval = min(8, server.test_batcher.steps_per_epoch)
+    check(eval_launches == n_eval * cfg.num_periods * attn,
+          f"evaluation: {eval_launches} flash launches, expected {n_eval} "
+          f"batches x {cfg.num_periods * attn} layers")
+    check(all(math.isfinite(r["mean_loss"]) for r in rounds),
+          "non-finite round loss")
+    check(all(bool(torch.isfinite(p).all()) for p in
+              _leaves(server.params)), "non-finite params")
+    check(0.0 <= acc <= 1.0, f"bad accuracy {acc}")
+    print(f"  evaluation: accuracy {acc:.4f}, {eval_launches} flash "
+          f"launches", flush=True)
+    return server, rounds, counts, acc
 
 
 def _leaves(tree):
@@ -277,42 +518,125 @@ def _leaves(tree):
     return tree_leaves(tree)
 
 
-def step_check(torch, server):
-    """One full-width step per stage: nHSIC through the kernels against the
-    plain nHSIC, same params and batch."""
-    from repro_torch.common.device import to_device
+def _step(torch, adapter, server, t, params, batch, use_kernel):
     from repro_torch.core.progressive import make_stage_step
     from repro_torch.optim.optimizers import sgd
+    frozen, trainable = adapter.split_stage(params, t)
+    opt = sgd(server.flc.lr)
+    hp = dataclasses.replace(server.hp, use_hsic_kernel=use_kernel)
+    step = make_stage_step(adapter, opt, hp, t)
+    _, new, m = step(opt.init(trainable), trainable, frozen, batch,
+                     trainable)
+    return new, m
+
+
+def _step_diff(a, b):
+    """(loss rel, params rel) of step a against step b: params relative
+    to the largest trained param."""
+    (an, am), (bn, bm) = a, b
+    loss_rel = abs(float(am["loss"] - bm["loss"])) / max(
+        abs(float(bm["loss"])), 1e-6)
+    scale = max(float(p.abs().max()) for p in _leaves(bn) if p.numel())
+    params_rel = max(float((x - y).abs().max())
+                     for x, y in zip(_leaves(an), _leaves(bn))
+                     if x.numel()) / scale
+    return loss_rel, params_rel
+
+
+def step_check(torch, server, plain_adapter=None, sensitivity=False):
+    """One full-width step per stage: the kernel path (``server.adapter``,
+    nHSIC through K1-K3) against the plain path (``plain_adapter``, plain
+    nHSIC), same params and batch.
+
+    With ``sensitivity`` the plain path also runs from params scaled by
+    1 + 1e-7, which measures how far f32 rounding alone moves the step at
+    these params.  Where that exceeds TOL / 10 (a model whose near one-hot
+    attention amplifies rounding from period to period, see
+    tests/test_torch_vit.py::test_full_width_vit12_is_chaotic_at_init), the
+    bar is 10 times it; otherwise it is TOL."""
+    from repro_torch.common.device import to_device
+    from repro_torch.common.tree import tree_map
+    plain_adapter = plain_adapter or server.adapter
     batch = to_device(next(server.test_batcher.epoch()), server.device)
     out = []
     for t in range(server.adapter.plan.num_stages):
-        frozen, trainable = server.adapter.split_stage(server.params, t)
+        kern = _step(torch, server.adapter, server, t, server.params, batch,
+                     True)
+        plain = _step(torch, plain_adapter, server, t, server.params, batch,
+                      False)
+        loss_rel, params_rel = _step_diff(kern, plain)
+        row = {"stage": t, "loss": float(kern[1]["loss"]),
+               "plain_loss": float(plain[1]["loss"]), "loss_rel": loss_rel,
+               "params_rel": params_rel,
+               "nhsic_xz": float(kern[1]["nhsic_xz"]),
+               "nhsic_yz": float(kern[1]["nhsic_yz"])}
+        bar_loss = bar_params = TOL
+        if sensitivity:
+            eps = tree_map(lambda p: p * (1 + 1e-7), server.params)
+            moved = _step(torch, plain_adapter, server, t, eps, batch, False)
+            s_loss, s_params = _step_diff(moved, plain)
+            bar_loss = max(TOL, 10 * s_loss) if s_loss > TOL / 10 else TOL
+            bar_params = (max(TOL, 10 * s_params) if s_params > TOL / 10
+                          else TOL)
+            row.update(plain_eps_loss_rel=s_loss,
+                       plain_eps_params_rel=s_params, bar_loss=bar_loss,
+                       bar_params=bar_params)
+        check(loss_rel <= bar_loss and params_rel <= bar_params,
+              f"stage {t} kernel vs plain step: {row}")
+        out.append(row)
+        extra = (f"; plain vs plain at params x (1 + 1e-7): loss rel "
+                 f"{row['plain_eps_loss_rel']:.2e}, params rel "
+                 f"{row['plain_eps_params_rel']:.2e}; bars {bar_loss:.1e}, "
+                 f"{bar_params:.1e}" if sensitivity else "")
+        print(f"  stage {t} step, kernel vs plain path: loss "
+              f"{row['loss']:.6f} vs {row['plain_loss']:.6f} (rel "
+              f"{loss_rel:.2e}), params rel {params_rel:.2e}{extra}",
+              flush=True)
+    return out
+
+
+def period_check(torch, server, plain_adapter):
+    """Each period of the full-width transformer alone, fed the same input
+    (the plain path's output of the period before): attention through K4
+    against the plain path, output and the gradient to the period's params
+    and input for one cotangent, at TOL.  Unlike a whole step, this is
+    well posed where the model amplifies rounding from period to period."""
+    from repro_torch.common.device import to_device
+    from repro_torch.common.tree import tree_leaves, tree_map
+    from repro_torch.models import model as tx
+    batch = to_device(next(server.test_batcher.epoch()), server.device)
+    layers = server.params["model"]["layers"]
+    with torch.no_grad():
+        x, pos, _ = tx.embed_inputs(server.params["model"], plain_adapter.cfg,
+                                    batch["inputs"])
+    gen = torch.Generator().manual_seed(2)
+    out = []
+    for i in range(tx.num_stacked(layers)):
+        cot = torch.randn(x.shape, generator=gen).to(x.device)
         res = []
-        for use_kernel in (True, False):
-            opt = sgd(server.flc.lr)
-            hp = dataclasses.replace(server.hp, use_hsic_kernel=use_kernel)
-            step = make_stage_step(server.adapter, opt, hp, t)
-            _, new, m = step(opt.init(trainable), trainable, frozen, batch,
-                             trainable)
-            res.append((new, m))
-        (kn, km), (pn, pm) = res
-        loss_rel = abs(float(km["loss"] - pm["loss"])) / max(
-            abs(float(pm["loss"])), 1e-6)
-        scale = max(float(p.abs().max()) for p in _leaves(pn))
-        tree_rel = max(float((a - b).abs().max())
-                       for a, b in zip(_leaves(kn), _leaves(pn))) / scale
-        check(loss_rel <= TOL and tree_rel <= TOL,
-              f"stage {t} kernel vs plain step: {loss_rel}, {tree_rel}")
-        out.append({"stage": t, "loss_rel": loss_rel, "params_rel": tree_rel,
-                    "nhsic_xz": float(km["nhsic_xz"]),
-                    "nhsic_yz": float(km["nhsic_yz"])})
-        print(f"  stage {t} step, kernel vs plain nHSIC: loss rel "
-              f"{loss_rel:.2e}, params rel {tree_rel:.2e}", flush=True)
+        for cfg in (server.adapter.cfg, plain_adapter.cfg):
+            lp = tree_map(lambda a, i=i: a[i:i + 1].detach()
+                          .requires_grad_(True), layers)
+            xi = x.detach().requires_grad_(True)
+            y = tx._run_periods(lp, cfg, xi, pos)
+            grads = torch.autograd.grad(y, [xi] + tree_leaves(lp), cot)
+            res.append((y.detach(), list(grads)))
+        (yk, gk), (yp, gp) = res
+        rel_y, _ = rel_abs(yk, yp)
+        rel_g, _ = rel_abs(gk, gp)
+        check(rel_y <= TOL and rel_g <= TOL,
+              f"period {i}: kernel vs plain path {rel_y}, {rel_g}")
+        out.append({"period": i, "out_rel": rel_y, "grad_rel": rel_g})
+        x = yp
+    print(f"  {len(out)} periods, kernel vs plain path: output rel <= "
+          f"{max(r['out_rel'] for r in out):.2e}, grads rel <= "
+          f"{max(r['grad_rel'] for r in out):.2e}", flush=True)
     return out
 
 
 NHSIC_KERNELS = ("rowsums_kernel", "stats_kernel", "sum_partials_kernel",
                  "grad_kernel")
+FLASH_KERNELS = ("flash_fwd_kernel",)
 
 
 def step_profile(torch, server, steps=5):
@@ -352,10 +676,13 @@ def step_profile(torch, server, steps=5):
         busy = sum(by_name.values())
         nhsic = sum(v for k, v in by_name.items()
                     if any(n in k for n in NHSIC_KERNELS))
+        flash = sum(v for k, v in by_name.items()
+                    if any(n in k for n in FLASH_KERNELS))
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         row = {"stage": t, "wall_ms_per_step": wall_ms,
                "device_busy_ms_per_step": busy if by_name else None,
                "nhsic_kernels_ms_per_step": nhsic if by_name else None,
+               "flash_kernel_ms_per_step": flash if by_name else None,
                "idle_share": 1.0 - busy / wall_ms if by_name else None,
                "device_kernels_per_step": sum(
                    1 for e in prof.events()
@@ -364,7 +691,8 @@ def step_profile(torch, server, steps=5):
         out.append(row)
         if by_name:
             print(f"  stage {t}: {wall_ms:.2f} ms/step wall, device busy "
-                  f"{busy:.2f} ms (nHSIC kernels {nhsic:.3f} ms), idle "
+                  f"{busy:.2f} ms (nHSIC kernels {nhsic:.3f} ms, flash "
+                  f"kernel {flash:.3f} ms), idle "
                   f"{row['idle_share']:.1%}, "
                   f"{row['device_kernels_per_step']:.0f} device ops/step",
                   flush=True)
@@ -383,7 +711,13 @@ def main():
     import numpy as np
 
     from repro_torch.core import hsic
+    from repro_torch.core.progressive import make_adapter
+    from repro_torch.kernels.build import build_libraries
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.hsic_gram import kernel, ops, ref
+    kernels = (kernel, fkernel)
 
     smi = smi_line()
     print(smi, flush=True)
@@ -396,38 +730,64 @@ def main():
           flush=True)
 
     t0 = time.perf_counter()
-    kernel.library()
+    build_libraries([k.SOURCE for k in kernels])
+    for k in kernels:
+        k.library()
     build_s = time.perf_counter() - t0
-    print(f"built {os.path.relpath(kernel.SOURCE, ROOT)} in {build_s:.2f} s",
-          flush=True)
+    built = ", ".join(os.path.relpath(k.SOURCE, ROOT) for k in kernels)
+    print(f"built {built} in {build_s:.2f} s", flush=True)
 
     print("kernel phase", flush=True)
     max_abs = kernel_phase(torch, kernel, ops, ref, hsic)
+    max_abs["flash_attention_fwd"] = flash_phase(torch, fkernel, fops, fref)
     timing = timing_phase(torch, kernel, ref, hsic)
-    print("main path", flush=True)
-    server, rounds, counts = main_path(torch, kernel, np)
+    timing.append(flash_timing(torch, fkernel, fref))
+
+    print("main path 1: ResNet18", flush=True)
+    server, rounds, counts = main_path(torch, kernels, np)
     print("step check", flush=True)
     steps = step_check(torch, server)
     print("step profile", flush=True)
     profiles = step_profile(torch, server)
+    del server
 
-    source = os.path.relpath(kernel.SOURCE, ROOT)
+    print("main path 2: ViT-12", flush=True)
+    vserver, vrounds, vcounts, vacc = vit_main_path(torch, kernels, np)
+    print("step check", flush=True)
+    plain = make_adapter(dataclasses.replace(vserver.adapter.cfg,
+                                             use_flash_kernel=False),
+                         vserver.adapter.plan.num_stages)
+    vsteps = step_check(torch, vserver, plain, sensitivity=True)
+    print("period check", flush=True)
+    vperiods = period_check(torch, vserver, plain)
+    print("step profile", flush=True)
+    vprofiles = step_profile(torch, vserver)
+
+    launches = {n: counts.get(n, 0) + vcounts[n] for n in vcounts}
+    sources = {n: os.path.relpath(k.SOURCE, ROOT) for k in kernels
+               for n in k.LAUNCHES}
     replaces = {"nhsic_rowsums":
                 "src/repro/kernels/hsic_gram/kernel.py:232",
                 "nhsic_stats_feats":
                 "src/repro/kernels/hsic_gram/kernel.py:304",
-                "nhsic_grad": "src/repro/kernels/hsic_gram/kernel.py:403"}
-    kernels = []
-    for n in kernel.LAUNCHES:
-        row = next(r for r in timing if r["name"] == n
-                   and tuple(r["shape"]) == TIMED_SHAPE)
-        kernels.append({"name": n, "route": "cuda", "source": source,
-                        "replaces": replaces[n], "launches": counts[n],
-                        "max_abs_err": max_abs[n], "ms": row["ms"],
-                        "plain_ms": row["plain_ms"],
-                        "bound_ms": row["bound_ms"],
-                        "bound_by": row["bound_by"], "library_ms": None,
-                        "shape": row["shape"]})
+                "nhsic_grad": "src/repro/kernels/hsic_gram/kernel.py:403",
+                "flash_attention_fwd":
+                "src/repro/kernels/flash_attention/kernel.py:127"}
+    timed = {n: next(r for r in timing if r["name"] == n
+                     and tuple(r["shape"]) == TIMED_SHAPE)
+             for n in kernel.LAUNCHES}
+    timed["flash_attention_fwd"] = timing[-1]
+    out_kernels = []
+    for n, row in timed.items():
+        out_kernels.append({
+            "name": n, "route": "cuda", "source": sources[n],
+            "replaces": replaces[n], "launches": launches[n],
+            "max_abs_err": max_abs[n], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row.get("library_ms"), "shape": row["shape"],
+            "launches_by_path": {"resnet18": counts.get(n, 0),
+                                 "vit12": vcounts[n]}})
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
@@ -435,10 +795,14 @@ def main():
         json.dump({"smi": smi, "torch": torch.__version__,
                    "build_seconds": build_s, "timing": timing,
                    "rounds": rounds, "launches": counts, "step_check": steps,
-                   "step_profile": profiles, "kernels": kernels,
-                   "device": device}, f, indent=1)
+                   "step_profile": profiles,
+                   "vit": {"rounds": vrounds, "launches": vcounts,
+                           "test_acc": vacc, "step_check": vsteps,
+                           "period_check": vperiods,
+                           "step_profile": vprofiles},
+                   "kernels": out_kernels, "device": device}, f, indent=1)
     print(smi, flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": out_kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 

@@ -34,9 +34,10 @@ def to_device(tree, device: torch.device):
     return torch.as_tensor(tree).to(device)
 
 
-def check_kernel_inputs(name: str, device: torch.device, **tensors) -> None:
-    """Raise unless every tensor lies on ``device`` (a CUDA device), is
-    float32 and contiguous: what the CUDA kernels take."""
+def check_kernel_inputs(name: str, device: torch.device, *,
+                        dtypes=(torch.float32,), **tensors) -> None:
+    """Raise unless every tensor lies on ``device`` (a CUDA device), has
+    one of ``dtypes`` and is contiguous: what the CUDA kernels take."""
     if device.type != "cuda":
         raise ValueError(f"{name}: kernel inputs must be CUDA tensors, got "
                          f"{device}")
@@ -48,8 +49,8 @@ def check_kernel_inputs(name: str, device: torch.device, **tensors) -> None:
         if t.device != device:
             raise ValueError(f"{name}: {arg} is on {t.device}, expected "
                              f"{device}")
-        if t.dtype != torch.float32:
+        if t.dtype not in dtypes:
             raise ValueError(f"{name}: {arg} has dtype {t.dtype}, expected "
-                             f"torch.float32")
+                             f"one of {', '.join(map(str, dtypes))}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} is not contiguous")

@@ -26,8 +26,26 @@ from repro_torch.common.tree import tree_leaves, tree_map
 class ParamDef:
     shape: tuple
     dtype: torch.dtype = torch.float32
-    init: str = "normal"          # normal | zeros | ones
+    init: str = "normal"          # normal | zeros | ones | embed
     scale: Optional[float] = None  # stddev override (default fan-in)
+
+    def with_prefix(self, n: int) -> "ParamDef":
+        """Prepend a stacked layer axis of size ``n``."""
+        return dataclasses.replace(self, shape=(n, *self.shape))
+
+    def __getitem__(self, idx) -> "ParamDef":
+        """Slice the leading (stacked) axis, as ``tensor[s:e]`` does, so
+        ParamDef trees go through the same ``split_stage`` as params."""
+        if isinstance(idx, slice):
+            n = len(range(*idx.indices(self.shape[0])))
+            return dataclasses.replace(self, shape=(n, *self.shape[1:]))
+        raise TypeError("ParamDef only supports slice indexing")
+
+
+def stack_defs(tree, n: int):
+    """Stack every ParamDef in ``tree`` over a new leading axis of size
+    ``n``."""
+    return tree_map(lambda d: d.with_prefix(n), tree)
 
 
 def nbytes(tree) -> int:
@@ -44,6 +62,9 @@ def _init_leaf(gen: torch.Generator, d: ParamDef) -> torch.Tensor:
         return torch.zeros(d.shape, dtype=d.dtype)
     if d.init == "ones":
         return torch.ones(d.shape, dtype=d.dtype)
+    if d.init == "embed":
+        scale = d.scale if d.scale is not None else 0.02
+        return (torch.randn(d.shape, generator=gen) * scale).to(d.dtype)
     if d.scale is not None:
         scale = d.scale
     else:

@@ -35,18 +35,20 @@ def lambdas(hp: CurriculumHP, t: int, num_stages: int):
             hp.lambda2_max * (0.25 + 0.75 * frac))
 
 
-def task_ce(logits, labels):
-    """Cross-entropy; the port has the classification layout only."""
-    if logits.dim() != 2:
-        raise ValueError("the port's task_ce takes (B, classes) logits")
-    return cross_entropy(logits, labels)
+def task_ce(logits, labels, cfg=None, loss_mask=None):
+    """Cross-entropy over (B, classes) logits (classification), or over
+    (B, S, V) logits of the ``lm`` layout, masked by ``loss_mask`` where
+    given."""
+    if getattr(cfg, "task", "lm") == "classify" or logits.dim() == 2:
+        return cross_entropy(logits, labels)
+    return cross_entropy(logits, labels, loss_mask)
 
 
 def curriculum_loss(logits, feats, batch, cfg, hp: CurriculumHP, t: int,
                     num_stages: int, num_classes: int):
     """Eq. 4 on one local batch. Returns (loss, metrics)."""
     labels = batch["labels"]
-    ce = task_ce(logits, labels)
+    ce = task_ce(logits, labels, cfg, feats.get("loss_mask"))
     metrics = {"ce": ce}
     loss = ce
     if hp.enabled and feats.get("z_proj") is not None:

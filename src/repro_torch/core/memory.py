@@ -1,12 +1,14 @@
-"""Analytic training-memory model, CNN branch (port of
-``repro.core.memory``).
+"""Analytic training-memory model (port of ``repro.core.memory``).
 
     M(t) = params(all, fwd) + grads(trainable) + opt_state(trainable)
          + activations(trainable segment)
 
 Frozen-prefix activations are not retained (the prefix runs without
 gradient), which is the NeuLite saving.  The fleet's memory budgets and the
-cohort draw depend on these byte counts, which equal the reference's.
+cohort draw depend on these byte counts, which equal the reference's, on
+transformer periods and on CNN units.  As in the reference, a transformer's
+activation bytes scale with ``seq``, which the server sets to 0 for image
+data: an image model is charged no activation bytes.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import dataclasses
 
 from repro_torch.common import paramdef as PD
 from repro_torch.models import cnn as cnn_mod
+from repro_torch.models.config import ModelConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +36,20 @@ class MemoryEstimate:
         return self.total / 1e9
 
 
+def _tx_act_bytes_per_unit(cfg: ModelConfig, batch: int, seq: int) -> int:
+    """Activation bytes one period is charged: the saved carry plus one
+    period's live working set, amortized over the pattern (the reference's
+    accounting, which assumes recomputation inside a period)."""
+    bytes_el = cfg.param_dtype.itemsize
+    carry = batch * seq * cfg.d_model * bytes_el
+    work = 0
+    for _kind, ffn in cfg.pattern:      # every ported kind is "attn"
+        work += 4 * batch * seq * cfg.d_model * bytes_el
+        if ffn == "mlp":
+            work += 2 * batch * seq * cfg.d_ff * bytes_el
+    return carry + work // max(len(cfg.pattern), 1)
+
+
 def _cnn_act_bytes(ccfg: cnn_mod.CNNConfig, batch: int, unit_range) -> int:
     hw = ccfg.image_size
     total = 0
@@ -44,27 +61,29 @@ def _cnn_act_bytes(ccfg: cnn_mod.CNNConfig, batch: int, unit_range) -> int:
     return total
 
 
-def _check_cnn(adapter) -> None:
-    if adapter.kind != "cnn":
-        raise ValueError("the port's memory model has the CNN branch only")
-
-
 def estimate_stage_memory(adapter, t: int, batch: int, seq: int = 0,
                           opt_slots: int = 1) -> MemoryEstimate:
     """opt_slots: momentum=1 (SGD), adam=2.  ``seq`` is unused by CNNs."""
-    _check_cnn(adapter)
     _frozen_defs, trainable_defs = adapter.split_stage(adapter.defs, t)
     train_bytes = PD.nbytes(trainable_defs)
     opt = opt_slots * 4 * PD.nparams(trainable_defs)   # fp32 slots
-    (_, _), (b0, _b1), (_a0, a1) = adapter.plan.stage_ranges(t)
-    act = _cnn_act_bytes(adapter.cfg, batch, range(b0, a1))
+    (_, _), (b0, b1), (a0, a1) = adapter.plan.stage_ranges(t)
+    if adapter.kind == "transformer":
+        act = ((b1 - b0) + (a1 - a0)) * _tx_act_bytes_per_unit(
+            adapter.cfg, batch, seq)
+    else:
+        act = _cnn_act_bytes(adapter.cfg, batch, range(b0, a1))
     return MemoryEstimate(PD.nbytes(adapter.defs), train_bytes, opt, act)
 
 
 def estimate_full_memory(adapter, batch: int, seq: int = 0,
                          opt_slots: int = 1) -> MemoryEstimate:
-    _check_cnn(adapter)
     params_bytes = PD.nbytes(adapter.defs["model"])
     opt = opt_slots * 4 * PD.nparams(adapter.defs["model"])
-    act = _cnn_act_bytes(adapter.cfg, batch, range(0, adapter.plan.num_units))
+    if adapter.kind == "transformer":
+        act = adapter.cfg.num_periods * _tx_act_bytes_per_unit(
+            adapter.cfg, batch, seq)
+    else:
+        act = _cnn_act_bytes(adapter.cfg, batch,
+                             range(0, adapter.plan.num_units))
     return MemoryEstimate(params_bytes, params_bytes, opt, act)

@@ -1,7 +1,8 @@
-"""Progressive-training engine: the CNN adapter and the stage train step
-(port of ``repro.core.progressive``).
+"""Progressive-training engine: the transformer and CNN adapters and the
+stage train step (port of ``repro.core.progressive``).
 
-An ``Adapter`` binds a model family to the NeuLite engine.  It owns the
+An ``Adapter`` binds a model family (stacked transformer periods or a CNN
+unit list) to the NeuLite engine.  It owns the
 combined ParamDef tree (model, output-module surrogates, nHSIC projectors),
 ``split_stage(params, t) -> (frozen, trainable)``, ``merge_stage(params,
 trainable, t)`` and ``stage_apply(frozen, trainable, inputs)``.  Params are
@@ -25,12 +26,14 @@ from repro_torch.common.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.core import curriculum as cur
 from repro_torch.core.blocks import BlockPlan, make_plan
 from repro_torch.models import cnn as cnn_mod
+from repro_torch.models import model as tx
+from repro_torch.models.config import ModelConfig
 from repro_torch.optim.optimizers import apply_updates
 
 
 @dataclasses.dataclass
 class Adapter:
-    kind: str                       # "cnn"
+    kind: str                       # "transformer" | "cnn"
     cfg: Any
     plan: BlockPlan
     defs: dict
@@ -44,6 +47,89 @@ class Adapter:
         return PD.init_params(seed, self.defs, device)
 
 
+# =========================================================================== #
+# transformer adapter (stacked periods)
+# =========================================================================== #
+def neulite_defs(cfg: ModelConfig, plan: BlockPlan) -> dict:
+    return {"model": tx.model_defs(cfg),
+            "surrogates": tx.surrogate_defs(cfg, plan.num_stages),
+            "projector": tx.projector_defs(cfg)}
+
+
+def _slice_tree(tree, s: int, e: int):
+    """Rows [s, e) of the leading axis of every leaf (views of tensors;
+    sliced ParamDefs).  An empty range gives empty leaves."""
+    return tree_map(lambda x: x[s:e], tree)
+
+
+def _setslice_tree(full, part, s: int):
+    """``full`` with rows [s, s + n) of every leaf replaced by ``part``'s
+    n rows, as new tensors: the views that ``split_stage`` handed out are
+    not written."""
+    def put(f, p):
+        n = p.shape[0]
+        if n == 0:
+            return f
+        return torch.cat([f[:s], p.to(f.dtype), f[s + n:]])
+
+    return tree_map(put, full, part)
+
+
+def make_transformer_adapter(cfg: ModelConfig, num_stages: int,
+                             boundary_units: int = 1) -> Adapter:
+    plan = make_plan(cfg.num_periods, num_stages, boundary_units)
+    defs = neulite_defs(cfg, plan)
+    T = plan.num_stages
+
+    def split_stage(params, t):
+        (f0, f1), (b0, b1), (a0, a1) = plan.stage_ranges(t)
+        layers = params["model"]["layers"]
+        frozen = {}
+        trainable = {}
+        (trainable if t == 0 else frozen)["embed"] = params["model"]["embed"]
+        frozen["prefix"] = _slice_tree(layers, f0, f1)
+        trainable["boundary"] = _slice_tree(layers, b0, b1)
+        trainable["active"] = _slice_tree(layers, a0, a1)
+        trainable["surrogates"] = (
+            _slice_tree(params["surrogates"], t, T - 1) if t < T - 1
+            else None)
+        trainable["projector"] = params["projector"]
+        trainable["final_norm"] = params["model"]["final_norm"]
+        trainable["head"] = params["model"]["head"]
+        return frozen, trainable
+
+    def merge_stage(params, trainable, t):
+        (_, _), (b0, _b1), (a0, _a1) = plan.stage_ranges(t)
+        params = dict(params)
+        model = dict(params["model"])
+        layers = _setslice_tree(model["layers"], trainable["boundary"], b0)
+        model["layers"] = _setslice_tree(layers, trainable["active"], a0)
+        if trainable.get("embed") is not None:
+            model["embed"] = trainable["embed"]
+        model["final_norm"] = trainable["final_norm"]
+        model["head"] = trainable["head"]
+        params["model"] = model
+        if trainable.get("surrogates") is not None:
+            params["surrogates"] = _setslice_tree(
+                params["surrogates"], trainable["surrogates"], t)
+        params["projector"] = trainable["projector"]
+        return params
+
+    def stage_apply(frozen, trainable, inputs):
+        return tx.stage_apply(frozen, trainable, cfg, inputs)
+
+    def forward_eval(params, inputs):
+        return tx.forward(params["model"], cfg, inputs)
+
+    return Adapter(kind="transformer", cfg=cfg, plan=plan, defs=defs,
+                   num_classes=cfg.vocab_size, split_stage=split_stage,
+                   merge_stage=merge_stage, stage_apply=stage_apply,
+                   forward_eval=forward_eval)
+
+
+# =========================================================================== #
+# CNN adapter (unit lists)
+# =========================================================================== #
 def make_cnn_adapter(ccfg: cnn_mod.CNNConfig, num_stages: int,
                      boundary_units: int = 1) -> Adapter:
     metas = cnn_mod.unit_meta(ccfg)
@@ -112,10 +198,9 @@ def make_cnn_adapter(ccfg: cnn_mod.CNNConfig, num_stages: int,
 
 
 def make_adapter(cfg, num_stages: int, boundary_units: int = 1) -> Adapter:
-    if not isinstance(cfg, cnn_mod.CNNConfig):
-        raise ValueError("the port has the CNN adapter only; the transformer "
-                         "adapter comes with a later part of the port")
-    return make_cnn_adapter(cfg, num_stages, boundary_units)
+    if isinstance(cfg, cnn_mod.CNNConfig):
+        return make_cnn_adapter(cfg, num_stages, boundary_units)
+    return make_transformer_adapter(cfg, num_stages, boundary_units)
 
 
 def make_stage_loss(adapter: Adapter, hp: cur.CurriculumHP, t: int):
@@ -144,8 +229,13 @@ def make_stage_step(adapter: Adapter, optimizer, hp: cur.CurriculumHP,
     def train_step(opt_state, trainable, frozen, batch, global_ref):
         live = tree_map(lambda p: p.detach().requires_grad_(True), trainable)
         loss, metrics = loss_fn(live, frozen, batch, global_ref)
-        grads = tree_unflatten(live, torch.autograd.grad(
-            loss, tree_leaves(live)))
+        leaves = tree_leaves(live)
+        # a leaf the loss does not reach (an empty boundary slice) gets a
+        # zero gradient, as under jax.grad
+        grads = tree_unflatten(live, [
+            torch.zeros_like(p) if g is None else g for p, g in zip(
+                leaves, torch.autograd.grad(loss, leaves,
+                                            allow_unused=True))])
         updates, opt_state = optimizer.update(grads, opt_state, trainable)
         trainable = apply_updates(trainable, updates)
         metrics = {k: v.detach() if torch.is_tensor(v) else v

@@ -115,15 +115,22 @@ class NeuLiteServer:
             self.schedule = PlateauSchedule(T)
         else:
             self.schedule = SequentialSchedule(T, flc.rounds_per_stage)
-        full_mem = estimate_full_memory(adapter, flc.batch_size)
+        full_mem = estimate_full_memory(adapter, flc.batch_size,
+                                        seq=self._seq_len())
         self.fleet = Fleet(flc.seed, flc.n_devices, full_mem.total)
         self.selector = make_policy(flc.selection)
         self.history: List[RoundResult] = []
         self.next_round: int = 0
 
+    def _seq_len(self) -> int:
+        """Sequence length for the memory model (0 for image tasks)."""
+        ds = self.batchers[0].ds if self.batchers else None
+        toks = getattr(ds, "tokens", None)
+        return 0 if toks is None else toks.shape[1] - 1
+
     def stage_mem_requirement(self, t: int) -> int:
-        return estimate_stage_memory(self.adapter, t,
-                                     self.flc.batch_size).total
+        return estimate_stage_memory(self.adapter, t, self.flc.batch_size,
+                                     seq=self._seq_len()).total
 
     def run_round(self, r: int) -> RoundResult:
         flc = self.flc

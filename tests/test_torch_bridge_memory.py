@@ -71,3 +71,98 @@ def test_port_init_matches_defs_and_seed():
         assert a.equal(b)
     gn = p0["model"]["units"][0]["gn"]
     assert gn["scale"].eq(1).all() and gn["bias"].eq(0).all()
+
+
+def _assert_round_trip(ref_np):
+    port = bridge.from_reference(ref_np, "cpu")
+    back = bridge.to_reference(port)
+    ref_leaves, ref_def = jax.tree.flatten(ref_np)
+    back_leaves, back_def = jax.tree.flatten(back)
+    assert ref_def == back_def
+    for a, b in zip(ref_leaves, back_leaves, strict=True):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    return port
+
+
+def test_bridge_keeps_transformer_layouts(tx_setup):
+    """The stacked 4-D attention weights cross unchanged (only CNN conv
+    weights are permuted), on tx_setup and on the shrunk ViT."""
+    from repro.configs.paper_models import vit
+    _, params, _ = tx_setup
+    vit_params = r_make_adapter(vit(num_classes=10, image_size=32,
+                                    num_layers=6, d_model=48), 3) \
+        .init_params(jax.random.PRNGKey(0))
+    for ref_params in (params, vit_params):
+        ref_np = jax.device_get(ref_params)
+        port = _assert_round_trip(ref_np)
+        mixer = ref_np["model"]["layers"]["sub0"]["mixer"]
+        for k in ("wq", "wk", "wv", "wo"):
+            assert mixer[k].ndim == 4
+            np.testing.assert_array_equal(
+                port["model"]["layers"]["sub0"]["mixer"][k].numpy(),
+                mixer[k])
+
+
+def _tx_adapters(which, stages):
+    from repro.configs.paper_models import vit as r_vit
+    from repro.models.config import ModelConfig as RModelConfig
+    from repro_torch.configs.paper_models import vit as t_vit
+    from repro_torch.models.config import ModelConfig as TModelConfig
+    if which == "vit12":
+        return r_make_adapter(r_vit(), stages), t_make_adapter(t_vit(), stages)
+    kw = dict(name="t", family="dense", num_layers=4, d_model=32,
+              num_heads=2, num_kv_heads=2, d_ff=64, vocab_size=64,
+              dtype="float32")                   # conftest's tx_setup
+    return (r_make_adapter(RModelConfig(**kw), stages),
+            t_make_adapter(TModelConfig(**kw), stages))
+
+
+@pytest.mark.parametrize("which,stages,batch,seq", [
+    ("vit12", 3, 32, 0),        # the paper's ViT-12, image data: seq 0
+    ("vit12", 3, 32, 8),
+    ("tx_setup", 2, 8, 0),
+    ("tx_setup", 2, 8, 8),      # tx_setup's token windows: seq 8
+])
+def test_transformer_memory_model_identical(which, stages, batch, seq):
+    from repro.common import paramdef as r_pd
+    ra, ta = _tx_adapters(which, stages)
+    assert r_pd.nbytes(ra.defs) == t_pd.nbytes(ta.defs)
+    assert r_pd.nparams(ra.defs) == t_pd.nparams(ta.defs)
+    for t in range(stages):
+        r_est = r_mem.estimate_stage_memory(ra, t, batch, seq)
+        t_est = t_mem.estimate_stage_memory(ta, t, batch, seq)
+        assert (r_est.params_bytes, r_est.grads_bytes, r_est.opt_bytes,
+                r_est.act_bytes) == (t_est.params_bytes, t_est.grads_bytes,
+                                     t_est.opt_bytes, t_est.act_bytes)
+        # the reference charges a transformer no activations at seq 0
+        assert (t_est.act_bytes == 0) == (seq == 0)
+    r_full = r_mem.estimate_full_memory(ra, batch, seq)
+    t_full = t_mem.estimate_full_memory(ta, batch, seq)
+    assert (r_full.total, r_full.act_bytes) == (t_full.total,
+                                                t_full.act_bytes)
+
+
+def test_server_passes_sequence_length_to_memory_model(tx_setup):
+    """Text data: the fleet and every stage requirement use seq =
+    tokens.shape[1] - 1, as the reference's server does."""
+    from repro.data import make_lm_dataset
+    from repro.federated.server import FLConfig as RFLConfig
+    from repro.federated.server import NeuLiteServer as RServer
+    from repro_torch.federated.server import FLConfig as TFLConfig
+    from repro_torch.federated.server import NeuLiteServer as TServer
+    ra, ta = _tx_adapters("tx_setup", 2)
+    ds = make_lm_dataset(0, 96, 8, 64)
+    idx = np.arange(len(ds))
+    clients = [ds.subset(idx[i::3]) for i in range(3)]
+    fl = dict(n_devices=10, clients_per_round=2, batch_size=8, seed=0)
+    ref = RServer(ra, clients, RFLConfig(**fl), data_kind="lm")
+    port = TServer(ta, clients, TFLConfig(**fl), data_kind="lm",
+                   params=ta.init_params(0, "cpu"), device="cpu")
+    assert port._seq_len() == ref._seq_len() == 8
+    for t in range(2):
+        assert port.stage_mem_requirement(t) == ref.stage_mem_requirement(t)
+        assert port.stage_mem_requirement(t) > \
+            t_mem.estimate_stage_memory(ta, t, 8).total
+    assert [vars(port.fleet.profile(i)) for i in range(10)] == \
+        [vars(ref.fleet.profile(i)) for i in range(10)]

@@ -1,6 +1,6 @@
-"""The streaming nHSIC CUDA kernels against their plain versions, on the
-card.  Marked ``cuda``: without a card every test here skips (the kernels
-have no CPU mode).  On a machine with one:
+"""The CUDA kernels (streaming nHSIC, flash-attention forward) against
+their plain versions, on the card.  Marked ``cuda``: without a card every
+test here skips (the kernels have no CPU mode).  On a machine with one:
 
     PYTHONPATH=src python -m pytest -q --noconftest \
         tests/test_torch_kernels_cuda.py
@@ -8,13 +8,17 @@ have no CPU mode).  On a machine with one:
 (``--noconftest``: ``tests/conftest.py`` imports JAX, which a machine with
 the card need not have.)
 
-Bar: scale-relative 1e-3 in f32 (``analysis/pallas_audit.py``'s), TF32 off.
+Bar: scale-relative 1e-3 in f32 and 2e-2 in bf16
+(``analysis/pallas_audit.py``'s), TF32 off.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import hsic
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.hsic_gram import kernel, ops, ref
 
 pytestmark = pytest.mark.cuda
@@ -108,3 +112,78 @@ def test_wrappers_raise_on_bad_inputs(cuda):
         kernel.nhsic_rowsums(x.double(), z.double(), s2.double())
     with pytest.raises(ValueError, match="contiguous"):
         kernel.nhsic_rowsums(x.t().contiguous().t(), z, s2)
+
+
+# (B, Sq, Skv, H, KV, D, causal, window, dtype): the ViT-12 shape, the
+# reference's AUDIT_CASES (bf16, ragged S=200, windowed), GQA, causal with
+# Sq != Skv, and causal+window with rows that have no allowed key
+FLASH_CASES = [
+    (32, 64, 64, 6, 6, 64, False, 0, "float32"),
+    (2, 1024, 1024, 2, 2, 64, True, 0, "float32"),
+    (2, 512, 512, 2, 2, 64, True, 0, "bfloat16"),
+    (1, 200, 200, 2, 2, 64, True, 0, "float32"),
+    (1, 512, 512, 1, 1, 32, False, 64, "float32"),
+    (2, 96, 96, 4, 2, 64, True, 0, "float32"),
+    (2, 70, 150, 4, 2, 64, True, 0, "float32"),
+    (2, 150, 70, 4, 4, 32, True, 0, "float32"),
+    (1, 41, 14, 2, 2, 16, True, 4, "float32"),
+    (2, 130, 100, 4, 2, 128, True, 7, "float32"),
+]
+
+
+def _flash_inputs(case, device):
+    B, Sq, Skv, H, KV, D, _, _, dtype = case
+    rng = np.random.default_rng(Sq * 1000 + Skv)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(device, dt) for s in [(B, Sq, H, D), (B, Skv, KV, D),
+                                         (B, Skv, KV, D)])
+    return q, k, v
+
+
+@pytest.mark.parametrize("case", FLASH_CASES,
+                         ids=[str(c) for c in FLASH_CASES])
+def test_flash_kernel_matches_plain_version(cuda, case):
+    causal, window, dtype = case[6], case[7], case[8]
+    q, k, v = _flash_inputs(case, cuda)
+    fa_kernel.reset_launches()
+    got = fa_kernel.flash_attention_fwd(q, k, v, causal=causal,
+                                        window=window)
+    want = fa_ref.attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert fa_kernel.LAUNCHES == {"flash_attention_fwd": 1}
+    tol = TOL if dtype == "float32" else 2e-2
+    assert _rel(got.float(), want.float()) <= tol
+    mask = fa_ref.attention_mask(case[1], case[2], causal, window, cuda)
+    empty = ~mask.any(dim=1)
+    assert bool((got[:, empty] == 0).all())
+
+
+@pytest.mark.parametrize("case", [FLASH_CASES[0], FLASH_CASES[5],
+                                  FLASH_CASES[8]],
+                         ids=[str(c) for c in (FLASH_CASES[0], FLASH_CASES[5],
+                                               FLASH_CASES[8])])
+def test_flash_autograd_matches_plain_path(cuda, case):
+    causal, window = case[6], case[7]
+    q, k, v = _flash_inputs(case, cuda)
+    g = torch.randn(q.shape, device=cuda, generator=torch.Generator(
+        cuda).manual_seed(0))
+    a = [t.clone().requires_grad_() for t in (q, k, v)]
+    b = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa_ops.flash_attention(*a, causal=causal, window=window).backward(g)
+    fa_ref.attention_ref(*b, causal=causal, window=window).backward(g)
+    for x, y in zip(a, b):
+        assert _rel(x.grad, y.grad) <= TOL
+        assert torch.isfinite(x.grad).all()
+
+
+def test_flash_wrapper_raises_on_bad_inputs(cuda):
+    q, k, v = _flash_inputs(FLASH_CASES[5], cuda)
+    with pytest.raises(ValueError, match="is on"):
+        fa_kernel.flash_attention_fwd(q, k.cpu(), v, causal=True)
+    with pytest.raises(ValueError, match="dtype"):
+        fa_kernel.flash_attention_fwd(q.double(), k.double(), v.double(),
+                                      causal=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa_kernel.flash_attention_fwd(q.transpose(1, 2), k, v, causal=True)

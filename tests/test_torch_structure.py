@@ -31,8 +31,8 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 def test_port_file_list_is_complete():
     names = {p.name for p in PORT_FILES}
-    assert {"nhsic.cu"} <= {p.name for p in
-                            (ROOT / "src" / "repro_torch").rglob("*.cu")}
+    assert {"nhsic.cu", "flash_attention.cu"} <= {
+        p.name for p in (ROOT / "src" / "repro_torch").rglob("*.cu")}
     assert {"chip_smoke.py", "bridge.py", "server.py", "ops.py"} <= names
 
 
@@ -76,10 +76,45 @@ def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
                                "nhsic_grad": 0}
 
 
+def test_flash_wrapper_on_cpu_takes_the_plain_version_and_counts_nothing():
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
+    kernel.reset_launches()
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 5, 4, 8, generator=g)
+    k = torch.randn(2, 7, 2, 8, generator=g)
+    v = torch.randn(2, 7, 2, 8, generator=g)
+    assert torch.equal(kernel.flash_attention_fwd(q, k, v, causal=True),
+                       ref.attention_ref(q, k, v, causal=True))
+    assert torch.equal(ops.flash_attention(q, k, v, causal=False, window=3),
+                       ref.attention_ref(q, k, v, causal=False, window=3))
+    assert kernel.LAUNCHES == {"flash_attention_fwd": 0}
+
+
 def test_kernel_inputs_are_checked():
     from repro_torch.common.device import check_kernel_inputs
     with pytest.raises(ValueError, match="CUDA"):
         check_kernel_inputs("k", torch.device("cpu"), x=torch.zeros(2))
+
+
+def test_unported_model_config_fields_raise():
+    from repro_torch.configs.paper_models import vit
+    from repro_torch.models.config import ModelConfig
+    base = dict(name="t", family="dense", num_layers=2, d_model=16,
+                num_heads=2, num_kv_heads=2, d_ff=32, vocab_size=8)
+    ModelConfig(**base)
+    vit()
+    for kw, what in [({"attn_impl": "mla"}, "MLA"),
+                     ({"mla": object()}, "MLA"),
+                     ({"moe": object()}, "MoE"),
+                     ({"pattern": (("attn", "moe"),)}, "MoE"),
+                     ({"pattern": (("mamba", "mlp"),)}, "mamba"),
+                     ({"pattern": (("mlstm", "none"),)}, "mlstm"),
+                     ({"pattern": (("slstm", "none"),)}, "slstm"),
+                     ({"modality": "audio"}, "audio"),
+                     ({"modality": "vlm"}, "vlm"),
+                     ({"qk_norm": True}, "qk-norm")]:
+        with pytest.raises(ValueError, match=f"not yet ported.*{what}"):
+            ModelConfig(**base, **kw)
 
 
 def test_unported_archs_and_runtimes_raise():
