@@ -3,18 +3,22 @@
 
     python3 chip_smoke.py
 
-1. Builds the CUDA kernels (``kernels/hsic_gram/csrc/nhsic.cu``, K1-K3, and
-   ``kernels/flash_attention/csrc/flash_attention.cu``, K4) with ``nvcc``,
-   one compiler per source, all started together; prints the build time.
+1. Builds the CUDA kernels (``kernels/hsic_gram/csrc/nhsic.cu``, K1-K3,
+   ``kernels/flash_attention/csrc/flash_attention.cu``, K4, and
+   ``kernels/slstm_scan/csrc/slstm_scan.cu``, K5) with ``nvcc``, one
+   compiler per source, all started together; prints the build time.
 2. Kernel phase: each kernel's wrapper against its plain PyTorch version on
    the card, with TF32 off.  K1-K3 (forward, and the autograd backward of
    nHSIC) at both main paths' shapes and at batches/widths off the 32-row
    tile; K4 at the ViT-12 shape, the reference's audit shapes (bf16, ragged
    S=200, windowed), GQA, causal with Sq != Skv, causal+window with empty
-   rows (exactly 0), and its autograd gradient.  Bar: scale-relative 1e-3
-   in f32, 2e-2 in bf16.  Times each kernel, its plain version and, for K4,
-   ``F.scaled_dot_product_attention`` as a yardstick (CUDA events, median
-   of 30 calls).
+   rows (exactly 0), and its autograd gradient; K5 (``hs`` and the four
+   final states) at the xlstm-1.3b shape, the reference's audit shapes,
+   S=1, ragged S=200, head dims 1, 3 and 48, random initial states and
+   gates up to |g| = 100, and its autograd gradient.  Bar: scale-relative
+   1e-3 in f32, 2e-2 in bf16.  Times each kernel, its plain version and,
+   for K4, ``F.scaled_dot_product_attention`` as a yardstick (CUDA events,
+   median of 30 calls).
 3. Main path 1: the port's ``NeuLiteServer`` (sequential runtime, nHSIC
    through the kernels) on the paper's ResNet18 at full width, 32x32x3,
    10 classes, batch 32, 4 stages: four rounds, one per stage, over a
@@ -30,6 +34,16 @@
    takes the plain path's own sensitivity into account, see
    ``step_check``), each of the 12 periods alone, kernel path against
    plain path (``period_check``), and the profile.
+5. Main path 3: xlstm-1.3b at full width (48 layers in 6 periods of 7
+   mLSTM + 1 sLSTM, d_model 2048, 4 heads of 512, vocab 50304, float32),
+   the sLSTM scan through K5, synthetic text at seq 256, batch 16, SGD at
+   lr 1e-4, 3 stages: three rounds, one per stage, then an evaluation.
+   K5 must launch exactly once per sLSTM layer run (2, 4, 6 per local
+   step at stages 0, 1, 2; 6 per evaluation batch), K1-K3 twice per step,
+   K4 never.  Then the step check against ``use_slstm_kernel=False`` with
+   plain nHSIC (with the plain path's own sensitivity), each of the 6
+   sLSTM sub-layers alone, kernel path against plain path
+   (``slstm_layer_check``), and the profile.
 
 Each main path is driven with the launch counts set to 0 just before it
 and read just after.  Prints the card's name and power limit, a JSON line
@@ -55,11 +69,13 @@ TOL = 1e-3
 SEED = 0
 
 # (B, Dx, Dz, linear_x): h_xz at the four ResNet18 stages, then h_yz;
-# then the ViT-12's h_xz (every stage) and h_yz
+# then the ViT-12's h_xz (every stage) and h_yz; then xlstm-1.3b's h_xz
+# (every stage) and h_yz (256 label buckets)
 MAIN_PATH_SHAPES = [(32, 3, 64, False), (32, 64, 128, False),
                     (32, 128, 256, False), (32, 256, 512, False),
                     (32, 10, 64, True), (32, 384, 384, False),
-                    (32, 100, 64, True)]
+                    (32, 100, 64, True), (16, 2048, 2048, False),
+                    (16, 256, 64, True)]
 # off the tile: B in {48, 256}, D in {1, 512}; then identical rows
 EXTRA_SHAPES = [(48, 1, 512, False), (48, 512, 1, True), (256, 1, 512, False),
                 (256, 512, 1, True), (256, 512, 512, False)]
@@ -83,12 +99,36 @@ FLASH_CASES = [FLASH_VIT,
 FLASH_GRAD_CASES = [FLASH_VIT, FLASH_CASES[5], FLASH_CASES[8]]
 BF16_TOL = 2e-2
 
+# K5: (B, S, H, Dh, random_state0, gate_scale).  The xlstm-1.3b shape, the
+# reference's audit shapes (kernels/slstm_scan/ops.py), S=1, S=200 (ragged
+# against the reference's 128-step blocks), head dims 1, 3 and 48, random
+# non-zero initial states, and gates up to |g| = 100
+SLSTM_MAIN = (16, 256, 4, 512, False, 1.0)
+SLSTM_CASES = [SLSTM_MAIN,
+               (2, 256, 2, 512, False, 1.0),
+               (2, 128, 4, 64, False, 1.0),
+               (2, 1, 4, 64, True, 1.0),
+               (2, 200, 2, 64, False, 1.0),
+               (3, 37, 3, 1, True, 1.0),
+               (3, 37, 3, 3, True, 1.0),
+               (2, 37, 2, 48, True, 1.0),
+               (16, 256, 4, 512, True, 100.0)]
+SLSTM_GRAD_CASES = [SLSTM_CASES[2], SLSTM_CASES[7]]
+STATE = ("c", "n", "m", "h")
+
 # main path sizes (a CPU rehearsal shrinks them)
 RESNET = dict(arch="resnet18", num_classes=10, image_size=32, width_mult=1.0)
 RESNET_IMAGES = 16000
 VIT = dict(num_classes=100, image_size=64, num_layers=12, d_model=384)
 VIT_IMAGES = 9600
 TEST_IMAGES = 512
+XLSTM = dict(use_slstm_kernel=True, dtype="float32")
+# SGD at the FLConfig default lr 0.05 diverges on xlstm-1.3b at the
+# reference's init, in the reference too (tests/test_torch_xlstm.py::
+# test_full_width_step_is_sensitive_and_lr_0_05_diverges)
+XLSTM_LR = 1e-4
+LM_SEQS, LM_SEQ_LEN = 3200, 256
+TEST_SEQS = 128
 
 
 class SmokeError(RuntimeError):
@@ -105,6 +145,14 @@ def smi_line():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+START = time.perf_counter()
+
+
+def phase(name):
+    """Print a phase's name with the seconds since the script started."""
+    print(f"[{time.perf_counter() - START:.1f} s] {name}", flush=True)
 
 
 def time_ms(torch, fn, runs=30, warmup=5):
@@ -150,9 +198,21 @@ def flash_work(B, Sq, Skv, H, KV, D, causal, window, dtype):
     return nbytes, 4 * pairs * D + 5 * pairs + B * Sq * H * D
 
 
+def slstm_work(B, S, H, Dh, *_):
+    """Bytes and FLOPs of one K5 call: g_in, r, b and the four initial
+    states read once, hs and the four final states written once; the four
+    recurrent products (2 Dh^2 FLOPs per gate, step, row and head) plus
+    ~30 FLOPs of gate arithmetic per (step, row, head, column)."""
+    nbytes = 4 * (B * S * 4 * H * Dh + 4 * H * Dh * Dh + 4 * H * Dh
+                  + 4 * B * H * Dh + B * S * H * Dh + 4 * B * H * Dh)
+    return nbytes, 2 * B * S * H * 4 * Dh * Dh + 30 * B * S * H * Dh
+
+
 def work(name, B, Dx, Dz, lx, *rest, lz=False):
     if name == "flash_attention_fwd":
         return flash_work(B, Dx, Dz, lx, *rest)
+    if name == "slstm_scan_fwd":
+        return slstm_work(B, Dx, Dz, lx, *rest)
     grams = gram_flops(B, Dx, lx) + gram_flops(B, Dz, lz)
     act = 4 * B * (Dx + Dz)
     if name == "nhsic_rowsums":
@@ -350,6 +410,84 @@ def flash_timing(torch, fkernel, fref):
             "bound_by": b_by}
 
 
+def slstm_inputs(torch, case):
+    B, S, H, Dh, random_state0, scale = case
+    g = torch.Generator().manual_seed(B * 1000 + S * 10 + Dh)
+    if scale > 1:
+        g_in = (torch.rand((B, S, 4, H, Dh), generator=g) * 2 - 1) * scale
+    else:
+        g_in = torch.randn((B, S, 4, H, Dh), generator=g)
+    r = torch.randn((4, H, Dh, Dh), generator=g) * (0.5 / math.sqrt(Dh))
+    b = torch.randn((4, H, Dh), generator=g) * 0.1
+    if random_state0:
+        st = [torch.randn((B, H, Dh), generator=g),
+              torch.randn((B, H, Dh), generator=g).abs() + 0.1,
+              torch.randn((B, H, Dh), generator=g),
+              torch.randn((B, H, Dh), generator=g) * 0.5]
+    else:
+        z = torch.zeros((B, H, Dh))
+        st = [z, z, z - 30.0, z]
+    return [t.cuda() for t in (g_in, r, b, *st)]
+
+
+def slstm_phase(torch, skernel, sops, sref):
+    """K5 against its plain version at every listed shape: ``hs`` and the
+    four final states.  Then its autograd gradient (to g_in, r, b and the
+    initial state, for a cotangent of every output) against autograd of
+    the plain version."""
+    max_abs = 0.0
+    for case in SLSTM_CASES:
+        g_in, r, b, *st = slstm_inputs(torch, case)
+        got = skernel.slstm_scan_fwd(g_in, r, b, *st)
+        hs, fin = sref.slstm_scan_ref(g_in, r, b, dict(zip(STATE, st)))
+        torch.cuda.synchronize()
+        want = [hs] + [fin[k] for k in STATE]
+        rel, ab = rel_abs(got, want)
+        check(rel <= TOL and all(bool(torch.isfinite(a).all()) for a in got),
+              f"slstm_scan_fwd at {case}: rel err {rel}")
+        max_abs = max(max_abs, ab)
+        print(f"  check slstm {case}: rel err {rel:.2e}", flush=True)
+    for case in SLSTM_GRAD_CASES:
+        inputs = slstm_inputs(torch, case)
+        gen = torch.Generator().manual_seed(1)
+        hs_shape = inputs[0].shape[:2] + inputs[0].shape[3:]
+        cot = [torch.randn(hs_shape, generator=gen).cuda()] + [
+            torch.randn(inputs[3].shape, generator=gen).cuda()
+            for _ in STATE]
+        a = [t.clone().requires_grad_() for t in inputs]
+        b = [t.clone().requires_grad_() for t in inputs]
+        hs, fin = sops.slstm_scan(*a[:3], dict(zip(STATE, a[3:])))
+        torch.autograd.backward([hs] + [fin[k] for k in STATE], cot)
+        hs_p, fin_p = sref.slstm_scan_ref(*b[:3], dict(zip(STATE, b[3:])))
+        torch.autograd.backward([hs_p] + [fin_p[k] for k in STATE], cot)
+        rel_o, _ = rel_abs([hs.detach()] + [fin[k].detach() for k in STATE],
+                           [hs_p.detach()] + [fin_p[k].detach()
+                                              for k in STATE])
+        rel_g, _ = rel_abs([x.grad for x in a], [y.grad for y in b])
+        check(rel_o <= TOL and rel_g <= TOL,
+              f"autograd slstm at {case}: {rel_o}, {rel_g}")
+        check(all(bool(torch.isfinite(x.grad).all()) for x in a),
+              "non-finite slstm grad")
+        print(f"  check slstm autograd {case}: out {rel_o:.2e}, grads "
+              f"{rel_g:.2e}", flush=True)
+    return max_abs
+
+
+def slstm_timing(torch, skernel, sref):
+    """K5 and its plain version at the xlstm-1.3b shape.  No single
+    PyTorch call computes an sLSTM scan, so there is no library time."""
+    g_in, r, b, *st = slstm_inputs(torch, SLSTM_MAIN)
+    ms = time_ms(torch, lambda: skernel.slstm_scan_fwd(g_in, r, b, *st))
+    plain = time_ms(torch, lambda: sref.slstm_scan_ref(
+        g_in, r, b, dict(zip(STATE, st))))
+    b_ms, b_by = bound_ms("slstm_scan_fwd", SLSTM_MAIN)
+    print(f"  time slstm_scan_fwd {SLSTM_MAIN}: kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, bound {b_ms:.3f} ms ({b_by})", flush=True)
+    return {"name": "slstm_scan_fwd", "shape": list(SLSTM_MAIN), "ms": ms,
+            "plain_ms": plain, "library_ms": None, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
 def reset_all(kernels):
     for k in kernels:
         k.reset_launches()
@@ -438,6 +576,7 @@ def main_path(torch, kernels, np):
           f"expected 2 launches of each nHSIC kernel per step "
           f"({n_steps} steps): {hsic}")
     check(counts["flash_attention_fwd"] == 0, "flash attention in a CNN")
+    check(counts["slstm_scan_fwd"] == 0, "an sLSTM scan in a CNN")
     check(any(r["n_feasible"] > 0 for r in rounds), "no feasible round")
     check(all(math.isfinite(r["mean_loss"]) for r in rounds
               if r["n_selected"] > 0), "non-finite round loss")
@@ -445,13 +584,67 @@ def main_path(torch, kernels, np):
               _leaves(server.params)), "non-finite params")
     acc = rounds[-1]["test_acc"]
     check(acc is not None and 0.0 <= acc <= 1.0, f"bad accuracy {acc}")
-    return server, rounds, hsic
+    return server, rounds, counts
+
+
+# the kernel that runs once per layer of a kind, in every forward
+LAYER_KERNELS = {"attn": "flash_attention_fwd", "slstm": "slstm_scan_fwd"}
+
+
+def transformer_rounds(torch, kernels, np, server, test_batcher, t0):
+    """One round per stage on ``server``, then an evaluation on
+    ``test_batcher``.  Each per-layer kernel must launch once per layer of
+    its kind run per local step (the frozen prefix included: a stage runs
+    periods [0, end of its active block)) and once per such layer per
+    evaluation batch, K1-K3 twice per local step."""
+    adapter, cfg = server.adapter, server.adapter.cfg
+    steps = [b.steps_per_epoch for b in server.batchers]
+    print(f"  data, params and server {time.perf_counter() - t0:.2f} s; "
+          f"clients: {len(steps)}, local steps per epoch: min {min(steps)} "
+          f"median {int(np.median(steps))} max {max(steps)}; plan "
+          f"{adapter.plan.bounds}", flush=True)
+    per_period = {name: sum(1 for k, _ in cfg.pattern if k == kind)
+                  for kind, name in LAYER_KERNELS.items()}
+
+    reset_all(kernels)
+    rounds = run_rounds(torch, server, kernels, adapter.plan.num_stages)
+    server.test_batcher = test_batcher
+    before = read_all(kernels)
+    acc = server.evaluate()
+    counts = read_all(kernels)
+    eval_launches = {n: counts[n] - before[n] for n in per_period}
+
+    for r in rounds:
+        periods = adapter.plan.stage_ranges(r["stage"])[2][1]
+        r["layer_launches_per_step"] = {n: periods * k
+                                        for n, k in per_period.items()}
+        n = r["local_steps"]
+        check(r["n_selected"] > 0 and n > 0, f"round {r['round_idx']} "
+              f"trained no client")
+        for name, per_step in r["layer_launches_per_step"].items():
+            check(r["launches"][name] == n * per_step,
+                  f"round {r['round_idx']}: {r['launches']}, expected {n} "
+                  f"steps x {per_step} launches of {name}")
+        check(all(r["launches"][k] == 2 * n for k in kernels[0].LAUNCHES),
+              f"round {r['round_idx']}: expected 2 nHSIC launches per step")
+    n_eval = min(8, test_batcher.steps_per_epoch)
+    for name, k in per_period.items():
+        check(eval_launches[name] == n_eval * cfg.num_periods * k,
+              f"evaluation: {eval_launches}, expected {n_eval} batches x "
+              f"{cfg.num_periods * k} launches of {name}")
+    check(all(math.isfinite(r["mean_loss"]) for r in rounds),
+          "non-finite round loss")
+    check(all(bool(torch.isfinite(p).all()) for p in
+              _leaves(server.params)), "non-finite params")
+    check(0.0 <= acc <= 1.0, f"bad accuracy {acc}")
+    print(f"  evaluation: accuracy {acc:.4f}, launches {eval_launches}",
+          flush=True)
+    return rounds, counts, acc
 
 
 def vit_main_path(torch, kernels, np):
     """Main path 2: three rounds of full-width ViT-12, one per stage,
-    attention through K4, then an evaluation.  K4 must launch once per
-    attention layer run per local step, K1-K3 twice per step."""
+    attention through K4, then an evaluation."""
     from repro_torch.configs.paper_models import vit
     from repro_torch.core.progressive import make_adapter
     from repro_torch.data.loader import Batcher
@@ -463,54 +656,48 @@ def vit_main_path(torch, kernels, np):
     flc = FLConfig(n_devices=100, clients_per_round=4, local_epochs=1,
                    batch_size=32, num_stages=3, use_hsic_kernel=True,
                    runtime="sequential", seed=SEED)
-    adapter = make_adapter(cfg, flc.num_stages)
     t0 = time.perf_counter()
     ds = make_image_dataset(SEED, VIT_IMAGES, num_classes=cfg.vocab_size,
                             image_size=cfg.image_size)
     parts = dirichlet_partition(SEED, ds.labels, flc.n_devices,
                                 alpha=flc.alpha)
-    server = NeuLiteServer(adapter, [ds.subset(p) for p in parts], flc)
-    steps = [b.steps_per_epoch for b in server.batchers]
-    print(f"  data and server {time.perf_counter() - t0:.2f} s; clients: "
-          f"{len(steps)}, local steps per epoch: min {min(steps)} median "
-          f"{int(np.median(steps))} max {max(steps)}; plan "
-          f"{adapter.plan.bounds}", flush=True)
-    attn = sum(1 for kind, _ in cfg.pattern if kind == "attn")
+    server = NeuLiteServer(make_adapter(cfg, flc.num_stages),
+                           [ds.subset(p) for p in parts], flc)
+    test = Batcher(make_image_dataset(SEED + 1, TEST_IMAGES,
+                                      num_classes=cfg.vocab_size,
+                                      image_size=cfg.image_size), 32,
+                   seed=SEED)
+    return (server, *transformer_rounds(torch, kernels, np, server, test,
+                                        t0))
 
-    reset_all(kernels)
-    rounds = run_rounds(torch, server, kernels, flc.num_stages)
-    server.test_batcher = Batcher(make_image_dataset(
-        SEED + 1, TEST_IMAGES, num_classes=cfg.vocab_size,
-        image_size=cfg.image_size), 32, seed=SEED)
-    before = read_all(kernels)["flash_attention_fwd"]
-    acc = server.evaluate()
-    eval_launches = read_all(kernels)["flash_attention_fwd"] - before
-    counts = read_all(kernels)
 
-    for r in rounds:
-        t = r["stage"]
-        layers = adapter.plan.stage_ranges(t)[2][1] * attn
-        r["attention_layers_per_step"] = layers
-        n = r["local_steps"]
-        check(r["n_selected"] > 0 and n > 0, f"round {r['round_idx']} "
-              f"trained no client")
-        check(r["launches"]["flash_attention_fwd"] == n * layers,
-              f"round {r['round_idx']}: {r['launches']} flash launches, "
-              f"expected {n} steps x {layers} attention layers")
-        check(all(r["launches"][k] == 2 * n for k in kernels[0].LAUNCHES),
-              f"round {r['round_idx']}: expected 2 nHSIC launches per step")
-    n_eval = min(8, server.test_batcher.steps_per_epoch)
-    check(eval_launches == n_eval * cfg.num_periods * attn,
-          f"evaluation: {eval_launches} flash launches, expected {n_eval} "
-          f"batches x {cfg.num_periods * attn} layers")
-    check(all(math.isfinite(r["mean_loss"]) for r in rounds),
-          "non-finite round loss")
-    check(all(bool(torch.isfinite(p).all()) for p in
-              _leaves(server.params)), "non-finite params")
-    check(0.0 <= acc <= 1.0, f"bad accuracy {acc}")
-    print(f"  evaluation: accuracy {acc:.4f}, {eval_launches} flash "
-          f"launches", flush=True)
-    return server, rounds, counts, acc
+def xlstm_main_path(torch, kernels, np):
+    """Main path 3: three rounds of full-width xlstm-1.3b on synthetic
+    text, one per stage, the sLSTM scan through K5, then an evaluation."""
+    from repro_torch.configs import xlstm_1_3b
+    from repro_torch.core.progressive import make_adapter
+    from repro_torch.data.loader import Batcher
+    from repro_torch.data.partition import dirichlet_partition
+    from repro_torch.data.synthetic import make_lm_dataset
+    from repro_torch.federated.server import FLConfig, NeuLiteServer
+
+    cfg = dataclasses.replace(xlstm_1_3b.config(), **XLSTM)
+    flc = FLConfig(n_devices=100, clients_per_round=4, local_epochs=1,
+                   batch_size=16, lr=XLSTM_LR, num_stages=3,
+                   use_hsic_kernel=True, runtime="sequential", seed=SEED)
+    t0 = time.perf_counter()
+    ds = make_lm_dataset(SEED, LM_SEQS, LM_SEQ_LEN, cfg.vocab_size)
+    parts = dirichlet_partition(SEED, ds.topics, flc.n_devices,
+                                alpha=flc.alpha)
+    server = NeuLiteServer(make_adapter(cfg, flc.num_stages),
+                           [ds.subset(p) for p in parts], flc,
+                           data_kind="lm")
+    torch.cuda.synchronize()
+    test = Batcher(make_lm_dataset(SEED + 1, TEST_SEQS, LM_SEQ_LEN,
+                                   cfg.vocab_size), flc.batch_size,
+                   seed=SEED, kind="lm")
+    return (server, *transformer_rounds(torch, kernels, np, server, test,
+                                        t0))
 
 
 def _leaves(tree):
@@ -634,16 +821,67 @@ def period_check(torch, server, plain_adapter):
     return out
 
 
-NHSIC_KERNELS = ("rowsums_kernel", "stats_kernel", "sum_partials_kernel",
-                 "grad_kernel")
-FLASH_KERNELS = ("flash_fwd_kernel",)
+def slstm_layer_check(torch, server, plain_adapter):
+    """Each sLSTM sub-layer of the full-width xLSTM alone, fed the same
+    input (the plain path's residual stream before it): the scan through
+    K5 against the plain per-step loop, output and the gradient to the
+    sub-layer's params and input for one cotangent, at TOL."""
+    from repro_torch.common.device import to_device
+    from repro_torch.common.tree import tree_leaves, tree_map
+    from repro_torch.models import model as tx
+    cfg_k, cfg_p = server.adapter.cfg, plain_adapter.cfg
+    batch = to_device(next(server.test_batcher.epoch()), server.device)
+    layers = server.params["model"]["layers"]
+    with torch.no_grad():
+        x, pos, _ = tx.embed_inputs(server.params["model"], cfg_p,
+                                    batch["inputs"])
+    gen = torch.Generator().manual_seed(3)
+    out = []
+    for i in range(tx.num_stacked(layers)):
+        period = tree_map(lambda a, i=i: a[i], layers)
+        for j, (kind, ffn) in enumerate(cfg_p.pattern):
+            sub = period[f"sub{j}"]
+            if kind == "slstm":
+                cot = torch.randn(x.shape, generator=gen).to(x.device)
+                res = []
+                for cfg in (cfg_k, cfg_p):
+                    sp = tree_map(lambda a: a.detach().requires_grad_(True),
+                                  sub)
+                    xi = x.detach().requires_grad_(True)
+                    y = tx.sublayer_apply(sp, cfg, kind, ffn, xi, pos)
+                    grads = torch.autograd.grad(y, [xi] + tree_leaves(sp),
+                                                cot)
+                    res.append((y.detach(), list(grads)))
+                (yk, gk), (yp, gp) = res
+                rel_y, _ = rel_abs(yk, yp)
+                rel_g, _ = rel_abs(gk, gp)
+                check(rel_y <= TOL and rel_g <= TOL,
+                      f"sLSTM layer of period {i}: kernel vs plain path "
+                      f"{rel_y}, {rel_g}")
+                out.append({"period": i, "out_rel": rel_y,
+                            "grad_rel": rel_g})
+            with torch.no_grad():
+                x = tx.sublayer_apply(sub, cfg_p, kind, ffn, x, pos)
+    print(f"  {len(out)} sLSTM layers, kernel vs plain path: output rel <= "
+          f"{max(r['out_rel'] for r in out):.2e}, grads rel <= "
+          f"{max(r['grad_rel'] for r in out):.2e}", flush=True)
+    return out
+
+
+# device kernel names of the hand-written kernels, for the profile
+KERNEL_NAMES = {"nhsic": ("rowsums_kernel", "stats_kernel",
+                          "sum_partials_kernel", "grad_kernel"),
+                "flash": ("flash_fwd_kernel",),
+                "slstm": ("slstm_scan_kernel",)}
 
 
 def step_profile(torch, server, steps=5):
     """Where a full-width local step's time goes: ``torch.profiler`` over
     ``steps`` steps of each stage (after two warm-up steps).  Device busy
     time is the sum of the card's kernel and copy times; the rest of the
-    host-clock wall time the card sits idle."""
+    host-clock wall time the card sits idle.  Only CUDA activity is
+    traced (each row says so): tracing the CPU too lengthens the wall time,
+    so rows that traced other activities do not compare with these."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.common.device import to_device
@@ -660,8 +898,8 @@ def step_profile(torch, server, steps=5):
             state, trainable, _ = step(state, trainable, frozen, batch,
                                        trainable)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        activities = [ProfilerActivity.CUDA]
+        with profile(activities=activities) as prof:
             t0 = time.perf_counter()
             for _ in range(steps):
                 state, trainable, _ = step(state, trainable, frozen, batch,
@@ -674,15 +912,16 @@ def step_profile(torch, server, steps=5):
                 by_name[e.name] = (by_name.get(e.name, 0.0)
                                    + e.time_range.elapsed_us() / 1e3 / steps)
         busy = sum(by_name.values())
-        nhsic = sum(v for k, v in by_name.items()
-                    if any(n in k for n in NHSIC_KERNELS))
-        flash = sum(v for k, v in by_name.items()
-                    if any(n in k for n in FLASH_KERNELS))
+        ours = {fam: sum(v for k, v in by_name.items()
+                         if any(n in k for n in names))
+                for fam, names in KERNEL_NAMES.items()}
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        row = {"stage": t, "wall_ms_per_step": wall_ms,
+        row = {"stage": t, "traced": [a.name for a in activities],
+               "wall_ms_per_step": wall_ms,
                "device_busy_ms_per_step": busy if by_name else None,
-               "nhsic_kernels_ms_per_step": nhsic if by_name else None,
-               "flash_kernel_ms_per_step": flash if by_name else None,
+               "nhsic_kernels_ms_per_step": ours["nhsic"] if by_name else None,
+               "flash_kernel_ms_per_step": ours["flash"] if by_name else None,
+               "slstm_kernel_ms_per_step": ours["slstm"] if by_name else None,
                "idle_share": 1.0 - busy / wall_ms if by_name else None,
                "device_kernels_per_step": sum(
                    1 for e in prof.events()
@@ -691,8 +930,9 @@ def step_profile(torch, server, steps=5):
         out.append(row)
         if by_name:
             print(f"  stage {t}: {wall_ms:.2f} ms/step wall, device busy "
-                  f"{busy:.2f} ms (nHSIC kernels {nhsic:.3f} ms, flash "
-                  f"kernel {flash:.3f} ms), idle "
+                  f"{busy:.2f} ms (nHSIC kernels {ours['nhsic']:.3f} ms, "
+                  f"flash kernel {ours['flash']:.3f} ms, sLSTM scan kernel "
+                  f"{ours['slstm']:.3f} ms), idle "
                   f"{row['idle_share']:.1%}, "
                   f"{row['device_kernels_per_step']:.0f} device ops/step",
                   flush=True)
@@ -717,7 +957,10 @@ def main():
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention import ref as fref
     from repro_torch.kernels.hsic_gram import kernel, ops, ref
-    kernels = (kernel, fkernel)
+    from repro_torch.kernels.slstm_scan import kernel as skernel
+    from repro_torch.kernels.slstm_scan import ops as sops
+    from repro_torch.kernels.slstm_scan import ref as sref
+    kernels = (kernel, fkernel, skernel)
 
     smi = smi_line()
     print(smi, flush=True)
@@ -737,33 +980,49 @@ def main():
     built = ", ".join(os.path.relpath(k.SOURCE, ROOT) for k in kernels)
     print(f"built {built} in {build_s:.2f} s", flush=True)
 
-    print("kernel phase", flush=True)
+    phase("kernel phase")
     max_abs = kernel_phase(torch, kernel, ops, ref, hsic)
     max_abs["flash_attention_fwd"] = flash_phase(torch, fkernel, fops, fref)
+    max_abs["slstm_scan_fwd"] = slstm_phase(torch, skernel, sops, sref)
     timing = timing_phase(torch, kernel, ref, hsic)
     timing.append(flash_timing(torch, fkernel, fref))
+    timing.append(slstm_timing(torch, skernel, sref))
 
-    print("main path 1: ResNet18", flush=True)
+    phase("main path 1: ResNet18")
     server, rounds, counts = main_path(torch, kernels, np)
-    print("step check", flush=True)
+    phase("step check")
     steps = step_check(torch, server)
-    print("step profile", flush=True)
+    phase("step profile")
     profiles = step_profile(torch, server)
     del server
 
-    print("main path 2: ViT-12", flush=True)
+    phase("main path 2: ViT-12")
     vserver, vrounds, vcounts, vacc = vit_main_path(torch, kernels, np)
-    print("step check", flush=True)
+    phase("step check")
     plain = make_adapter(dataclasses.replace(vserver.adapter.cfg,
                                              use_flash_kernel=False),
                          vserver.adapter.plan.num_stages)
     vsteps = step_check(torch, vserver, plain, sensitivity=True)
-    print("period check", flush=True)
+    phase("period check")
     vperiods = period_check(torch, vserver, plain)
-    print("step profile", flush=True)
+    phase("step profile")
     vprofiles = step_profile(torch, vserver)
+    del vserver
 
-    launches = {n: counts.get(n, 0) + vcounts[n] for n in vcounts}
+    phase("main path 3: xlstm-1.3b")
+    xserver, xrounds, xcounts, xacc = xlstm_main_path(torch, kernels, np)
+    phase("step check")
+    plain = make_adapter(dataclasses.replace(xserver.adapter.cfg,
+                                             use_slstm_kernel=False),
+                         xserver.adapter.plan.num_stages)
+    xsteps = step_check(torch, xserver, plain, sensitivity=True)
+    phase("sLSTM layer check")
+    xlayers = slstm_layer_check(torch, xserver, plain)
+    phase("step profile")
+    xprofiles = step_profile(torch, xserver, steps=2)
+
+    by_path = {"resnet18": counts, "vit12": vcounts, "xlstm": xcounts}
+    launches = {n: sum(c[n] for c in by_path.values()) for n in xcounts}
     sources = {n: os.path.relpath(k.SOURCE, ROOT) for k in kernels
                for n in k.LAUNCHES}
     replaces = {"nhsic_rowsums":
@@ -772,11 +1031,13 @@ def main():
                 "src/repro/kernels/hsic_gram/kernel.py:304",
                 "nhsic_grad": "src/repro/kernels/hsic_gram/kernel.py:403",
                 "flash_attention_fwd":
-                "src/repro/kernels/flash_attention/kernel.py:127"}
+                "src/repro/kernels/flash_attention/kernel.py:127",
+                "slstm_scan_fwd":
+                "src/repro/kernels/slstm_scan/kernel.py:109"}
     timed = {n: next(r for r in timing if r["name"] == n
                      and tuple(r["shape"]) == TIMED_SHAPE)
              for n in kernel.LAUNCHES}
-    timed["flash_attention_fwd"] = timing[-1]
+    timed.update({r["name"]: r for r in timing[-2:]})
     out_kernels = []
     for n, row in timed.items():
         out_kernels.append({
@@ -786,8 +1047,7 @@ def main():
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row.get("library_ms"), "shape": row["shape"],
-            "launches_by_path": {"resnet18": counts.get(n, 0),
-                                 "vit12": vcounts[n]}})
+            "launches_by_path": {p: c[n] for p, c in by_path.items()}})
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
@@ -800,7 +1060,12 @@ def main():
                            "test_acc": vacc, "step_check": vsteps,
                            "period_check": vperiods,
                            "step_profile": vprofiles},
+                   "xlstm": {"rounds": xrounds, "launches": xcounts,
+                             "test_acc": xacc, "step_check": xsteps,
+                             "slstm_layer_check": xlayers,
+                             "step_profile": xprofiles},
                    "kernels": out_kernels, "device": device}, f, indent=1)
+    phase("done")
     print(smi, flush=True)
     print(json.dumps({"kernels": out_kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

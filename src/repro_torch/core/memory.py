@@ -43,8 +43,11 @@ def _tx_act_bytes_per_unit(cfg: ModelConfig, batch: int, seq: int) -> int:
     bytes_el = cfg.param_dtype.itemsize
     carry = batch * seq * cfg.d_model * bytes_el
     work = 0
-    for _kind, ffn in cfg.pattern:      # every ported kind is "attn"
-        work += 4 * batch * seq * cfg.d_model * bytes_el
+    for kind, ffn in cfg.pattern:
+        if kind == "attn":
+            work += 4 * batch * seq * cfg.d_model * bytes_el
+        elif kind in ("mlstm", "slstm"):
+            work += 3 * batch * seq * cfg.d_model * bytes_el
         if ffn == "mlp":
             work += 2 * batch * seq * cfg.d_ff * bytes_el
     return carry + work // max(len(cfg.pattern), 1)

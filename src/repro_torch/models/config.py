@@ -1,12 +1,13 @@
-"""Model configuration (port of ``repro.models.config``), for the dense
-transformers the port runs: the paper's ViT and dense GQA text models.
+"""Model configuration (port of ``repro.models.config``), for the models
+the port runs: the paper's ViT, dense GQA text models and the xLSTM
+(mLSTM and sLSTM blocks).
 
 The layer stack is ``num_periods = num_layers // len(pattern)`` repetitions
 of a pattern of (layer kind, FFN kind) sub-layers, with params stacked over
 the period axis.  The fields keep the reference's names and defaults.  What
 the port does not run yet raises a ``ValueError`` naming it: MLA, MoE, the
-``mamba``/``mlstm``/``slstm`` layer kinds, the ``audio``/``vlm``
-modalities, qk-norm and QKV bias.
+``mamba`` layer kind, ``mlstm``/``slstm`` without an ``XLSTMConfig``, the
+``audio``/``vlm`` modalities, qk-norm and QKV bias.
 """
 from __future__ import annotations
 
@@ -20,9 +21,16 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
 
 
 @dataclasses.dataclass(frozen=True)
+class XLSTMConfig:
+    """xLSTM block mix."""
+    mlstm_expand: int = 2           # up-projection factor inside mLSTM block
+    slstm_proj_factor: float = 4.0 / 3.0
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense (the port's only family so far)
+    family: str                     # dense | ssm
     num_layers: int
     d_model: int
     num_heads: int
@@ -32,7 +40,8 @@ class ModelConfig:
     head_dim: int = 0               # 0 -> d_model // num_heads
 
     # repeating tuple of (layer_kind, ffn_kind); its length divides
-    # num_layers.  The port runs layer kind "attn" with ffn "mlp" or "none".
+    # num_layers.  The port runs layer kinds "attn", "mlstm" and "slstm",
+    # with ffn "mlp" or "none".
     pattern: Tuple[Tuple[str, str], ...] = (("attn", "mlp"),)
 
     # --- attention ---------------------------------------------------------
@@ -43,6 +52,7 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     mla: Optional[Any] = None       # not ported
     moe: Optional[Any] = None       # not ported
+    xlstm: Optional[XLSTMConfig] = None
 
     # --- modality ----------------------------------------------------------
     modality: str = "text"          # text | image (audio, vlm: not ported)
@@ -59,6 +69,9 @@ class ModelConfig:
     # route attention through the hand-written CUDA flash-attention forward
     # (``kernels/flash_attention``); False takes the plain ``sdpa``
     use_flash_kernel: bool = False
+    # route the sLSTM time scan through the hand-written CUDA scan
+    # (``kernels/slstm_scan``); False takes the plain per-step loop
+    use_slstm_kernel: bool = False
 
     def __post_init__(self):
         unported = []
@@ -66,7 +79,8 @@ class ModelConfig:
             unported.append("MLA attention")
         if self.moe is not None or any(f == "moe" for _, f in self.pattern):
             unported.append("MoE")
-        kinds = sorted({k for k, _ in self.pattern} - {"attn"})
+        ported = {"attn"} | ({"mlstm", "slstm"} if self.xlstm else set())
+        kinds = sorted({k for k, _ in self.pattern} - ported)
         if kinds:
             unported.append(f"layer kinds {kinds}")
         if self.modality not in ("text", "image"):
@@ -96,3 +110,10 @@ class ModelConfig:
     @property
     def param_dtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
+
+
+def xlstm_pattern() -> Tuple[Tuple[str, str], ...]:
+    """xLSTM[7:1]: 7 mLSTM blocks then 1 sLSTM block per period of 8.
+    xLSTM blocks carry their own up/down projection; no separate FFN.
+    [arXiv:2405.04517]"""
+    return tuple([("mlstm", "none")] * 7 + [("slstm", "none")])

@@ -21,6 +21,7 @@ import torch
 from repro_torch.common.paramdef import ParamDef, stack_defs
 from repro_torch.common.tree import tree_leaves, tree_map
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (cross_entropy, embed, embedding_defs,
                                        gelu, head_defs, lm_head, mlp,
@@ -30,9 +31,21 @@ from repro_torch.models.layers import (cross_entropy, embed, embedding_defs,
 # --------------------------------------------------------------------------- #
 # sub-layers
 # --------------------------------------------------------------------------- #
+def _mixer_defs(cfg: ModelConfig, kind: str) -> dict:
+    fn = {"attn": attn.gqa_defs, "mlstm": ssm.mlstm_defs,
+          "slstm": ssm.slstm_defs}[kind]
+    return fn(cfg)
+
+
+def _mixer_forward(params, cfg: ModelConfig, kind: str, x, positions):
+    fn = {"attn": attn.gqa_forward, "mlstm": ssm.mlstm_forward,
+          "slstm": ssm.slstm_forward}[kind]
+    return fn(params, cfg, x, positions)
+
+
 def sublayer_defs(cfg: ModelConfig, kind: str, ffn: str) -> dict:
     d = {"norm1": rmsnorm_defs(cfg.d_model, cfg.param_dtype),
-         "mixer": attn.gqa_defs(cfg)}
+         "mixer": _mixer_defs(cfg, kind)}
     if ffn != "none":
         d["norm2"] = rmsnorm_defs(cfg.d_model, cfg.param_dtype)
         d["ffn"] = mlp_defs(cfg.d_model, cfg.d_ff, cfg.param_dtype, cfg.act)
@@ -41,9 +54,10 @@ def sublayer_defs(cfg: ModelConfig, kind: str, ffn: str) -> dict:
 
 def sublayer_apply(params, cfg: ModelConfig, kind: str, ffn: str, x,
                    positions):
-    """Pre-norm residual sub-layer: attention, then the MLP."""
+    """Pre-norm residual sub-layer: the mixer (attention, mLSTM or sLSTM),
+    then the MLP where the pattern has one."""
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    x = x + attn.gqa_forward(params["mixer"], cfg, h, positions)
+    x = x + _mixer_forward(params["mixer"], cfg, kind, h, positions)
     if ffn != "none":
         h = rmsnorm(params["norm2"], x, cfg.norm_eps)
         x = x + mlp(params["ffn"], h, cfg.act)

@@ -1,5 +1,5 @@
-"""The CUDA kernels (streaming nHSIC, flash-attention forward) against
-their plain versions, on the card.  Marked ``cuda``: without a card every
+"""The CUDA kernels (streaming nHSIC, flash-attention forward, sLSTM scan)
+against their plain versions, on the card.  Marked ``cuda``: without a card every
 test here skips (the kernels have no CPU mode).  On a machine with one:
 
     PYTHONPATH=src python -m pytest -q --noconftest \
@@ -20,15 +20,20 @@ from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.hsic_gram import kernel, ops, ref
+from repro_torch.kernels.slstm_scan import kernel as sl_kernel
+from repro_torch.kernels.slstm_scan import ops as sl_ops
+from repro_torch.kernels.slstm_scan import ref as sl_ref
 
 pytestmark = pytest.mark.cuda
 TOL = 1e-3
 
-# (B, Dx, Dz, linear_x, degenerate): the main path's shapes, then batches
-# and widths off the 32-row tile, then identical rows
+# (B, Dx, Dz, linear_x, degenerate): the main paths' shapes (ResNet18,
+# then xlstm-1.3b's h_xz and h_yz), then batches and widths off the 32-row
+# tile, then identical rows
 CASES = [(32, 3, 64, False, False), (32, 64, 128, False, False),
          (32, 128, 256, False, False), (32, 256, 512, False, False),
-         (32, 10, 64, True, False), (48, 1, 512, False, False),
+         (32, 10, 64, True, False), (16, 2048, 2048, False, False),
+         (16, 256, 64, True, False), (48, 1, 512, False, False),
          (256, 512, 1, True, False), (48, 7, 33, True, False),
          (32, 5, 8, False, True)]
 
@@ -187,3 +192,99 @@ def test_flash_wrapper_raises_on_bad_inputs(cuda):
                                       causal=True)
     with pytest.raises(ValueError, match="contiguous"):
         fa_kernel.flash_attention_fwd(q.transpose(1, 2), k, v, causal=True)
+
+
+# (B, S, H, Dh, random_state0, gate_scale): the xlstm-1.3b shape, the
+# reference's audit shapes (kernels/slstm_scan/ops.py), S=1, S=200 (ragged
+# against the reference's 128-step blocks), head dims 1, 3 and 48, random
+# non-zero initial states, and gates up to |g| = 100
+SLSTM_CASES = [
+    (16, 256, 4, 512, False, 1.0),
+    (2, 256, 2, 512, False, 1.0),
+    (2, 128, 4, 64, False, 1.0),
+    (2, 1, 4, 64, True, 1.0),
+    (2, 200, 2, 64, False, 1.0),
+    (3, 37, 3, 1, True, 1.0),
+    (3, 37, 3, 3, True, 1.0),
+    (2, 37, 2, 48, True, 1.0),
+    (2, 64, 2, 128, True, 100.0),
+]
+STATE = ("c", "n", "m", "h")
+
+
+def _slstm_inputs(case, device):
+    B, S, H, Dh, random_state0, scale = case
+    rng = np.random.default_rng(B * 1000 + S * 10 + Dh)
+    f = np.float32
+    if scale > 1:
+        g_in = rng.uniform(-scale, scale, (B, S, 4, H, Dh))
+    else:
+        g_in = rng.standard_normal((B, S, 4, H, Dh))
+    r = rng.standard_normal((4, H, Dh, Dh)) * (0.5 / np.sqrt(Dh))
+    b = rng.standard_normal((4, H, Dh)) * 0.1
+    if random_state0:
+        st = [rng.standard_normal((B, H, Dh)),
+              np.abs(rng.standard_normal((B, H, Dh))) + 0.1,
+              rng.standard_normal((B, H, Dh)),
+              rng.standard_normal((B, H, Dh)) * 0.5]
+    else:
+        z = np.zeros((B, H, Dh))
+        st = [z, z, z - 30.0, z]
+    return [torch.from_numpy(a.astype(f)).to(device)
+            for a in (g_in, r, b, *st)]
+
+
+@pytest.mark.parametrize("case", SLSTM_CASES,
+                         ids=[str(c) for c in SLSTM_CASES])
+def test_slstm_kernel_matches_plain_version(cuda, case):
+    g_in, r, b, *st = _slstm_inputs(case, cuda)
+    sl_kernel.reset_launches()
+    got = sl_kernel.slstm_scan_fwd(g_in, r, b, *st)
+    hs, fin = sl_ref.slstm_scan_ref(g_in, r, b, dict(zip(STATE, st)))
+    torch.cuda.synchronize()
+    assert sl_kernel.LAUNCHES == {"slstm_scan_fwd": 1}
+    assert got[0].shape == hs.shape
+    for a, want in zip(got, [hs] + [fin[k] for k in STATE], strict=True):
+        assert torch.isfinite(a).all()
+        assert _rel(a, want) <= TOL
+
+
+@pytest.mark.parametrize("case", [SLSTM_CASES[2], SLSTM_CASES[7]],
+                         ids=[str(c) for c in (SLSTM_CASES[2],
+                                               SLSTM_CASES[7])])
+def test_slstm_autograd_matches_plain_path(cuda, case):
+    inputs = _slstm_inputs(case, cuda)
+    gen = torch.Generator(cuda).manual_seed(0)
+    cot = [torch.randn(inputs[0].shape[:2] + inputs[0].shape[3:],
+                       device=cuda, generator=gen)] + [
+        torch.randn(inputs[3].shape, device=cuda, generator=gen)
+        for _ in STATE]
+    a = [t.clone().requires_grad_() for t in inputs]
+    b = [t.clone().requires_grad_() for t in inputs]
+    hs, fin = sl_ops.slstm_scan(*a[:3], dict(zip(STATE, a[3:])))
+    torch.autograd.backward([hs] + [fin[k] for k in STATE], cot)
+    hs_p, fin_p = sl_ref.slstm_scan_ref(*b[:3], dict(zip(STATE, b[3:])))
+    torch.autograd.backward([hs_p] + [fin_p[k] for k in STATE], cot)
+    for x, y in zip(a, b, strict=True):
+        assert torch.isfinite(x.grad).all()
+        assert _rel(x.grad, y.grad) <= TOL
+
+
+def test_slstm_wrapper_raises_on_bad_inputs(cuda):
+    g_in, r, b, *st = _slstm_inputs(SLSTM_CASES[7], cuda)
+    with pytest.raises(ValueError, match="is on"):
+        sl_kernel.slstm_scan_fwd(g_in, r.cpu(), b, *st)
+    with pytest.raises(ValueError, match="dtype"):
+        sl_kernel.slstm_scan_fwd(g_in.double(), r.double(), b.double(),
+                                 *(t.double() for t in st))
+    with pytest.raises(ValueError, match="must be"):
+        sl_kernel.slstm_scan_fwd(g_in, r[:, :1], b, *st)
+    with pytest.raises(ValueError, match="contiguous"):
+        sl_kernel.slstm_scan_fwd(g_in, r.transpose(2, 3), b, *st)
+    big = sl_kernel.MAX_HEAD_DIM + 1
+    z = torch.zeros(1, 1, big, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        sl_kernel.slstm_scan_fwd(torch.zeros(1, 2, 4, 1, big, device=cuda),
+                                 torch.zeros(4, 1, big, big, device=cuda),
+                                 torch.zeros(4, 1, big, device=cuda),
+                                 z, z, z, z)

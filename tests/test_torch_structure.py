@@ -31,7 +31,7 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 def test_port_file_list_is_complete():
     names = {p.name for p in PORT_FILES}
-    assert {"nhsic.cu", "flash_attention.cu"} <= {
+    assert {"nhsic.cu", "flash_attention.cu", "slstm_scan.cu"} <= {
         p.name for p in (ROOT / "src" / "repro_torch").rglob("*.cu")}
     assert {"chip_smoke.py", "bridge.py", "server.py", "ops.py"} <= names
 
@@ -90,6 +90,22 @@ def test_flash_wrapper_on_cpu_takes_the_plain_version_and_counts_nothing():
     assert kernel.LAUNCHES == {"flash_attention_fwd": 0}
 
 
+def test_slstm_wrapper_on_cpu_takes_the_plain_version_and_counts_nothing():
+    from repro_torch.kernels.slstm_scan import kernel, ops, ref
+    kernel.reset_launches()
+    g = torch.Generator().manual_seed(0)
+    g_in = torch.randn(2, 5, 4, 2, 3, generator=g)
+    r = torch.randn(4, 2, 3, 3, generator=g) * 0.1
+    b = torch.randn(4, 2, 3, generator=g)
+    st = {k: torch.randn(2, 2, 3, generator=g) for k in "cnmh"}
+    hs, fin = ref.slstm_scan_ref(g_in, r, b, st)
+    got = kernel.slstm_scan_fwd(g_in, r, b, *st.values())
+    assert all(torch.equal(a, w) for a, w in
+               zip(got, [hs, fin["c"], fin["n"], fin["m"], fin["h"]]))
+    assert torch.equal(ops.slstm_scan(g_in, r, b, st)[0], hs)
+    assert kernel.LAUNCHES == {"slstm_scan_fwd": 0}
+
+
 def test_kernel_inputs_are_checked():
     from repro_torch.common.device import check_kernel_inputs
     with pytest.raises(ValueError, match="CUDA"):
@@ -98,11 +114,20 @@ def test_kernel_inputs_are_checked():
 
 def test_unported_model_config_fields_raise():
     from repro_torch.configs.paper_models import vit
-    from repro_torch.models.config import ModelConfig
+    from repro_torch.configs.xlstm_1_3b import config as xlstm_1_3b
+    from repro_torch.models.config import (ModelConfig, XLSTMConfig,
+                                           xlstm_pattern)
     base = dict(name="t", family="dense", num_layers=2, d_model=16,
                 num_heads=2, num_kv_heads=2, d_ff=32, vocab_size=8)
     ModelConfig(**base)
     vit()
+    xlstm_1_3b()
+    # mlstm/slstm construct with an XLSTMConfig; mamba still raises
+    ModelConfig(**{**base, "num_layers": 8}, pattern=xlstm_pattern(),
+                xlstm=XLSTMConfig())
+    with pytest.raises(ValueError, match="not yet ported.*mamba"):
+        ModelConfig(**base, pattern=(("mamba", "none"), ("slstm", "none")),
+                    xlstm=XLSTMConfig())
     for kw, what in [({"attn_impl": "mla"}, "MLA"),
                      ({"mla": object()}, "MLA"),
                      ({"moe": object()}, "MoE"),
