@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Builds the CUDA kernels (``kernels/hsic_gram/csrc/nhsic.cu``, K1-K3,
-   ``kernels/flash_attention/csrc/flash_attention.cu``, K4, and
+   K6 and K7, ``kernels/flash_attention/csrc/flash_attention.cu``, K4, and
    ``kernels/slstm_scan/csrc/slstm_scan.cu``, K5) with ``nvcc``, one
    compiler per source, all started together; prints the build time.
 2. Kernel phase: each kernel's wrapper against its plain PyTorch version on
@@ -16,9 +16,15 @@
    final states) at the xlstm-1.3b shape, the reference's audit shapes,
    S=1, ragged S=200, head dims 1, 3 and 48, random initial states and
    gates up to |g| = 100, and its autograd gradient.  Bar: scale-relative
-   1e-3 in f32, 2e-2 in bf16.  Times each kernel, its plain version and,
-   for K4, ``F.scaled_dot_product_attention`` as a yardstick (CUDA events,
-   median of 30 calls).
+   1e-3 in f32, 2e-2 in bf16.  K6 (the dense RBF and linear Gram) and K7
+   (centred statistics of two dense Grams) at the reference's audit shape
+   (B=256, D=256), its gram test's draws, the main paths' widths, ragged B
+   (1, 33, 200), D=1, non-symmetric Gram pairs and a batch of identical
+   rows; ``nhsic_unfused`` (K6 twice, then K7, counted per call) against
+   the fused op and plain nHSIC at abs 1e-4.  Times each kernel, its plain
+   version and, for K4, ``F.scaled_dot_product_attention`` and, for the
+   linear K6, ``x @ x.T`` as yardsticks (CUDA events, median of 30
+   calls).
 3. Main path 1: the port's ``NeuLiteServer`` (sequential runtime, nHSIC
    through the kernels) on the paper's ResNet18 at full width, 32x32x3,
    10 classes, batch 32, 4 stages: four rounds, one per stage, over a
@@ -44,24 +50,28 @@
    plain nHSIC (with the plain path's own sensitivity), each of the 6
    sLSTM sub-layers alone, kernel path against plain path
    (``slstm_layer_check``), and the profile.
+6. Main path 4, the kernel benchmark: ``kernels_bench.run()`` on the card
+   (its attention rows through K4, its nHSIC rows through K1-K3 and, in
+   ``nhsic_unfused``, K6 and K7; the only path that runs K6 and K7); the
+   rows go to ``chiprun_out/bench_kernels.json``.
 
 Each main path is driven with the launch counts set to 0 just before it
 and read just after.  Prints the card's name and power limit, a JSON line
-of per-kernel numbers, and as the last line ``{"ok": true, "device":
-{...}}``.  Any failure exits non-zero.  Details go to
-``chiprun_out/chip_smoke.json``.
+of per-kernel numbers (``max_rel_err`` beside ``max_abs_err``), and as
+the last line ``{"ok": true, "device": {...}}``.  Any failure exits
+non-zero.  Details go to ``chiprun_out/chip_smoke.json``.
 """
 import dataclasses
 import json
 import math
 import os
 import statistics
-import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.realpath(__file__))
 OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke.json")
+BENCH_OUT = os.path.join(ROOT, "chiprun_out", "bench_kernels.json")
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 FP32_FLOPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
@@ -81,6 +91,19 @@ EXTRA_SHAPES = [(48, 1, 512, False), (48, 512, 1, True), (256, 1, 512, False),
                 (256, 512, 1, True), (256, 512, 512, False)]
 DEGENERATE_SHAPES = [(32, 5, 8, False), (48, 10, 64, True)]
 TIMED_SHAPE = (32, 256, 512, False)   # the ResNet path's largest call
+STREAMING = ("nhsic_rowsums", "nhsic_stats_feats", "nhsic_grad")   # K1-K3
+
+# K6, each (B, D) as an RBF and as a linear Gram: the reference's audit
+# shape (ops.AUDIT_CASES), its gram test's draws, ragged B (1, 33, 200) and
+# D = 1; the main paths' widths are added from MAIN_PATH_SHAPES
+GRAM_CASES = list(dict.fromkeys(
+    [(256, 256), (8, 4), (16, 16), (32, 64), (48, 200), (1, 5), (33, 7),
+     (200, 64), (64, 1)]
+    + [(B, D) for B, Dx, Dz, _ in MAIN_PATH_SHAPES for D in (Dx, Dz)]))
+# K7: batches of the Gram pairs (the x and z Grams of each, and the
+# non-symmetric cross-Grams of two different sets of rows)
+GRAM_STATS_BATCHES = [256, 32, 16, 48, 1, 33, 200]
+GRAM_TIMED = [(256, 256), TIMED_SHAPE[:2]]   # (B, D); K7 at the same B
 
 # K4: (B, Sq, Skv, H, KV, D, causal, window, dtype).  The ViT-12 shape,
 # the reference's AUDIT_CASES (kernels/flash_attention/ops.py), GQA with
@@ -140,13 +163,6 @@ def check(ok, what):
         raise SmokeError(what)
 
 
-def smi_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
 START = time.perf_counter()
 
 
@@ -178,8 +194,12 @@ def time_ms(torch, fn, runs=30, warmup=5):
 # written once, FLOPs the function needs; bound = max of the two times
 # --------------------------------------------------------------------------- #
 def gram_flops(B, D, linear):
-    # dot products, plus |a|^2+|b|^2-2ab, clamp, scale and exp per entry
-    return 2 * B * B * D + (0 if linear else 6 * B * B)
+    """FLOPs of the Gram of (B, D) rows with themselves.  It is symmetric,
+    so it needs B(B+1)/2 dot products of 2D FLOPs; RBF adds the B squared
+    norms (2D each) and |a|^2+|b|^2-2ab, clamp, scale and exp (6) per
+    distinct entry."""
+    dots = B * (B + 1) * D
+    return dots if linear else dots + 2 * B * D + 3 * B * (B + 1)
 
 
 def flash_work(B, Sq, Skv, H, KV, D, causal, window, dtype):
@@ -208,11 +228,21 @@ def slstm_work(B, S, H, Dh, *_):
     return nbytes, 2 * B * S * H * 4 * Dh * Dh + 30 * B * S * H * Dh
 
 
-def work(name, B, Dx, Dz, lx, *rest, lz=False):
-    if name == "flash_attention_fwd":
-        return flash_work(B, Dx, Dz, lx, *rest)
-    if name == "slstm_scan_fwd":
-        return slstm_work(B, Dx, Dz, lx, *rest)
+def gram_work(B, D, linear):
+    """Bytes and FLOPs of one K6 call: x and sigma^2 read, the Gram
+    written."""
+    return 4 * B * D + 4 + 4 * B * B, gram_flops(B, D, linear)
+
+
+def gram_stats_work(B):
+    """Bytes and FLOPs of one K7 call: two Grams and their row, column and
+    total means read, three sums written; the means' reductions, the
+    centring and three products per entry."""
+    return 8 * B * B + 16 * B + 8 + 12, 18 * B * B
+
+
+def nhsic_work(name, B, Dx, Dz, lx, lz=False):
+    """Bytes and FLOPs of one K1, K2 or K3 call."""
     grams = gram_flops(B, Dx, lx) + gram_flops(B, Dz, lz)
     act = 4 * B * (Dx + Dz)
     if name == "nhsic_rowsums":
@@ -225,8 +255,13 @@ def work(name, B, Dx, Dz, lx, *rest, lz=False):
             grams + 16 * B * B + 2 * B * B * (Dx + Dz) + 4 * B * (Dx + Dz))
 
 
+WORK = {"flash_attention_fwd": flash_work, "slstm_scan_fwd": slstm_work,
+        "gram": gram_work, "gram_stats": gram_stats_work}
+
+
 def bound_ms(name, shape):
-    nbytes, flops = work(name, *shape)
+    nbytes, flops = (WORK[name](*shape) if name in WORK
+                     else nhsic_work(name, *shape))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -259,6 +294,12 @@ def kernel_args(torch, hsic, ref, x, z, lx):
             "nhsic_grad": ((x, z, rx, rz, scal), {"linear_x": lx})}
 
 
+def track(errs, name, rel, ab):
+    """Keep the largest (absolute, scale-relative) error of each kernel."""
+    a, r = errs.get(name, (0.0, 0.0))
+    errs[name] = (max(a, ab), max(r, rel))
+
+
 def rel_abs(got, want):
     got = got if isinstance(got, (tuple, list)) else (got,)
     want = want if isinstance(want, (tuple, list)) else (want,)
@@ -270,9 +311,17 @@ def rel_abs(got, want):
     return rel, ab
 
 
+def rel_each(got, want):
+    """Largest error of each element against its own plain value (K7's
+    three sums differ by orders of magnitude, so each is held alone)."""
+    d = (got - want).abs()
+    return (float((d / want.abs().clamp_min(1e-6)).max()),
+            float(d.max()))
+
+
 def kernel_phase(torch, kernel, ops, ref, hsic):
-    names = list(kernel.LAUNCHES)
-    max_abs = {n: 0.0 for n in names}
+    names = STREAMING
+    errs = {}
     cases = ([(s, False) for s in MAIN_PATH_SHAPES + EXTRA_SHAPES]
              + [(s, True) for s in DEGENERATE_SHAPES])
     for (B, Dx, Dz, lx), degenerate in cases:
@@ -285,7 +334,7 @@ def kernel_phase(torch, kernel, ops, ref, hsic):
                               getattr(ref, n)(*a, **kw))
             torch.cuda.synchronize()
             check(rel <= TOL, f"{n} at {(B, Dx, Dz, lx)}: rel err {rel}")
-            max_abs[n] = max(max_abs[n], ab)
+            track(errs, n, rel, ab)
             line.append(f"{n} {rel:.2e}")
         kx = "linear" if lx else "rbf"
         xa, za = x.clone().requires_grad_(), z.clone().requires_grad_()
@@ -310,7 +359,7 @@ def kernel_phase(torch, kernel, ops, ref, hsic):
     first = kernel.nhsic_stats_feats(*a)
     check(all(torch.equal(first, kernel.nhsic_stats_feats(*a))
               for _ in range(3)), "nhsic_stats_feats differs between runs")
-    return max_abs
+    return errs
 
 
 def timing_phase(torch, kernel, ref, hsic):
@@ -319,7 +368,7 @@ def timing_phase(torch, kernel, ref, hsic):
         B, Dx, Dz, lx = shape
         x, z = inputs(torch, B, Dx, Dz, lx)
         args = kernel_args(torch, hsic, ref, x, z, lx)
-        for n in kernel.LAUNCHES:
+        for n in STREAMING:
             a, kw = args[n]
             ms = time_ms(torch, lambda: getattr(kernel, n)(*a, **kw))
             plain = time_ms(torch, lambda: getattr(ref, n)(*a, **kw))
@@ -331,6 +380,186 @@ def timing_phase(torch, kernel, ref, hsic):
                   f"kernel {ms:.4f} ms, plain {plain:.4f} ms, "
                   f"bound {b_ms:.2e} ms ({b_by})", flush=True)
     return rows
+
+
+def gram_input(torch, B, D, seed=0):
+    g = torch.Generator().manual_seed(B * 7919 + D * 31 + seed)
+    return torch.randn(B, D, generator=g).cuda()
+
+
+def cross_gram(torch, hsic, ref, a, b):
+    """The non-symmetric RBF Gram K_ij = k(a_i, b_j): the off-diagonal
+    block of the plain Gram of a and b stacked."""
+    ab = torch.cat([a, b])
+    return ref.gram(ab, hsic.rbf_sigma2(ab), False)[:len(a), len(a):] \
+        .contiguous()
+
+
+def gram_phase(torch, kernel, ops, ref, hsic):
+    """K6 and K7 against their plain versions; ``nhsic_unfused`` against
+    the fused op and plain nHSIC, with exactly 2 K6 and 1 K7 launches per
+    call.  Returns each kernel's largest (absolute, scale-relative)
+    error."""
+    errs = {}
+    for B, D in GRAM_CASES:
+        x = gram_input(torch, B, D)
+        for linear in (False, True):
+            s2 = (torch.ones((), device=x.device) if linear
+                  else hsic.rbf_sigma2(x))
+            got = kernel.gram(x, s2, linear=linear)
+            rel, ab = rel_abs(got, ref.gram(x, s2, linear))
+            torch.cuda.synchronize()
+            check(rel <= TOL and tuple(got.shape) == (B, B),
+                  f"gram at B={B} D={D} linear={linear}: rel err {rel}")
+            check(linear or bool((got.diagonal() == 1).all()),
+                  f"gram at B={B} D={D}: diagonal is not exactly 1")
+            track(errs, "gram", rel, ab)
+    xb = gram_input(torch, 48, 200).bfloat16()
+    check(torch.equal(kernel.gram(xb, 2.0), kernel.gram(xb.float(), 2.0)),
+          "gram: bf16 input differs from its f32 upcast")
+    for B in GRAM_STATS_BATCHES:
+        x, z = gram_input(torch, B, 64, 1), gram_input(torch, B, 16, 2)
+        y, w = gram_input(torch, B, 64, 3), gram_input(torch, B, 16, 4)
+        pairs = [(kernel.gram(x, hsic.rbf_sigma2(x)),
+                  kernel.gram(z, 1.0, linear=True)),
+                 (cross_gram(torch, hsic, ref, x, y),
+                  cross_gram(torch, hsic, ref, z, w))]
+        for kx, kz in pairs:
+            got = kernel.gram_stats(kx, kz)
+            rel, ab = rel_each(got, ref.gram_stats(kx, kz))
+            torch.cuda.synchronize()
+            check(rel <= TOL, f"gram_stats at B={B}: rel err {rel}")
+            track(errs, "gram_stats", rel, ab)
+    kx, kz = pairs[0]
+    first = kernel.gram_stats(kx, kz)
+    check(all(torch.equal(first, kernel.gram_stats(kx, kz))
+              for _ in range(3)), "gram_stats differs between runs")
+    (ga, gr), (sa, sr) = errs["gram"], errs["gram_stats"]
+    print(f"  check gram: {2 * len(GRAM_CASES)} Grams, rel err <= {gr:.2e}, "
+          f"abs <= {ga:.2e}; gram_stats: {2 * len(GRAM_STATS_BATCHES)} "
+          f"pairs, each sum's rel err <= {sr:.2e}, abs <= {sa:.2e}",
+          flush=True)
+    cases = ([(s, False) for s in MAIN_PATH_SHAPES + EXTRA_SHAPES]
+             + [(s, True) for s in DEGENERATE_SHAPES])
+    diff = 0.0
+    for (B, Dx, Dz, lx), degenerate in cases:
+        x, z = inputs(torch, B, Dx, Dz, lx, degenerate)
+        kx = "linear" if lx else "rbf"
+        kernel.reset_launches()
+        v = float(ops.nhsic_unfused(x, z, kernel_x=kx))
+        check(kernel.LAUNCHES["gram"] == 2
+              and kernel.LAUNCHES["gram_stats"] == 1,
+              f"nhsic_unfused at {(B, Dx, Dz, lx)}: launches "
+              f"{kernel.LAUNCHES}, expected 2 gram and 1 gram_stats")
+        fused = float(ops.nhsic(x, z, kernel_x=kx))
+        plain = float(hsic.nhsic(x, z, kernel_x=kx))
+        d = max(abs(v - fused), abs(v - plain))
+        check(math.isfinite(v) and d <= 1e-4 and (v == 0 or not degenerate),
+              f"nhsic_unfused at {(B, Dx, Dz, lx)}: {v}, fused {fused}, "
+              f"plain {plain}")
+        diff = max(diff, d)
+    kernel.reset_launches()
+    print(f"  check nhsic_unfused at {len(cases)} shapes: |unfused - fused|, "
+          f"|unfused - plain| <= {diff:.2e}, 2 gram + 1 gram_stats launches "
+          f"per call", flush=True)
+    return errs
+
+
+def device_ms(torch, fn, names=None, runs=30):
+    """Mean device time per call of ``fn`` from ``torch.profiler``: of the
+    device kernels whose names contain one of ``names``, or of all of them;
+    None when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    ms = [v for k, v in device_kernel_ms(torch, prof, runs).items()
+          if names is None or any(n in k for n in names)]
+    return sum(ms) if ms else None
+
+
+def device_kernel_ms(torch, prof, runs):
+    """Device ms per run of each kernel name a profile recorded."""
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3 / runs)
+    return by_name
+
+
+def gram_timing(torch, kernel, ref, hsic):
+    """K6 (RBF, and linear beside its ``x @ x.T`` yardstick) and K7, each
+    with its plain version, at GRAM_TIMED.  No single PyTorch call computes
+    the RBF Gram (``torch.cdist`` returns distances) or K7.  Beside the
+    CUDA-event times (which span the host's launch gap) the profiler's
+    device time of the kernels alone, and of ``x @ x.T``."""
+    rows = []
+    for B, D in GRAM_TIMED:
+        x = gram_input(torch, B, D)
+        s2 = hsic.rbf_sigma2(x)
+        one = torch.ones((), device=x.device)
+        for linear in (False, True):
+            s = one if linear else s2
+            ms = time_ms(torch, lambda: kernel.gram(x, s, linear=linear))
+            plain = time_ms(torch, lambda: ref.gram(x, s, linear))
+            lib = time_ms(torch, lambda: x @ x.T) if linear else None
+            dev = device_ms(torch, lambda: kernel.gram(x, s, linear=linear),
+                            ("gram_kernel",))
+            lib_dev = (device_ms(torch, lambda: x @ x.T) if linear
+                       else None)
+            b_ms, b_by = bound_ms("gram", (B, D, linear))
+            rows.append({"name": "gram", "linear": linear, "shape": [B, D],
+                         "ms": ms, "plain_ms": plain, "library_ms": lib,
+                         "device_ms": dev, "library_device_ms": lib_dev,
+                         "bound_ms": b_ms, "bound_by": b_by})
+            print(f"  time gram B={B} D={D} linear={linear}: kernel "
+                  f"{ms:.4f} ms (device {dev}), plain {plain:.4f} ms"
+                  + (f", x @ x.T {lib:.4f} ms (device {lib_dev})"
+                     if linear else "")
+                  + f", bound {b_ms:.2e} ms ({b_by})", flush=True)
+        kx = kernel.gram(x, s2)
+        kz = kernel.gram(gram_input(torch, B, 64, 1), 1.0, linear=True)
+        ms = time_ms(torch, lambda: kernel.gram_stats(kx, kz))
+        plain = time_ms(torch, lambda: ref.gram_stats(kx, kz))
+        dev = device_ms(torch, lambda: kernel.gram_stats(kx, kz),
+                        ("gram_stats_kernel", "sum_partials_kernel"))
+        b_ms, b_by = bound_ms("gram_stats", (B,))
+        rows.append({"name": "gram_stats", "shape": [B], "ms": ms,
+                     "plain_ms": plain, "library_ms": None, "device_ms": dev,
+                     "bound_ms": b_ms, "bound_by": b_by})
+        print(f"  time gram_stats B={B}: kernel {ms:.4f} ms (device {dev}, "
+              f"both launches), plain {plain:.4f} ms, bound {b_ms:.2e} ms "
+              f"({b_by})", flush=True)
+    return rows
+
+
+def bench_path(torch, kernels):
+    """Main path 4: the port's kernel benchmark, ``kernels_bench.run()``,
+    on the card.  Per ``timeit`` call (a warm-up and five timed) every
+    nHSIC row runs ``nhsic_unfused`` (2 K6 + 1 K7), the fused forward (K1 +
+    K2) and the fused gradient (K1 + K2 + K3), and once more the forward
+    for its residual check; every attention row runs K4 once per call."""
+    from repro_torch.benchmarks import kernels_bench
+    calls = 1 + 5
+    reset_all(kernels)
+    rows = kernels_bench.run(quiet=False, out_path=BENCH_OUT)
+    torch.cuda.synchronize()
+    counts = read_all(kernels)
+    rows_n = len(kernels_bench.NHSIC_SHAPES)
+    n = rows_n * calls
+    want = {"gram": 2 * n, "gram_stats": n, "nhsic_rowsums": 2 * n + rows_n,
+            "nhsic_stats_feats": 2 * n + rows_n, "nhsic_grad": n,
+            "flash_attention_fwd": len(kernels_bench.ATTN_SHAPES) * calls,
+            "slstm_scan_fwd": 0}
+    check(counts == want, f"kernel benchmark launches {counts}, expected "
+          f"{want}")
+    print(f"  launches {counts}; rows written to "
+          f"{os.path.relpath(BENCH_OUT, ROOT)}", flush=True)
+    return rows, counts
 
 
 def flash_inputs(torch, case):
@@ -346,7 +575,7 @@ def flash_phase(torch, fkernel, fops, fref):
     """K4 against its plain version at every listed shape; rows with no
     allowed key must be exactly 0.  Then its autograd gradient against
     autograd of the plain version."""
-    max_abs = 0.0
+    errs = {}
     for case in FLASH_CASES:
         causal, window, dtype = case[6], case[7], case[8]
         q, k, v = flash_inputs(torch, case)
@@ -362,7 +591,7 @@ def flash_phase(torch, fkernel, fops, fref):
         empty = ~mask.any(dim=1)
         check(bool((got[:, empty] == 0).all()),
               f"flash_attention_fwd at {case}: empty rows are not 0")
-        max_abs = max(max_abs, ab)
+        track(errs, "flash_attention_fwd", rel, ab)
         print(f"  check flash {case}: rel err {rel:.2e}, empty rows "
               f"{int(empty.sum())}", flush=True)
     for case in FLASH_GRAD_CASES:
@@ -384,7 +613,7 @@ def flash_phase(torch, fkernel, fops, fref):
               "non-finite flash grad")
         print(f"  check flash autograd {case}: out {rel_o:.2e}, grads "
               f"{rel_g:.2e}", flush=True)
-    return max_abs
+    return errs
 
 
 def flash_timing(torch, fkernel, fref):
@@ -435,7 +664,7 @@ def slstm_phase(torch, skernel, sops, sref):
     four final states.  Then its autograd gradient (to g_in, r, b and the
     initial state, for a cotangent of every output) against autograd of
     the plain version."""
-    max_abs = 0.0
+    errs = {}
     for case in SLSTM_CASES:
         g_in, r, b, *st = slstm_inputs(torch, case)
         got = skernel.slstm_scan_fwd(g_in, r, b, *st)
@@ -445,7 +674,7 @@ def slstm_phase(torch, skernel, sops, sref):
         rel, ab = rel_abs(got, want)
         check(rel <= TOL and all(bool(torch.isfinite(a).all()) for a in got),
               f"slstm_scan_fwd at {case}: rel err {rel}")
-        max_abs = max(max_abs, ab)
+        track(errs, "slstm_scan_fwd", rel, ab)
         print(f"  check slstm {case}: rel err {rel:.2e}", flush=True)
     for case in SLSTM_GRAD_CASES:
         inputs = slstm_inputs(torch, case)
@@ -470,7 +699,7 @@ def slstm_phase(torch, skernel, sops, sref):
               "non-finite slstm grad")
         print(f"  check slstm autograd {case}: out {rel_o:.2e}, grads "
               f"{rel_g:.2e}", flush=True)
-    return max_abs
+    return errs
 
 
 def slstm_timing(torch, skernel, sref):
@@ -569,7 +798,7 @@ def main_path(torch, kernels, np):
     rounds = run_rounds(torch, server, kernels, flc.num_stages)
     counts = read_all(kernels)
 
-    hsic = {n: counts[n] for n in kernels[0].LAUNCHES}
+    hsic = {n: counts[n] for n in STREAMING}
     n_steps = sum(r["local_steps"] for r in rounds)
     check(all(c > 0 for c in hsic.values()), f"a kernel never ran: {hsic}")
     check(set(hsic.values()) == {2 * n_steps},
@@ -577,6 +806,8 @@ def main_path(torch, kernels, np):
           f"({n_steps} steps): {hsic}")
     check(counts["flash_attention_fwd"] == 0, "flash attention in a CNN")
     check(counts["slstm_scan_fwd"] == 0, "an sLSTM scan in a CNN")
+    check(counts["gram"] == 0 and counts["gram_stats"] == 0,
+          f"a dense-Gram kernel on the ResNet path: {counts}")
     check(any(r["n_feasible"] > 0 for r in rounds), "no feasible round")
     check(all(math.isfinite(r["mean_loss"]) for r in rounds
               if r["n_selected"] > 0), "non-finite round loss")
@@ -625,8 +856,10 @@ def transformer_rounds(torch, kernels, np, server, test_batcher, t0):
             check(r["launches"][name] == n * per_step,
                   f"round {r['round_idx']}: {r['launches']}, expected {n} "
                   f"steps x {per_step} launches of {name}")
-        check(all(r["launches"][k] == 2 * n for k in kernels[0].LAUNCHES),
+        check(all(r["launches"][k] == 2 * n for k in STREAMING),
               f"round {r['round_idx']}: expected 2 nHSIC launches per step")
+    check(counts["gram"] == 0 and counts["gram_stats"] == 0,
+          f"a dense-Gram kernel on a transformer path: {counts}")
     n_eval = min(8, test_batcher.steps_per_epoch)
     for name, k in per_period.items():
         check(eval_launches[name] == n_eval * cfg.num_periods * k,
@@ -906,11 +1139,7 @@ def step_profile(torch, server, steps=5):
                                            trainable)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                by_name[e.name] = (by_name.get(e.name, 0.0)
-                                   + e.time_range.elapsed_us() / 1e3 / steps)
+        by_name = device_kernel_ms(torch, prof, steps)
         busy = sum(by_name.values())
         ours = {fam: sum(v for k, v in by_name.items()
                          if any(n in k for n in names))
@@ -950,6 +1179,7 @@ def main():
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import numpy as np
 
+    from repro_torch.benchmarks.common import smi_line
     from repro_torch.core import hsic
     from repro_torch.core.progressive import make_adapter
     from repro_torch.kernels.build import build_libraries
@@ -981,12 +1211,14 @@ def main():
     print(f"built {built} in {build_s:.2f} s", flush=True)
 
     phase("kernel phase")
-    max_abs = kernel_phase(torch, kernel, ops, ref, hsic)
-    max_abs["flash_attention_fwd"] = flash_phase(torch, fkernel, fops, fref)
-    max_abs["slstm_scan_fwd"] = slstm_phase(torch, skernel, sops, sref)
+    errs = kernel_phase(torch, kernel, ops, ref, hsic)
+    errs.update(flash_phase(torch, fkernel, fops, fref))
+    errs.update(slstm_phase(torch, skernel, sops, sref))
+    errs.update(gram_phase(torch, kernel, ops, ref, hsic))
     timing = timing_phase(torch, kernel, ref, hsic)
     timing.append(flash_timing(torch, fkernel, fref))
     timing.append(slstm_timing(torch, skernel, sref))
+    timing += gram_timing(torch, kernel, ref, hsic)
 
     phase("main path 1: ResNet18")
     server, rounds, counts = main_path(torch, kernels, np)
@@ -1020,8 +1252,13 @@ def main():
     xlayers = slstm_layer_check(torch, xserver, plain)
     phase("step profile")
     xprofiles = step_profile(torch, xserver, steps=2)
+    del xserver
 
-    by_path = {"resnet18": counts, "vit12": vcounts, "xlstm": xcounts}
+    phase("main path 4: kernel benchmark")
+    bench_rows, bcounts = bench_path(torch, kernels)
+
+    by_path = {"resnet18": counts, "vit12": vcounts, "xlstm": xcounts,
+               "kernels_bench": bcounts}
     launches = {n: sum(c[n] for c in by_path.values()) for n in xcounts}
     sources = {n: os.path.relpath(k.SOURCE, ROOT) for k in kernels
                for n in k.LAUNCHES}
@@ -1033,21 +1270,40 @@ def main():
                 "flash_attention_fwd":
                 "src/repro/kernels/flash_attention/kernel.py:127",
                 "slstm_scan_fwd":
-                "src/repro/kernels/slstm_scan/kernel.py:109"}
+                "src/repro/kernels/slstm_scan/kernel.py:109",
+                "gram": "src/repro/kernels/hsic_gram/kernel.py:70",
+                "gram_stats": "src/repro/kernels/hsic_gram/kernel.py:139"}
     timed = {n: next(r for r in timing if r["name"] == n
                      and tuple(r["shape"]) == TIMED_SHAPE)
-             for n in kernel.LAUNCHES}
-    timed.update({r["name"]: r for r in timing[-2:]})
+             for n in STREAMING}
+    timed.update({r["name"]: r for r in timing
+                  if r["name"] in ("flash_attention_fwd", "slstm_scan_fwd")})
+    # K6's entry is the linear Gram, which has a library yardstick
+    # (x @ x.T), at the audit shape; its RBF row rides along
+    gram_rows = [r for r in timing if r["name"] in ("gram", "gram_stats")
+                 and r["shape"][0] == GRAM_TIMED[0][0]]
+    timed["gram"] = dict(next(r for r in gram_rows if r.get("linear")),
+                         rbf=next(r for r in gram_rows
+                                  if r.get("linear") is False))
+    timed["gram_stats"] = next(r for r in gram_rows
+                               if r["name"] == "gram_stats")
     out_kernels = []
     for n, row in timed.items():
         out_kernels.append({
             "name": n, "route": "cuda", "source": sources[n],
             "replaces": replaces[n], "launches": launches[n],
-            "max_abs_err": max_abs[n], "ms": row["ms"],
+            "max_abs_err": errs[n][0], "max_rel_err": errs[n][1],
+            "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row.get("library_ms"), "shape": row["shape"],
             "launches_by_path": {p: c[n] for p, c in by_path.items()}})
+        if "rbf" in row:
+            out_kernels[-1].update(linear=True, rbf={
+                k: row["rbf"][k] for k in ("ms", "plain_ms", "device_ms",
+                                           "bound_ms", "bound_by")})
+        if "device_ms" in row:
+            out_kernels[-1]["device_ms"] = row["device_ms"]
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
@@ -1064,6 +1320,8 @@ def main():
                              "test_acc": xacc, "step_check": xsteps,
                              "slstm_layer_check": xlayers,
                              "step_profile": xprofiles},
+                   "kernels_bench": {"rows": bench_rows,
+                                     "launches": bcounts},
                    "kernels": out_kernels, "device": device}, f, indent=1)
     phase("done")
     print(smi, flush=True)

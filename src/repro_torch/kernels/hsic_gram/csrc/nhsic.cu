@@ -1,21 +1,28 @@
-// Streaming nHSIC kernels for Hopper (sm_90a): the Curriculum Mentor's
-// nHSIC(A; B) = tr(K~a K~b) / (|K~a|_F |K~b|_F) and its gradient, with every
-// Gram tile recomputed from the (B, D) activations so that no (B, B) matrix
-// is ever written to device memory, forward or backward.
+// nHSIC kernels for Hopper (sm_90a): the Curriculum Mentor's
+// nHSIC(A; B) = tr(K~a K~b) / (|K~a|_F |K~b|_F) and its gradient.  The
+// streaming kernels recompute every Gram tile from the (B, D) activations,
+// so no (B, B) matrix is ever written to device memory, forward or
+// backward; the two dense-Gram kernels write the Grams out and reduce them
+// in a second pass (the forward-only baseline the streaming path is
+// benchmarked against).
 //
 // Which TPU kernel each entry point replaces (src/repro/kernels/hsic_gram/):
 //   nhsic_rowsums      <- kernel.py:nhsic_rowsums_pallas     (_rowsums_kernel)
 //   nhsic_stats_feats  <- kernel.py:nhsic_stats_feats_pallas (_stats_feats_kernel)
 //   nhsic_grad         <- kernel.py:nhsic_grad_pallas        (_grad_kernel)
+//   gram               <- kernel.py:gram_pallas              (_rbf_gram_kernel)
+//   gram_stats         <- kernel.py:gram_stats_pallas        (_stats_kernel)
 //
 // What bounds them on the H100: at the training batch (B = 32) each call
 // reads at most (32 x 768) floats and does about 1 MFLOP, which the card
 // moves and computes in well under a microsecond, so launch latency bounds
 // every call.  The design answers that with one launch per call for the
-// row sums and the gradient (two for the statistics, see below) and no
-// host synchronisation: scalars such as sigma^2 and the Gram means are read
-// from device memory by the kernel.  At large B the Gram arithmetic
-// (2 B^2 D FLOPs per matrix) dominates; it runs in fp32 on CUDA cores.
+// row sums, the gradient and the dense Gram (two for each statistics
+// kernel, see below) and no host synchronisation: scalars such as sigma^2
+// and the Gram means are read from device memory by the kernel.  At large
+// B the Gram arithmetic (2 B^2 D FLOPs per matrix) dominates; it runs in
+// fp32 on CUDA cores.  The dense-Gram statistics read two (B, B) Grams
+// once, so bytes bound them.
 // Tensor cores (TF32) are avoided on purpose: a Gram tile is computed as
 // |a|^2 + |b|^2 - 2 a.b, clamped at 0, which cancels badly at a 10-bit
 // mantissa.  Making the large-B case fast is left to later work.
@@ -23,15 +30,16 @@
 // Design, per kernel:
 //   * A thread block owns a 32-row tile and loops over the 32-column tiles
 //     itself (the TPU grid ran that axis in order), so row sums and gradient
-//     rows need no reduction across blocks.
+//     rows need no reduction across blocks.  The dense Gram has one block
+//     per (32 x 32) output tile.
 //   * Statistics need a reduction over all (i, j) tiles.  Each block writes
 //     its three partial sums to a scratch buffer and a second launch adds
 //     them in a fixed order: results are the same from run to run (no
 //     atomics), as resumed training runs require.
 //   * B and D are arbitrary.  Rows and columns outside [0, B) are masked in
-//     the kernel: a masked entry adds nothing to any sum.  (A zero pad row
-//     would add exp(0) = 1 to an RBF Gram, which is why the TPU version
-//     never pads.)
+//     the kernel: a masked entry adds nothing to any sum and is never
+//     written.  (A zero pad row would add exp(0) = 1 to an RBF Gram, which
+//     is why the TPU version never pads the streaming kernels.)
 //   * Row norms are accumulated with the same fma sequence as the dot
 //     products, so a diagonal distance is exactly 0.
 #include <cuda_runtime.h>
@@ -206,6 +214,63 @@ sum_partials_kernel(const float* __restrict__ partial, int nblocks,
   }
 }
 
+// Grid (column tiles, row tiles): the (TILE, TILE) tile at (blockIdx.y,
+// blockIdx.x) of the Gram of a (B, D), into out (B, B) row-major; s2 points
+// at sigma^2 (read, but unused, for the linear Gram).
+__global__ void __launch_bounds__(THREADS)
+gram_kernel(const float* __restrict__ a, const float* __restrict__ s2,
+            float* __restrict__ out, int B, int D, int linear) {
+  __shared__ TileSmem sm;
+  __shared__ float K[TILE][TILE + 1];
+  const int i0 = blockIdx.y * TILE, j0 = blockIdx.x * TILE;
+  gram_tile(a, B, D, i0, j0, linear, s2[0], sm, K);
+  const int c = threadIdx.x % TILE, j = j0 + c;
+#pragma unroll
+  for (int q = 0; q < PER_THREAD; ++q) {
+    const int r = entry_row(q), i = i0 + r;
+    if (i < B && j < B) out[(size_t)i * B + j] = K[r][c];
+  }
+}
+
+// Grid (column tiles, row tiles).  Centres the (TILE, TILE) tile at
+// (blockIdx.y, blockIdx.x) of the Grams kx and kz (B, B) as K_ij - r_i -
+// c_j + m, with r the row means, c the column means and m = [mean kx,
+// mean kz], and writes the tile's (sum Kxc Kzc, sum Kxc^2, sum Kzc^2) to
+// partial[3 * block].
+__global__ void __launch_bounds__(THREADS)
+gram_stats_kernel(const float* __restrict__ kx, const float* __restrict__ kz,
+                  const float* __restrict__ rx, const float* __restrict__ cx,
+                  const float* __restrict__ rz, const float* __restrict__ cz,
+                  const float* __restrict__ m, float* __restrict__ partial,
+                  int B) {
+  __shared__ float red[THREADS / 32];
+  const int i0 = blockIdx.y * TILE, j0 = blockIdx.x * TILE;
+  const int j = j0 + threadIdx.x % TILE;
+  const float mx = m[0], mz = m[1];
+  float p0 = 0.f, p1 = 0.f, p2 = 0.f;
+#pragma unroll
+  for (int q = 0; q < PER_THREAD; ++q) {
+    const int i = i0 + entry_row(q);
+    if (i < B && j < B) {
+      const size_t e = (size_t)i * B + j;
+      const float kxc = kx[e] - rx[i] - cx[j] + mx;
+      const float kzc = kz[e] - rz[i] - cz[j] + mz;
+      p0 = fmaf(kxc, kzc, p0);
+      p1 = fmaf(kxc, kxc, p1);
+      p2 = fmaf(kzc, kzc, p2);
+    }
+  }
+  const int blk = blockIdx.y * gridDim.x + blockIdx.x;
+  p0 = block_sum(p0, red);
+  p1 = block_sum(p1, red);
+  p2 = block_sum(p2, red);
+  if (threadIdx.x == 0) {
+    partial[3 * blk + 0] = p0;
+    partial[3 * blk + 1] = p1;
+    partial[3 * blk + 2] = p2;
+  }
+}
+
 // Adds W . a[j0:j0+TILE] * scale to the rows of g this block owns.
 __device__ void accumulate_rows(const float (*W)[TILE + 1],
                                 const float* __restrict__ a,
@@ -336,5 +401,32 @@ extern "C" int nhsic_grad(const void* x, const void* z, const void* rx,
   grad_kernel<<<tiles(B), THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)z, (const float*)rx, (const float*)rz,
       (const float*)scal, (float*)dx, (float*)dz, B, Dx, Dz, lx, lz);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gram(const void* x, const void* s2, void* out, int B, int D,
+                    int linear, void* stream) {
+  const int nb = tiles(B);
+  gram_kernel<<<dim3(nb, nb), THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)s2, (float*)out, B, D, linear);
+  return (int)cudaGetLastError();
+}
+
+// rx, cx, rz, cz: the (B,) row and column means of kx and kz; m: [mean kx,
+// mean kz].  `partial` is scratch of 3 * tiles(B)^2 floats; `out` receives
+// 3 floats.
+extern "C" int gram_stats(const void* kx, const void* kz, const void* rx,
+                          const void* cx, const void* rz, const void* cz,
+                          const void* m, void* partial, void* out, int B,
+                          void* stream) {
+  const int nb = tiles(B);
+  gram_stats_kernel<<<dim3(nb, nb), THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)kx, (const float*)kz, (const float*)rx, (const float*)cx,
+      (const float*)rz, (const float*)cz, (const float*)m, (float*)partial,
+      B);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  sum_partials_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(
+      (const float*)partial, nb * nb, (float*)out);
   return (int)cudaGetLastError();
 }

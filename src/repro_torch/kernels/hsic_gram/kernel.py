@@ -1,4 +1,6 @@
-"""Wrappers of the streaming nHSIC CUDA kernels (``csrc/nhsic.cu``).
+"""Wrappers of the nHSIC CUDA kernels (``csrc/nhsic.cu``): the three
+streaming kernels behind ``ops.nhsic`` and the two dense-Gram kernels
+behind ``ops.nhsic_unfused``.
 
 Each wrapper takes its plain version in ``ref.py`` for CPU tensors.  For a
 CUDA tensor it launches the kernel or raises; it never falls back.  The
@@ -22,13 +24,16 @@ from repro_torch.kernels.hsic_gram import ref
 SOURCE = Path(__file__).resolve().parent / "csrc" / "nhsic.cu"
 TILE = 32   # rows and columns of one Gram tile, as in nhsic.cu
 
-LAUNCHES = {"nhsic_rowsums": 0, "nhsic_stats_feats": 0, "nhsic_grad": 0}
+LAUNCHES = {"nhsic_rowsums": 0, "nhsic_stats_feats": 0, "nhsic_grad": 0,
+            "gram": 0, "gram_stats": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "nhsic_rowsums": [_P] * 5 + [_I] * 5 + [_P],
     "nhsic_stats_feats": [_P] * 7 + [_I] * 5 + [_P],
     "nhsic_grad": [_P] * 7 + [_I] * 5 + [_P],
+    "gram": [_P] * 3 + [_I] * 3 + [_P],
+    "gram_stats": [_P] * 9 + [_I] + [_P],
 }
 _lib = None
 
@@ -135,3 +140,53 @@ def nhsic_grad(x, z, rx, rz, scal, *, linear_x: bool = False,
             rz.data_ptr(), scal.data_ptr(), dx.data_ptr(), dz.data_ptr(), B,
             Dx, Dz, int(linear_x), int(linear_z), _stream(x.device))
     return dx, dz
+
+
+def gram(x, s2, *, linear: bool = False):
+    """(B, D) -> (B, B) float32 Gram: linear x·xᵀ, or RBF
+    exp(−max(‖xi‖²+‖xj‖²−2xi·xj, 0) / 2σ²) with σ² = ``s2`` (a number or a
+    one-element tensor; unused when linear).  Half-precision input is
+    upcast to float32 first, which is exact.  Replaces ``gram_pallas``."""
+    if x.device.type == "cpu":
+        return ref.gram(x, s2, linear)
+    if x.dim() != 2 or min(x.shape) < 1:
+        raise ValueError(f"gram: x must be a non-empty (B, D), got "
+                         f"{tuple(x.shape)}")
+    if x.dtype in (torch.bfloat16, torch.float16):
+        x = x.float()
+    s2 = torch.as_tensor(s2, dtype=torch.float32, device=x.device)
+    if s2.numel() != 1:
+        raise ValueError(f"gram: s2 must hold one value, got "
+                         f"{tuple(s2.shape)}")
+    s2 = s2.reshape(1)
+    check_kernel_inputs("gram", x.device, x=x, s2=s2)
+    B, D = x.shape
+    out = torch.empty(B, B, device=x.device, dtype=torch.float32)
+    _launch("gram", x.data_ptr(), s2.data_ptr(), out.data_ptr(), B, D,
+            int(linear), _stream(x.device))
+    return out
+
+
+def gram_stats(Kx, Kz):
+    """Two (B, B) Grams -> (3,) [Σ K̃x∘K̃z, ‖K̃x‖², ‖K̃z‖²] with
+    K̃ = K − rowmean_i − colmean_j + mean, summed in a fixed order.  The
+    means are reduced here, outside the kernel, as the reference does.
+    Replaces ``gram_stats_pallas``."""
+    if Kx.device.type == "cpu":
+        return ref.gram_stats(Kx, Kz)
+    if (Kx.dim() != 2 or Kx.shape[0] != Kx.shape[1] or Kx.shape[0] < 1
+            or Kz.shape != Kx.shape):
+        raise ValueError(f"gram_stats: Kx and Kz must be (B, B), got "
+                         f"{tuple(Kx.shape)} and {tuple(Kz.shape)}")
+    check_kernel_inputs("gram_stats", Kx.device, Kx=Kx, Kz=Kz)
+    B = Kx.shape[0]
+    rx, cx, rz, cz = Kx.mean(1), Kx.mean(0), Kz.mean(1), Kz.mean(0)
+    m = torch.stack([Kx.mean(), Kz.mean()])
+    tiles = -(-B // TILE)
+    partial = torch.empty(3 * tiles * tiles, device=Kx.device,
+                          dtype=torch.float32)
+    out = torch.empty(3, device=Kx.device, dtype=torch.float32)
+    _launch("gram_stats", Kx.data_ptr(), Kz.data_ptr(), rx.data_ptr(),
+            cx.data_ptr(), rz.data_ptr(), cz.data_ptr(), m.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), B, _stream(Kx.device))
+    return out

@@ -13,6 +13,10 @@ adjoint): with T = Σ K̃xK̃z, N* = ‖K̃*‖_F, f = T/(NxNz+ε) and cotangent
 which gives G_x = cA·K̃z − cBx·K̃x (and symmetrically for z); the kernel maps
 G back to the activations through the RBF or linear chain rule.  All
 scalars stay on the device: no host synchronisation.
+
+``nhsic_unfused`` is the forward-only baseline the streaming path is
+benchmarked against: two dense (B, B) Grams in device memory, then their
+centred statistics.
 """
 from __future__ import annotations
 
@@ -84,3 +88,16 @@ def nhsic_residuals(x, z, *, kernel_x: str = "rbf", kernel_z: str = "rbf"):
     with torch.no_grad():
         return _forward(x.float().contiguous(), z.float().contiguous(),
                         kernel_x == "linear", kernel_z == "linear")
+
+
+def nhsic_unfused(x, z, *, kernel_x: str = "rbf", kernel_z: str = "rbf"):
+    """Forward-only nHSIC(x, z) through the dense-Gram kernels: ``gram``
+    twice, then ``gram_stats``.  Not differentiable: it runs under
+    ``torch.no_grad``."""
+    with torch.no_grad():
+        lx, lz = kernel_x == "linear", kernel_z == "linear"
+        one = torch.ones((), device=x.device)
+        kx = kernel.gram(x, one if lx else rbf_sigma2(x), linear=lx)
+        kz = kernel.gram(z, one if lz else rbf_sigma2(z), linear=lz)
+        t, nx2, nz2 = kernel.gram_stats(kx, kz)
+        return t / (torch.sqrt(nx2) * torch.sqrt(nz2) + _EPS)

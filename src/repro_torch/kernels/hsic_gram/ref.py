@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the streaming nHSIC kernels.
+"""Plain PyTorch versions of the nHSIC kernels.
 
 Each function has the signature of its kernel wrapper in ``kernel.py`` and
 computes the same thing with dense (B, B) Grams.  The wrappers use them for
@@ -7,6 +7,8 @@ CPU tensors; on the card they are what the kernels are held against.
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core.hsic import center
 
 
 def gram(a, s2, linear: bool):
@@ -19,6 +21,15 @@ def gram(a, s2, linear: bool):
     sq = (a * a).sum(1)
     d2 = torch.clamp(sq[:, None] + sq[None, :] - 2.0 * dot, min=0.0)
     return torch.exp(-d2 / (2.0 * s2))
+
+
+def gram_stats(Kx, Kz):
+    """Two (B, B) Grams -> (3,) [Σ K̃x∘K̃z, ‖K̃x‖², ‖K̃z‖²] with
+    K̃ = K − rowmean_i − colmean_j + mean (``core.hsic.center``); neither
+    Gram need be symmetric."""
+    kxc, kzc = center(Kx.float()), center(Kz.float())
+    return torch.stack([(kxc * kzc).sum(), (kxc * kxc).sum(),
+                        (kzc * kzc).sum()])
 
 
 def _centred(K, r, m):

@@ -44,14 +44,45 @@ def conv_defs(cin: int, cout: int, k: int = 3) -> dict:
     return {"w": ParamDef((cout, cin, k, k), scale=(2.0 / (k * k * cin)) ** 0.5)}
 
 
-def conv(params, x, stride: int = 1):
-    """SAME conv of an NCHW tensor with an OIHW weight.  As in XLA's SAME
-    padding, an odd total pad puts the extra row/column at the end."""
+def _same_pads(H, W, k, stride):
+    """Total SAME padding of each spatial axis, as XLA computes it."""
+    return (max((-(-H // stride) - 1) * stride + k - H, 0),
+            max((-(-W // stride) - 1) * stride + k - W, 0))
+
+
+def _conv_im2col(params, x, stride: int = 1):
+    """SAME conv as patch extraction + one einsum (port of the reference's
+    ``_conv_im2col``): k² strided slices of the SAME-padded NCHW input,
+    concatenated to (B, k²·Cin, OH, OW) in (di, dj, cin) order, contracted
+    with the OIHW weight laid out the same way.  Matmul-shaped, so it maps
+    well under ``torch.func.vmap`` over per-cohort weights."""
     w = params["w"]
-    k = w.shape[-1]
+    cout, cin, k, _ = w.shape
+    if k == 1 and stride == 1:
+        return torch.einsum("bchw,oc->bohw", x, w[:, :, 0, 0])
     H, W = x.shape[-2:]
-    ph = max((-(-H // stride) - 1) * stride + k - H, 0)
-    pw = max((-(-W // stride) - 1) * stride + k - W, 0)
+    oh, ow = -(-H // stride), -(-W // stride)
+    ph, pw = _same_pads(H, W, k, stride)
+    xp = F.pad(x, (pw // 2, pw - pw // 2, ph // 2, ph - ph // 2))
+    cols = torch.cat([xp[..., di:di + (oh - 1) * stride + 1:stride,
+                         dj:dj + (ow - 1) * stride + 1:stride]
+                      for di in range(k) for dj in range(k)], dim=1)
+    return torch.einsum("bphw,op->bohw", cols,
+                        w.permute(0, 2, 3, 1).reshape(cout, k * k * cin))
+
+
+def conv(params, x, stride: int = 1, impl: str = "native"):
+    """SAME conv of an NCHW tensor with an OIHW weight: ``impl="native"``
+    through ``F.conv2d`` (cuDNN on the card), ``"im2col"`` as patches and
+    one einsum.  As in XLA's SAME padding, an odd total pad puts the extra
+    row/column at the end."""
+    if impl == "im2col":
+        return _conv_im2col(params, x, stride)
+    if impl != "native":
+        raise ValueError(f"conv impl {impl!r}: expected 'native' or "
+                         f"'im2col'")
+    w = params["w"]
+    ph, pw = _same_pads(*x.shape[-2:], w.shape[-1], stride)
     if ph == pw and ph % 2 == 0:
         return F.conv2d(x, w, stride=stride, padding=ph // 2)
     x = F.pad(x, (pw // 2, pw - pw // 2, ph // 2, ph - ph // 2))

@@ -139,7 +139,7 @@ def test_residuals_are_order_b_times_d():
     _, res = t_ops.nhsic_residuals(torch.from_numpy(x), torch.from_numpy(z))
     assert max(r.numel() for r in res) == 64 * 32
     assert t_kernel.LAUNCHES == {"nhsic_rowsums": 0, "nhsic_stats_feats": 0,
-                                 "nhsic_grad": 0}
+                                 "nhsic_grad": 0, "gram": 0, "gram_stats": 0}
 
 
 def test_features_and_bandwidth_match_reference():

@@ -1,6 +1,7 @@
-"""The CUDA kernels (streaming nHSIC, flash-attention forward, sLSTM scan)
-against their plain versions, on the card.  Marked ``cuda``: without a card every
-test here skips (the kernels have no CPU mode).  On a machine with one:
+"""The CUDA kernels (streaming and dense-Gram nHSIC, flash-attention
+forward, sLSTM scan) against their plain versions, on the card.  Marked
+``cuda``: without a card every test here skips (the kernels have no CPU
+mode).  On a machine with one:
 
     PYTHONPATH=src python -m pytest -q --noconftest \
         tests/test_torch_kernels_cuda.py
@@ -82,7 +83,7 @@ def test_kernels_match_plain_versions(cuda, case):
     assert _rel(gk[0], gr[0]) <= TOL and _rel(gk[1], gr[1]) <= TOL
     torch.cuda.synchronize()
     assert kernel.LAUNCHES == {"nhsic_rowsums": 1, "nhsic_stats_feats": 1,
-                               "nhsic_grad": 1}
+                               "nhsic_grad": 1, "gram": 0, "gram_stats": 0}
 
 
 @pytest.mark.parametrize("case", CASES, ids=[str(c) for c in CASES])
@@ -117,6 +118,102 @@ def test_wrappers_raise_on_bad_inputs(cuda):
         kernel.nhsic_rowsums(x.double(), z.double(), s2.double())
     with pytest.raises(ValueError, match="contiguous"):
         kernel.nhsic_rowsums(x.t().contiguous().t(), z, s2)
+
+
+# (B, D): the reference's audit shape (ops.AUDIT_CASES), the draws of its
+# gram test, the main paths' activation and label widths, ragged B
+# (1, 33, 200) and D = 1
+GRAM_CASES = [(256, 256), (8, 4), (16, 16), (32, 64), (48, 200), (32, 3),
+              (32, 512), (32, 384), (16, 2048), (16, 256), (1, 5), (33, 7),
+              (200, 64), (64, 1)]
+
+
+def _gram_input(B, D, device, linear):
+    rng = np.random.default_rng(B * 100 + D)
+    if linear:
+        x = np.eye(D, dtype=np.float32)[rng.integers(0, D, B)]
+    else:
+        x = rng.standard_normal((B, D)).astype(np.float32)
+    return torch.from_numpy(x).to(device)
+
+
+@pytest.mark.parametrize("linear", [False, True], ids=["rbf", "linear"])
+@pytest.mark.parametrize("case", GRAM_CASES, ids=[str(c) for c in GRAM_CASES])
+def test_gram_kernel_matches_plain_version(cuda, case, linear):
+    x = _gram_input(*case, cuda, linear)
+    s2 = torch.ones((), device=cuda) if linear else hsic.rbf_sigma2(x)
+    kernel.reset_launches()
+    got = kernel.gram(x, s2, linear=linear)
+    want = ref.gram(x, s2, linear)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES["gram"] == 1
+    assert got.shape == (case[0], case[0]) and got.dtype == torch.float32
+    assert _rel(got, want) <= TOL
+    if not linear:
+        assert bool((got.diagonal() == 1).all())
+
+
+def test_gram_kernel_upcasts_bf16(cuda):
+    x = _gram_input(48, 200, cuda, False).bfloat16()
+    assert torch.equal(kernel.gram(x, 3.0), kernel.gram(x.float(), 3.0))
+
+
+@pytest.mark.parametrize("symmetric", [True, False], ids=["sym", "nonsym"])
+@pytest.mark.parametrize("B", [256, 32, 16, 1, 33, 200])
+def test_gram_stats_kernel_matches_plain_version(cuda, B, symmetric):
+    rng = np.random.default_rng(B)
+    kx, kz = (torch.from_numpy(rng.uniform(size=(B, B)).astype(np.float32))
+              .to(cuda) for _ in range(2))
+    if symmetric:
+        kx, kz = (kx + kx.T) / 2, (kz + kz.T) / 2
+    kernel.reset_launches()
+    got = kernel.gram_stats(kx, kz)
+    want = ref.gram_stats(kx, kz)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES["gram_stats"] == 1
+    # each of the three sums against its own plain value: the trace term
+    # is about 1/B of the norms, so a bar scaled by the largest would miss it
+    assert float(((got - want).abs() / want.abs().clamp_min(1e-6)).max()) \
+        <= TOL
+
+
+def test_gram_stats_are_the_same_from_run_to_run(cuda):
+    x = _gram_input(256, 256, cuda, False)
+    kx = kernel.gram(x, hsic.rbf_sigma2(x))
+    kz = kernel.gram(x[:, :64].contiguous(), 1.0, linear=True)
+    runs = [kernel.gram_stats(kx, kz) for _ in range(3)]
+    assert all(torch.equal(r, runs[0]) for r in runs)
+
+
+@pytest.mark.parametrize("case", CASES, ids=[str(c) for c in CASES])
+def test_nhsic_unfused_matches_fused_and_plain(cuda, case):
+    x, z = _inputs(case, cuda)
+    kx = "linear" if case[3] else "rbf"
+    kernel.reset_launches()
+    got = float(ops.nhsic_unfused(x, z, kernel_x=kx))
+    assert kernel.LAUNCHES["gram"] == 2
+    assert kernel.LAUNCHES["gram_stats"] == 1
+    assert abs(got - float(ops.nhsic(x, z, kernel_x=kx))) <= 1e-4
+    assert abs(got - float(hsic.nhsic(x, z, kernel_x=kx))) <= 1e-4
+
+
+def test_gram_wrappers_raise_on_bad_inputs(cuda):
+    x = _gram_input(32, 8, cuda, False)
+    k = kernel.gram(x, 1.0)
+    with pytest.raises(ValueError, match="dtype"):
+        kernel.gram(x.double(), 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel.gram(x.t().contiguous().t(), 1.0)
+    with pytest.raises(ValueError, match="must be"):
+        kernel.gram(x[None], 1.0)
+    with pytest.raises(ValueError, match="one value"):
+        kernel.gram(x, torch.ones(2, device=cuda))
+    with pytest.raises(ValueError, match="is on"):
+        kernel.gram_stats(k, k.cpu())
+    with pytest.raises(ValueError, match="must be"):
+        kernel.gram_stats(k, k[:, :16].contiguous())
+    with pytest.raises(ValueError, match="dtype"):
+        kernel.gram_stats(k.double(), k.double())
 
 
 # (B, Sq, Skv, H, KV, D, causal, window, dtype): the ViT-12 shape, the

@@ -33,7 +33,10 @@ def test_port_file_list_is_complete():
     names = {p.name for p in PORT_FILES}
     assert {"nhsic.cu", "flash_attention.cu", "slstm_scan.cu"} <= {
         p.name for p in (ROOT / "src" / "repro_torch").rglob("*.cu")}
-    assert {"chip_smoke.py", "bridge.py", "server.py", "ops.py"} <= names
+    assert {"chip_smoke.py", "bridge.py", "server.py", "ops.py",
+            "kernels_bench.py", "common.py"} <= names
+    assert (ROOT / "src" / "repro_torch" / "benchmarks" / "kernels_bench.py"
+            in PORT_FILES)
 
 
 def test_resolve_device_never_falls_back(monkeypatch):
@@ -64,7 +67,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
 
 
 def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
-    from repro_torch.kernels.hsic_gram import kernel, ref
+    from repro_torch.kernels.hsic_gram import kernel, ops, ref
     kernel.reset_launches()
     g = torch.Generator().manual_seed(0)
     x, z = torch.randn(8, 3, generator=g), torch.randn(8, 5, generator=g)
@@ -72,8 +75,14 @@ def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
     for a, b in zip(kernel.nhsic_rowsums(x, z, s2),
                     ref.nhsic_rowsums(x, z, s2)):
         assert torch.equal(a, b)
+    kx = kernel.gram(x, s2[0])
+    assert torch.equal(kx, ref.gram(x, s2[0], False))
+    kz = kernel.gram(z, s2[1], linear=True)
+    assert torch.equal(kz, ref.gram(z, s2[1], True))
+    assert torch.equal(kernel.gram_stats(kx, kz), ref.gram_stats(kx, kz))
+    ops.nhsic_unfused(x, z, kernel_z="linear")
     assert kernel.LAUNCHES == {"nhsic_rowsums": 0, "nhsic_stats_feats": 0,
-                               "nhsic_grad": 0}
+                               "nhsic_grad": 0, "gram": 0, "gram_stats": 0}
 
 
 def test_flash_wrapper_on_cpu_takes_the_plain_version_and_counts_nothing():
