@@ -12,19 +12,28 @@
    nHSIC) at both main paths' shapes and at batches/widths off the 32-row
    tile; K4 at the ViT-12 shape, the reference's audit shapes (bf16, ragged
    S=200, windowed), GQA, causal with Sq != Skv, causal+window with empty
-   rows (exactly 0), and its autograd gradient; K5 (``hs`` and the four
+   rows (exactly 0), its tiling (head dims 1, 3, 20, 100; Sq=5 and 9;
+   Skv=1000 with a window of 300), the same bits over three runs, and its
+   autograd gradient; K5 (``hs`` and the four
    final states) at the xlstm-1.3b shape, the reference's audit shapes,
    S=1, ragged S=200, head dims 1, 3 and 48, random initial states and
    gates up to |g| = 100, and its autograd gradient.  Bar: scale-relative
    1e-3 in f32, 2e-2 in bf16.  K6 (the dense RBF and linear Gram) and K7
    (centred statistics of two dense Grams) at the reference's audit shape
    (B=256, D=256), its gram test's draws, the main paths' widths, ragged B
-   (1, 33, 200), D=1, non-symmetric Gram pairs and a batch of identical
-   rows; ``nhsic_unfused`` (K6 twice, then K7, counted per call) against
+   (1, 33, 200), D=1, K6's tiling (B in {1, 31, 33, 257} x D in {1, 7,
+   257, 2048}), non-symmetric Gram pairs and a batch of identical rows;
+   every K6 Gram exactly symmetric, identical rows exactly 1, the same bits
+   over three runs; ``nhsic_unfused`` (K6 twice, then K7, counted per call) against
    the fused op and plain nHSIC at abs 1e-4.  Times each kernel, its plain
    version and, for K4, ``F.scaled_dot_product_attention`` and, for the
    linear K6, ``x @ x.T`` as yardsticks (CUDA events, median of 30
-   calls).
+   calls); for K4 (at the ViT-12 shape and the kernel benchmark's two
+   attention shapes), K6 and K7 also the profiler's device time of the
+   kernel and of the yardstick, and the host share of each call (event
+   time less device time).  Bounds count matrix products at the tensor
+   cores' rate (3xTF32 for f32, bf16 for bf16) and all other arithmetic at
+   the float32 rate.
 3. Main path 1: the port's ``NeuLiteServer`` (sequential runtime, nHSIC
    through the kernels) on the paper's ResNet18 at full width, 32x32x3,
    10 classes, batch 32, 4 stages: four rounds, one per stage, over a
@@ -74,7 +83,13 @@ OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke.json")
 BENCH_OUT = os.path.join(ROOT, "chiprun_out", "bench_kernels.json")
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
-FP32_FLOPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+# H100 SXM peak rates (dense): a matrix product in f32 is counted at the
+# tensor cores' rate for fp32-accurate products, 3xTF32 (495 / 3 TFLOP/s),
+# on bf16 inputs at the bf16 rate; all other arithmetic at the float32
+# rate outside the tensor cores
+F32_PRODUCT_FLOPS_PER_S = 495e12 / 3
+BF16_PRODUCT_FLOPS_PER_S = 989e12
+ELEMENTWISE_FLOPS_PER_S = 67e12
 TOL = 1e-3
 SEED = 0
 
@@ -103,6 +118,11 @@ GRAM_CASES = list(dict.fromkeys(
 # K7: batches of the Gram pairs (the x and z Grams of each, and the
 # non-symmetric cross-Grams of two different sets of rows)
 GRAM_STATS_BATCHES = [256, 32, 16, 48, 1, 33, 200]
+# K6's tiling: B off the 32-row tile on both sides against D off its
+# 16-column chunks and eight warp slices, at the fixed bandwidth
+# sigma^2 = D (a single row's mean-distance bandwidth is 0, where the
+# plain version's own rounding turns the diagonal of 1 into 0)
+GRAM_TILING = [(B, D) for B in (1, 31, 33, 257) for D in (1, 7, 257, 2048)]
 GRAM_TIMED = [(256, 256), TIMED_SHAPE[:2]]   # (B, D); K7 at the same B
 
 # K4: (B, Sq, Skv, H, KV, D, causal, window, dtype).  The ViT-12 shape,
@@ -119,7 +139,21 @@ FLASH_CASES = [FLASH_VIT,
                (2, 150, 70, 4, 2, 64, True, 0, "float32"),
                (1, 41, 14, 2, 2, 16, True, 4, "float32"),
                (2, 130, 100, 4, 2, 128, True, 7, "float32")]
+# K4's tiling: head dims off the MMA's k of 8 (1, 3, 20, 100), fewer
+# query rows than one warp's 16, several 32-row kv tiles with a ragged tail
+# under causal + window
+FLASH_CASES += [(2, 70, 90, 4, 2, 1, True, 0, "float32"),
+                (2, 70, 90, 4, 2, 3, False, 0, "float32"),
+                (2, 70, 90, 4, 2, 20, True, 0, "float32"),
+                (2, 70, 90, 4, 2, 100, False, 0, "float32"),
+                (2, 5, 40, 2, 2, 64, False, 0, "float32"),
+                (3, 9, 9, 2, 1, 32, True, 0, "float32"),
+                (1, 1000, 1000, 2, 2, 64, True, 300, "float32")]
 FLASH_GRAD_CASES = [FLASH_VIT, FLASH_CASES[5], FLASH_CASES[8]]
+# timed: the ViT-12 shape and the kernel benchmark's two attention rows
+# (kernels_bench.ATTN_SHAPES, causal f32)
+FLASH_TIMED = [FLASH_VIT, (2, 256, 256, 8, 2, 64, True, 0, "float32"),
+               (1, 1024, 1024, 8, 8, 64, True, 0, "float32")]
 BF16_TOL = 2e-2
 
 # K5: (B, S, H, Dh, random_state0, gate_scale).  The xlstm-1.3b shape, the
@@ -194,19 +228,20 @@ def time_ms(torch, fn, runs=30, warmup=5):
 # written once, FLOPs the function needs; bound = max of the two times
 # --------------------------------------------------------------------------- #
 def gram_flops(B, D, linear):
-    """FLOPs of the Gram of (B, D) rows with themselves.  It is symmetric,
-    so it needs B(B+1)/2 dot products of 2D FLOPs; RBF adds the B squared
-    norms (2D each) and |a|^2+|b|^2-2ab, clamp, scale and exp (6) per
-    distinct entry."""
+    """(products, elementwise) FLOPs of the Gram of (B, D) rows with
+    themselves.  It is symmetric, so it needs B(B+1)/2 dot products of 2D
+    FLOPs; RBF adds the B squared norms (2D each, products too) and
+    |a|^2+|b|^2-2ab, clamp, scale and exp (6) per distinct entry."""
     dots = B * (B + 1) * D
-    return dots if linear else dots + 2 * B * D + 3 * B * (B + 1)
+    return (dots, 0) if linear else (dots + 2 * B * D, 3 * B * (B + 1))
 
 
 def flash_work(B, Sq, Skv, H, KV, D, causal, window, dtype):
-    """Bytes and FLOPs of one K4 call: q, k, v read once, o written once;
-    QK^T and PV (2 D FLOPs each per allowed (query, key) pair) plus the
-    softmax (max, subtract, exp, sum, rescale: 5 per pair) and q's scale.
-    Only the pairs the masks allow count."""
+    """Bytes, product and elementwise FLOPs and the products' rate of one
+    K4 call: q, k, v read once, o written once; QK^T and PV (2 D FLOPs
+    each per allowed (query, key) pair), the softmax (max, subtract, exp,
+    sum, rescale: 5 per pair) and q's scale.  Only the pairs the masks
+    allow count."""
     size = 2 if dtype == "bfloat16" else 4
     nbytes = size * (2 * B * Sq * H * D + 2 * B * Skv * KV * D)
     pairs = 0
@@ -215,44 +250,49 @@ def flash_work(B, Sq, Skv, H, KV, D, causal, window, dtype):
         hi = min(Skv - 1, i) if causal else Skv - 1
         pairs += max(0, hi - lo + 1)
     pairs *= B * H
-    return nbytes, 4 * pairs * D + 5 * pairs + B * Sq * H * D
+    rate = (BF16_PRODUCT_FLOPS_PER_S if dtype == "bfloat16"
+            else F32_PRODUCT_FLOPS_PER_S)
+    return nbytes, 4 * pairs * D, 5 * pairs + B * Sq * H * D, rate
 
 
 def slstm_work(B, S, H, Dh, *_):
-    """Bytes and FLOPs of one K5 call: g_in, r, b and the four initial
-    states read once, hs and the four final states written once; the four
-    recurrent products (2 Dh^2 FLOPs per gate, step, row and head) plus
-    ~30 FLOPs of gate arithmetic per (step, row, head, column)."""
+    """One K5 call: g_in, r, b and the four initial states read once, hs
+    and the four final states written once; the four recurrent products
+    (2 Dh^2 FLOPs per gate, step, row and head), ~30 FLOPs of gate
+    arithmetic per (step, row, head, column)."""
     nbytes = 4 * (B * S * 4 * H * Dh + 4 * H * Dh * Dh + 4 * H * Dh
                   + 4 * B * H * Dh + B * S * H * Dh + 4 * B * H * Dh)
-    return nbytes, 2 * B * S * H * 4 * Dh * Dh + 30 * B * S * H * Dh
+    return (nbytes, 2 * B * S * H * 4 * Dh * Dh, 30 * B * S * H * Dh,
+            F32_PRODUCT_FLOPS_PER_S)
 
 
 def gram_work(B, D, linear):
-    """Bytes and FLOPs of one K6 call: x and sigma^2 read, the Gram
-    written."""
-    return 4 * B * D + 4 + 4 * B * B, gram_flops(B, D, linear)
+    """One K6 call: x and sigma^2 read, the Gram written."""
+    return (4 * B * D + 4 + 4 * B * B, *gram_flops(B, D, linear),
+            F32_PRODUCT_FLOPS_PER_S)
 
 
 def gram_stats_work(B):
-    """Bytes and FLOPs of one K7 call: two Grams and their row, column and
-    total means read, three sums written; the means' reductions, the
-    centring and three products per entry."""
-    return 8 * B * B + 16 * B + 8 + 12, 18 * B * B
+    """One K7 call: two Grams and their row, column and total means read,
+    three sums written; the means' reductions, the centring and three
+    products per entry, all elementwise."""
+    return 8 * B * B + 16 * B + 8 + 12, 0, 18 * B * B, F32_PRODUCT_FLOPS_PER_S
 
 
 def nhsic_work(name, B, Dx, Dz, lx, lz=False):
-    """Bytes and FLOPs of one K1, K2 or K3 call."""
-    grams = gram_flops(B, Dx, lx) + gram_flops(B, Dz, lz)
+    """One K1, K2 or K3 call."""
+    (px, ex), (pz, ez) = gram_flops(B, Dx, lx), gram_flops(B, Dz, lz)
+    prod, elem = px + pz, ex + ez
     act = 4 * B * (Dx + Dz)
+    rate = F32_PRODUCT_FLOPS_PER_S
     if name == "nhsic_rowsums":
-        return act + 8 + 8 * B, grams + 2 * B * B
+        return act + 8 + 8 * B, prod, elem + 2 * B * B, rate
     if name == "nhsic_stats_feats":
         # centring (3 per entry per Gram) and three products with sums
-        return act + 8 * B + 16 + 12, grams + 12 * B * B
-    # centring, G (3 each), W (2 each), W.x and the row-sum term
-    return (act + 8 * B + 28 + act,
-            grams + 16 * B * B + 2 * B * B * (Dx + Dz) + 4 * B * (Dx + Dz))
+        return act + 8 * B + 16 + 12, prod, elem + 12 * B * B, rate
+    # centring, G (3 each), W (2 each), the row-sum term; W.x a product
+    return (act + 8 * B + 28 + act, prod + 2 * B * B * (Dx + Dz),
+            elem + 16 * B * B + 4 * B * (Dx + Dz), rate)
 
 
 WORK = {"flash_attention_fwd": flash_work, "slstm_scan_fwd": slstm_work,
@@ -260,10 +300,14 @@ WORK = {"flash_attention_fwd": flash_work, "slstm_scan_fwd": slstm_work,
 
 
 def bound_ms(name, shape):
-    nbytes, flops = (WORK[name](*shape) if name in WORK
-                     else nhsic_work(name, *shape))
+    """The least time of one call: the larger of its bytes over the memory
+    rate and its arithmetic over the peak rates, products and elementwise
+    work each at their own rate (they run on different units, so the
+    larger of the two times is the least)."""
+    nbytes, prod, elem, rate = (WORK[name](*shape) if name in WORK
+                                else nhsic_work(name, *shape))
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = max(prod / rate, elem / ELEMENTWISE_FLOPS_PER_S) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -401,19 +445,34 @@ def gram_phase(torch, kernel, ops, ref, hsic):
     call.  Returns each kernel's largest (absolute, scale-relative)
     error."""
     errs = {}
-    for B, D in GRAM_CASES:
+    cases = ([(B, D, False) for B, D in GRAM_CASES]
+             + [(B, D, True) for B, D in GRAM_TILING])
+    for B, D, fixed in cases:
         x = gram_input(torch, B, D)
         for linear in (False, True):
             s2 = (torch.ones((), device=x.device) if linear
+                  else torch.full((), float(D), device=x.device) if fixed
                   else hsic.rbf_sigma2(x))
             got = kernel.gram(x, s2, linear=linear)
             rel, ab = rel_abs(got, ref.gram(x, s2, linear))
             torch.cuda.synchronize()
             check(rel <= TOL and tuple(got.shape) == (B, B),
                   f"gram at B={B} D={D} linear={linear}: rel err {rel}")
+            check(torch.equal(got, got.T),
+                  f"gram at B={B} D={D}: not exactly symmetric")
             check(linear or bool((got.diagonal() == 1).all()),
                   f"gram at B={B} D={D}: diagonal is not exactly 1")
             track(errs, "gram", rel, ab)
+    for B, D in ((257, 7), (33, 2048), (64, 1)):
+        x = gram_input(torch, 1, D).repeat(B, 1).contiguous()
+        check(bool((kernel.gram(x, hsic.rbf_sigma2(x) + 1.0) == 1).all()),
+              f"gram: {B} identical rows of width {D} are not exactly 1")
+    x = gram_input(torch, 257, 257)
+    for linear in (False, True):
+        runs = [kernel.gram(x, hsic.rbf_sigma2(x), linear=linear)
+                for _ in range(3)]
+        check(all(torch.equal(r, runs[0]) for r in runs),
+              "gram differs between runs")
     xb = gram_input(torch, 48, 200).bfloat16()
     check(torch.equal(kernel.gram(xb, 2.0), kernel.gram(xb.float(), 2.0)),
           "gram: bf16 input differs from its f32 upcast")
@@ -435,7 +494,9 @@ def gram_phase(torch, kernel, ops, ref, hsic):
     check(all(torch.equal(first, kernel.gram_stats(kx, kz))
               for _ in range(3)), "gram_stats differs between runs")
     (ga, gr), (sa, sr) = errs["gram"], errs["gram_stats"]
-    print(f"  check gram: {2 * len(GRAM_CASES)} Grams, rel err <= {gr:.2e}, "
+    print(f"  check gram: {2 * len(cases)} Grams, exactly symmetric, "
+          f"identical rows exactly 1, bit-identical over three runs, "
+          f"rel err <= {gr:.2e}, "
           f"abs <= {ga:.2e}; gram_stats: {2 * len(GRAM_STATS_BATCHES)} "
           f"pairs, each sum's rel err <= {sr:.2e}, abs <= {sa:.2e}",
           flush=True)
@@ -517,8 +578,10 @@ def gram_timing(torch, kernel, ref, hsic):
                          "device_ms": dev, "library_device_ms": lib_dev,
                          "bound_ms": b_ms, "bound_by": b_by})
             print(f"  time gram B={B} D={D} linear={linear}: kernel "
-                  f"{ms:.4f} ms (device {dev}), plain {plain:.4f} ms"
-                  + (f", x @ x.T {lib:.4f} ms (device {lib_dev})"
+                  f"{ms:.4f} ms (device {fmt_ms(dev)}, host share "
+                  f"{host_share(ms, dev)}), plain {plain:.4f} ms"
+                  + (f", x @ x.T {lib:.4f} ms (device {fmt_ms(lib_dev)}, "
+                     f"host share {host_share(lib, lib_dev)})"
                      if linear else "")
                   + f", bound {b_ms:.2e} ms ({b_by})", flush=True)
         kx = kernel.gram(x, s2)
@@ -613,30 +676,61 @@ def flash_phase(torch, fkernel, fops, fref):
               "non-finite flash grad")
         print(f"  check flash autograd {case}: out {rel_o:.2e}, grads "
               f"{rel_g:.2e}", flush=True)
+    for case in (FLASH_VIT, FLASH_CASES[-1]):
+        q, k, v = flash_inputs(torch, case)
+        runs = [fkernel.flash_attention_fwd(q, k, v, causal=case[6],
+                                            window=case[7])
+                for _ in range(3)]
+        check(all(torch.equal(r, runs[0]) for r in runs),
+              f"flash_attention_fwd at {case} differs between runs")
+    print("  check flash: bit-identical over three runs", flush=True)
     return errs
 
 
 def flash_timing(torch, fkernel, fref):
     """K4, its plain version and ``F.scaled_dot_product_attention`` (a
-    yardstick, timed here only) at the ViT-12 shape."""
+    yardstick, timed here only) at FLASH_TIMED: event times of one call,
+    and the profiler's device time of K4 and of every kernel SDPA's call
+    launches; their difference is the call's host share."""
     import torch.nn.functional as F
-    case = FLASH_VIT
-    causal, window = case[6], case[7]
-    q, k, v = flash_inputs(torch, case)
-    ms = time_ms(torch, lambda: fkernel.flash_attention_fwd(
-        q, k, v, causal=causal, window=window))
-    plain = time_ms(torch, lambda: fref.attention_ref(
-        q, k, v, causal=causal, window=window))
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal))
-    b_ms, b_by = bound_ms("flash_attention_fwd", case)
-    print(f"  time flash_attention_fwd {case}: kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms, sdpa {lib:.4f} ms, bound {b_ms:.2e} ms "
-          f"({b_by})", flush=True)
-    return {"name": "flash_attention_fwd", "shape": list(case), "ms": ms,
-            "plain_ms": plain, "library_ms": lib, "bound_ms": b_ms,
-            "bound_by": b_by}
+    rows = []
+    for case in FLASH_TIMED:
+        causal, window = case[6], case[7]
+        q, k, v = flash_inputs(torch, case)
+        ms = time_ms(torch, lambda: fkernel.flash_attention_fwd(
+            q, k, v, causal=causal, window=window))
+        plain = time_ms(torch, lambda: fref.attention_ref(
+            q, k, v, causal=causal, window=window))
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=case[3] != case[4])
+        lib = time_ms(torch, sdpa)
+        dev = device_ms(torch, lambda: fkernel.flash_attention_fwd(
+            q, k, v, causal=causal, window=window), ("flash_fwd_kernel",))
+        lib_dev = device_ms(torch, sdpa)
+        b_ms, b_by = bound_ms("flash_attention_fwd", case)
+        rows.append({"name": "flash_attention_fwd", "shape": list(case),
+                     "ms": ms, "plain_ms": plain, "library_ms": lib,
+                     "device_ms": dev, "library_device_ms": lib_dev,
+                     "bound_ms": b_ms, "bound_by": b_by})
+        print(f"  time flash_attention_fwd {case}: kernel {ms:.4f} ms "
+              f"(device {fmt_ms(dev)}, host share {host_share(ms, dev)}), "
+              f"plain {plain:.4f} ms, sdpa {lib:.4f} ms (device "
+              f"{fmt_ms(lib_dev)}, host share {host_share(lib, lib_dev)}), "
+              f"bound {b_ms:.2e} ms ({b_by})", flush=True)
+    return rows
+
+
+def fmt_ms(ms):
+    return "not recorded" if ms is None else f"{ms:.4f} ms"
+
+
+def host_share(event_ms, dev_ms):
+    """Event time less device time of one call: the host's launch gap."""
+    return ("not recorded" if dev_ms is None
+            else f"{event_ms - dev_ms:.4f} ms")
 
 
 def slstm_inputs(torch, case):
@@ -1216,7 +1310,7 @@ def main():
     errs.update(slstm_phase(torch, skernel, sops, sref))
     errs.update(gram_phase(torch, kernel, ops, ref, hsic))
     timing = timing_phase(torch, kernel, ref, hsic)
-    timing.append(flash_timing(torch, fkernel, fref))
+    timing += flash_timing(torch, fkernel, fref)
     timing.append(slstm_timing(torch, skernel, sref))
     timing += gram_timing(torch, kernel, ref, hsic)
 
@@ -1276,8 +1370,11 @@ def main():
     timed = {n: next(r for r in timing if r["name"] == n
                      and tuple(r["shape"]) == TIMED_SHAPE)
              for n in STREAMING}
-    timed.update({r["name"]: r for r in timing
-                  if r["name"] in ("flash_attention_fwd", "slstm_scan_fwd")})
+    timed["flash_attention_fwd"] = next(
+        r for r in timing if r["name"] == "flash_attention_fwd"
+        and tuple(r["shape"]) == FLASH_VIT)
+    timed["slstm_scan_fwd"] = next(r for r in timing
+                                   if r["name"] == "slstm_scan_fwd")
     # K6's entry is the linear Gram, which has a library yardstick
     # (x @ x.T), at the audit shape; its RBF row rides along
     gram_rows = [r for r in timing if r["name"] in ("gram", "gram_stats")
@@ -1302,8 +1399,9 @@ def main():
             out_kernels[-1].update(linear=True, rbf={
                 k: row["rbf"][k] for k in ("ms", "plain_ms", "device_ms",
                                            "bound_ms", "bound_by")})
-        if "device_ms" in row:
-            out_kernels[-1]["device_ms"] = row["device_ms"]
+        for key in ("device_ms", "library_device_ms"):
+            if key in row:
+                out_kernels[-1][key] = row[key]
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     os.makedirs(os.path.dirname(OUT), exist_ok=True)

@@ -1,0 +1,111 @@
+"""Times one call of the K4 and K6 wrappers of a checkout of the port, so
+that two checkouts can be compared on one card.
+
+    python src/repro_torch/benchmarks/kernel_calls.py --src <checkout>/src \
+        --label <name> [--out <file.jsonl>]
+
+imports ``repro_torch`` from ``--src`` (so an older checkout, unpacked
+beside this one, is timed with its own wrappers and kernels) and, for
+``flash_attention_fwd`` at the ViT-12 shape and ``gram`` at (B, D) =
+(256, 256) and (32, 256), linear and RBF, prints one JSON line each:
+
+* ``event_ms``: CUDA events around one call, median of 30 (the host's
+  launch gap included, as ``chip_smoke.py`` times every kernel);
+* ``host_ms``: the host clock per call over 200 calls issued back to back
+  without a synchronisation, the wrapper's own Python and launch time;
+* ``device_ms``: the profiler's device time of the kernel per call.
+
+Needs a CUDA card; exits 2 without one.  TF32 is off.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import sys
+import time
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", required=True)
+    ap.add_argument("--label", required=True)
+    ap.add_argument("--out")
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_calls: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, args.src)
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.hsic_gram import kernel as hkernel
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def event_ms(fn, runs=30):
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(runs):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+    def host_ms(fn, calls=200):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t = (time.perf_counter() - t0) * 1e3 / calls
+        torch.cuda.synchronize()
+        return t
+
+    def device_ms(fn, name, runs=30):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and name in e.name)
+        return us / 1e3 / runs if us else None
+
+    gen = torch.Generator().manual_seed(0)
+    calls = []
+    q, k, v = (torch.randn((32, 64, 6, 64), generator=gen).cuda()
+               for _ in range(3))
+    calls.append(("flash_attention_fwd", [32, 64, 64, 6, 6, 64, False, 0],
+                  "flash_fwd_kernel",
+                  lambda: fkernel.flash_attention_fwd(q, k, v, causal=False)))
+    for B, D in ((256, 256), (32, 256)):
+        x = torch.randn((B, D), generator=gen).cuda()
+        s2 = torch.full((), 2.0 * D, device="cuda")
+        for linear in (True, False):
+            calls.append(("gram", [B, D, linear], "gram_kernel",
+                          lambda x=x, s2=s2, linear=linear:
+                          hkernel.gram(x, s2, linear=linear)))
+    lines = []
+    for name, shape, kname, fn in calls:
+        row = {"label": args.label, "name": name, "shape": shape,
+               "event_ms": event_ms(fn), "host_ms": host_ms(fn),
+               "device_ms": device_ms(fn, kname),
+               "card": torch.cuda.get_device_name(0)}
+        lines.append(json.dumps(row))
+        print(lines[-1], flush=True)
+    if args.out:
+        with open(args.out, "a") as f:
+            f.write("\n".join(lines) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -30,6 +30,7 @@ LAUNCHES = {"flash_attention_fwd": 0}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 4 + [_I] * 9 + [_P]
 _lib = None
+_fwd = None   # the bound C entry point, looked up once
 
 
 def reset_launches() -> None:
@@ -39,12 +40,12 @@ def reset_launches() -> None:
 
 def library() -> ctypes.CDLL:
     """The compiled kernel, built and bound at first use."""
-    global _lib
+    global _lib, _fwd
     if _lib is None:
         lib = load_library(SOURCE)
         lib.flash_attention_fwd.argtypes = _ARGTYPES
         lib.flash_attention_fwd.restype = ctypes.c_int
-        _lib = lib
+        _lib, _fwd = lib, lib.flash_attention_fwd
     return _lib
 
 
@@ -76,7 +77,9 @@ def flash_attention_fwd(q, k, v, *, causal: bool, window: int = 0):
     if not q.dtype == k.dtype == v.dtype:
         raise ValueError("flash_attention_fwd: q, k and v must share a dtype")
     o = torch.empty_like(q)
-    err = library().flash_attention_fwd(
+    if _fwd is None:
+        library()
+    err = _fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Sq, Skv,
         H, KV, D, int(causal), int(window), int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)

@@ -25,13 +25,13 @@
 // once, so bytes bound them.
 // Tensor cores (TF32) are avoided on purpose: a Gram tile is computed as
 // |a|^2 + |b|^2 - 2 a.b, clamped at 0, which cancels badly at a 10-bit
-// mantissa.  Making the large-B case fast is left to later work.
+// mantissa, and an MMA's internal order of summation would make the
+// distance of two identical rows depend on where they sit (see K6 below).
 //
 // Design, per kernel:
 //   * A thread block owns a 32-row tile and loops over the 32-column tiles
 //     itself (the TPU grid ran that axis in order), so row sums and gradient
-//     rows need no reduction across blocks.  The dense Gram has one block
-//     per (32 x 32) output tile.
+//     rows need no reduction across blocks.
 //   * Statistics need a reduction over all (i, j) tiles.  Each block writes
 //     its three partial sums to a scratch buffer and a second launch adds
 //     them in a fixed order: results are the same from run to run (no
@@ -42,6 +42,33 @@
 //     is why the TPU version never pads the streaming kernels.)
 //   * Row norms are accumulated with the same fma sequence as the dot
 //     products, so a diagonal distance is exactly 0.
+//
+// K6, the dense Gram.  Its work at the benchmark's B = 256, D = 256 is
+// 16.8 MFLOP (well under a microsecond on the CUDA cores) and 0.5 MB (0.16
+// us at 3.35 TB/s): latency, not work, sets its time.  Its first version
+// (one block per 32 x 32 output tile, each block loading, synchronising and
+// multiplying its D in eight 32-column chunks in turn, the full square)
+// took 26-27 us of device time at B = 256 and at B = 32, 4x `x @ x.T`
+// (NVIDIA H100 80GB HBM3, 700.00 W).  The redesign:
+//   * Symmetry: one block per tile pair (ti, tj >= ti), nb (nb + 1) / 2
+//     blocks; an off-diagonal block writes its tile and, through shared
+//     memory so that both writes coalesce, its transpose.  The Gram is
+//     exactly symmetric: fmaf(a, b, c) and fmaf(b, a, c) are the same bits.
+//   * D split across the block's 8 warps: each warp multiplies the whole
+//     32 x 32 tile on its slice of D with a 4 x 8 register tile per lane,
+//     so a single-tile batch (B = 32) runs eight independent chains; the
+//     warps' partials are then added in warp order in shared memory (the
+//     same result on every run, no atomics).
+//   * Loads by cp.async, 16 bytes a copy where D % 4 == 0 (else 4), each
+//     warp keeping two 16-column chunks in flight, so the next chunk loads
+//     while the current one is multiplied; masked rows and columns are
+//     filled with zeros by the copy itself.
+//   * Exact diagonal: each block sums |x_i|^2 with the fma sequence and the
+//     warp order of its dot products, so identical rows anywhere in the
+//     batch have a distance of exactly 0 (an RBF value of exactly 1)
+//     without a special case; the clamp at 0 stays.  It stays on CUDA cores
+//     for that reason: the arithmetic is not what bounds it.
+// Measured: PERF.md (chip_smoke.py's gram timing).
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -214,21 +241,200 @@ sum_partials_kernel(const float* __restrict__ partial, int nblocks,
   }
 }
 
-// Grid (column tiles, row tiles): the (TILE, TILE) tile at (blockIdx.y,
-// blockIdx.x) of the Gram of a (B, D), into out (B, B) row-major; s2 points
-// at sigma^2 (read, but unused, for the linear Gram).
+// ---- K6, the dense Gram (see the header: symmetric tiles, D split across
+// the warps, cp.async double buffering, an exact diagonal) ----
+constexpr int GRAM_WARPS = THREADS / 32;  // 8 warps, one slice of D each
+constexpr int GKC = 16;                   // D columns per cp.async chunk
+constexpr int GLD = GKC + 4;              // padded smem row: 16-byte aligned,
+                                          // 8 rows on 8 distinct bank groups
+constexpr int GSTAGES = 2;                // chunks in flight per warp
+constexpr int GSTAGE = 2 * TILE * GLD;    // floats of one stage: a and b rows
+constexpr int GWARP = GSTAGES * GSTAGE;   // floats of one warp's ring
+constexpr int GPART = TILE * (TILE + 1);  // floats of one padded (TILE, TILE)
+constexpr size_t GRAM_SMEM = sizeof(float) * GRAM_WARPS * GWARP;
+// after the loads the ring is reused: the warps' partial tiles, their
+// partial norms, the summed norms and the finished tile
+static_assert(GRAM_WARPS * GPART + GRAM_WARPS * 2 * TILE + 2 * TILE + GPART
+                  <= GRAM_WARPS * GWARP,
+              "K6's reduction must fit in the load ring");
+
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool vec, bool in) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if (vec)  // 16 bytes; src-size 0 writes zeros (masked rows and columns)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(src), "r"(in ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+                 "l"(src), "r"(in ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One warp copies rows [row0, row0 + TILE) x columns [k0, k0 + GKC) of a
+// (B, D) into dst (TILE, GLD); rows >= B and columns >= D become 0.
+__device__ __forceinline__ void gram_chunk(const float* __restrict__ a, int B,
+                                          int D, int row0, int k0, float* dst,
+                                          bool vec, int lane) {
+  if (vec) {
+    for (int e = lane; e < TILE * GKC / 4; e += 32) {
+      const int r = e / (GKC / 4), k = k0 + 4 * (e % (GKC / 4));
+      const bool in = row0 + r < B && k < D;
+      cp_async(dst + r * GLD + (k - k0), in ? a + (size_t)(row0 + r) * D + k
+                                            : a, true, in);
+    }
+  } else {
+    for (int e = lane; e < TILE * GKC; e += 32) {
+      const int r = e / GKC, k = k0 + e % GKC;
+      const bool in = row0 + r < B && k < D;
+      cp_async(dst + r * GLD + (k - k0), in ? a + (size_t)(row0 + r) * D + k
+                                            : a, false, in);
+    }
+  }
+}
+
+__device__ __forceinline__ float lane_of(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Grid: one block per tile pair (ti, tj), tj >= ti, of the Gram of a (B, D)
+// into out (B, B) row-major.  s2 points at sigma^2 (read, but unused, for
+// the linear Gram).  `vec`: D % 4 == 0 and `a` 16-byte aligned.
 __global__ void __launch_bounds__(THREADS)
 gram_kernel(const float* __restrict__ a, const float* __restrict__ s2,
-            float* __restrict__ out, int B, int D, int linear) {
-  __shared__ TileSmem sm;
-  __shared__ float K[TILE][TILE + 1];
-  const int i0 = blockIdx.y * TILE, j0 = blockIdx.x * TILE;
-  gram_tile(a, B, D, i0, j0, linear, s2[0], sm, K);
-  const int c = threadIdx.x % TILE, j = j0 + c;
+            float* __restrict__ out, int B, int D, int linear, int vec) {
+  extern __shared__ float4 gram_smem4[];
+  float* smem = reinterpret_cast<float*>(gram_smem4);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int ti = 0, t = blockIdx.x;
+  for (int n = (B + TILE - 1) / TILE; t >= n - ti; ++ti) t -= n - ti;
+  const int tj = ti + t;
+  const bool diag = ti == tj;
+  const int i0 = ti * TILE, j0 = tj * TILE;
+
+  // this warp's slice of D: chunks [c0, c1)
+  const int nchunk = (D + GKC - 1) / GKC;
+  const int per = (nchunk + GRAM_WARPS - 1) / GRAM_WARPS;
+  const int c0 = min(warp * per, nchunk), c1 = min(c0 + per, nchunk);
+  float* ring = smem + warp * GWARP;
+
+  // lane owns rows rg + 8 i (i < 4) and columns cg + 4 j (j < 8) of the
+  // tile, and the norms of row `lane` of each side
+  const int rg = lane / 4, cg = lane % 4;
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  float na = 0.f, nb = 0.f;
+
+  for (int s = 0; s < GSTAGES - 1; ++s) {
+    if (c0 + s < c1) {
+      float* st = ring + s * GSTAGE;
+      gram_chunk(a, B, D, i0, (c0 + s) * GKC, st, vec, lane);
+      if (!diag) gram_chunk(a, B, D, j0, (c0 + s) * GKC, st + TILE * GLD,
+                            vec, lane);
+    }
+    cp_async_commit();
+  }
+  for (int c = c0; c < c1; ++c) {
+    const int next = c + GSTAGES - 1;
+    if (next < c1) {
+      float* st = ring + ((next - c0) % GSTAGES) * GSTAGE;
+      gram_chunk(a, B, D, i0, next * GKC, st, vec, lane);
+      if (!diag) gram_chunk(a, B, D, j0, next * GKC, st + TILE * GLD, vec,
+                            lane);
+    }
+    cp_async_commit();                   // empty groups keep the count fixed
+    cp_async_wait<GSTAGES - 1>();
+    __syncwarp();                        // every lane's copies have landed
+    const float* as = ring + ((c - c0) % GSTAGES) * GSTAGE;
+    const float* bs = diag ? as : as + TILE * GLD;
+#pragma unroll
+    for (int k = 0; k < GKC; k += 4) {
+      float4 av[4], bv[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        av[i] = *reinterpret_cast<const float4*>(as + (rg + 8 * i) * GLD + k);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        bv[j] = *reinterpret_cast<const float4*>(bs + (cg + 4 * j) * GLD + k);
+      const float4 an = *reinterpret_cast<const float4*>(as + lane * GLD + k);
+      const float4 bn = *reinterpret_cast<const float4*>(bs + lane * GLD + k);
+      // the same fma sequence for dots and norms: identical rows give a
+      // dot equal to their norms, bit for bit
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            acc[i][j] = fmaf(lane_of(av[i], kk), lane_of(bv[j], kk),
+                             acc[i][j]);
+        na = fmaf(lane_of(an, kk), lane_of(an, kk), na);
+        nb = fmaf(lane_of(bn, kk), lane_of(bn, kk), nb);
+      }
+    }
+    __syncwarp();                        // stage read before it is refilled
+  }
+  cp_async_wait<0>();
+  __syncthreads();                       // every ring is free for reuse
+
+  float* part = smem;                                  // [warp][TILE][TILE+1]
+  float* pnorm = part + GRAM_WARPS * GPART;            // [warp][2 TILE]
+  float* norm = pnorm + GRAM_WARPS * 2 * TILE;         // [2 TILE]
+  float* K = norm + 2 * TILE;                          // [TILE][TILE+1]
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      part[warp * GPART + (rg + 8 * i) * (TILE + 1) + cg + 4 * j] = acc[i][j];
+  pnorm[warp * 2 * TILE + lane] = na;
+  pnorm[warp * 2 * TILE + TILE + lane] = nb;
+  __syncthreads();
+  // the warps' partials added in warp order, dots and norms alike
+  float dot[PER_THREAD];
+  const int cc = threadIdx.x % TILE;
+#pragma unroll
+  for (int q = 0; q < PER_THREAD; ++q) {
+    const int e = entry_row(q) * (TILE + 1) + cc;
+    float v = part[e];
+    for (int w = 1; w < GRAM_WARPS; ++w) v += part[w * GPART + e];
+    dot[q] = v;
+  }
+  if (threadIdx.x < 2 * TILE) {
+    float v = pnorm[threadIdx.x];
+    for (int w = 1; w < GRAM_WARPS; ++w) v += pnorm[w * 2 * TILE + threadIdx.x];
+    norm[threadIdx.x] = v;
+  }
+  __syncthreads();
+  const int j = j0 + cc;
+  // one division per thread, not per entry: an IEEE division (with its
+  // slow path) per entry was most of the RBF mode's extra time
+  const float ninv = -0.5f / s2[0];
 #pragma unroll
   for (int q = 0; q < PER_THREAD; ++q) {
     const int r = entry_row(q), i = i0 + r;
-    if (i < B && j < B) out[(size_t)i * B + j] = K[r][c];
+    float v = dot[q];
+    if (!linear) {
+      const float d2 = fmaxf(norm[r] + norm[TILE + cc] - 2.f * v, 0.f);
+      v = expf(d2 * ninv);
+    }
+    K[r * (TILE + 1) + cc] = v;
+    if (i < B && j < B) out[(size_t)i * B + j] = v;
+  }
+  if (diag) return;
+  __syncthreads();
+  // the mirror tile, read down K's columns so that the writes coalesce
+#pragma unroll
+  for (int q = 0; q < PER_THREAD; ++q) {
+    const int r = entry_row(q), i = j0 + r, jj = i0 + cc;
+    if (i < B && jj < B) out[(size_t)i * B + jj] = K[cc * (TILE + 1) + r];
   }
 }
 
@@ -406,9 +612,19 @@ extern "C" int nhsic_grad(const void* x, const void* z, const void* rx,
 
 extern "C" int gram(const void* x, const void* s2, void* out, int B, int D,
                     int linear, void* stream) {
+  static bool granted = false;           // dynamic shared memory opted into
+  if (!granted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        gram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)GRAM_SMEM);
+    if (err != cudaSuccess) return (int)err;
+    granted = true;
+  }
   const int nb = tiles(B);
-  gram_kernel<<<dim3(nb, nb), THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)s2, (float*)out, B, D, linear);
+  const int vec = D % 4 == 0 && reinterpret_cast<size_t>(x) % 16 == 0;
+  gram_kernel<<<nb * (nb + 1) / 2, THREADS, GRAM_SMEM,
+                (cudaStream_t)stream>>>((const float*)x, (const float*)s2,
+                                        (float*)out, B, D, linear, vec);
   return (int)cudaGetLastError();
 }
 

@@ -36,6 +36,7 @@ _ARGTYPES = {
     "gram_stats": [_P] * 9 + [_I] + [_P],
 }
 _lib = None
+_fns = {}     # the bound C entry points, looked up once
 
 
 def reset_launches() -> None:
@@ -52,12 +53,15 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+            _fns[name] = fn
         _lib = lib
     return _lib
 
 
 def _launch(name: str, *args) -> None:
-    err = getattr(library(), name)(*args)
+    if _lib is None:
+        library()
+    err = _fns[name](*args)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
                            f"{err}")
@@ -154,11 +158,12 @@ def gram(x, s2, *, linear: bool = False):
                          f"{tuple(x.shape)}")
     if x.dtype in (torch.bfloat16, torch.float16):
         x = x.float()
-    s2 = torch.as_tensor(s2, dtype=torch.float32, device=x.device)
+    if not (isinstance(s2, torch.Tensor) and s2.dtype == torch.float32
+            and s2.device == x.device):
+        s2 = torch.as_tensor(s2, dtype=torch.float32, device=x.device)
     if s2.numel() != 1:
         raise ValueError(f"gram: s2 must hold one value, got "
                          f"{tuple(s2.shape)}")
-    s2 = s2.reshape(1)
     check_kernel_inputs("gram", x.device, x=x, s2=s2)
     B, D = x.shape
     out = torch.empty(B, B, device=x.device, dtype=torch.float32)

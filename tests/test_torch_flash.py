@@ -157,3 +157,62 @@ def test_wrapper_rejects_bad_shapes():
     with pytest.raises(ValueError, match="head dim"):
         t_kernel._shapes(torch.zeros(1, 4, 2, 130), torch.zeros(1, 4, 2, 130),
                          torch.zeros(1, 4, 2, 130))
+
+
+def _tf32(x, nearest=True):
+    """Float32 to TF32's 10 mantissa bits: to nearest with ties away from
+    zero (as ``cvt.rna.tf32.f32`` and the flash kernel's ``split`` round),
+    or truncated (as a tensor core reads an f32 register)."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    if nearest:
+        u = u + np.uint32(0x1000)
+    return (u & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _attention(q, k, v, product):
+    """softmax(q k^T / sqrt(D)) v with both products taken by ``product``
+    and the softmax in float64, so that only the products' error shows."""
+    s = product(q / np.float32(np.sqrt(q.shape[-1])),
+                k.transpose(0, 2, 1)).astype(np.float64)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    return product(p.astype(np.float32), v).astype(np.float64)
+
+
+def test_flash_kernel_needs_three_tf32_passes_at_vit_init_scale():
+    """Why the flash kernel splits each operand of a tensor-core product
+    (its P V) into two TF32 halves (3xTF32).  At the ViT-12's init the
+    attention logits have a std of ~64 (ROADMAP, Queue 3); drawn so here,
+    at the ViT-12's B=32, S=64, D=64, with both products taken each way.
+    One TF32 pass misses the 1e-3 bar; the kernel's split stays within 10x
+    of a plain float32 product's error."""
+    rng = np.random.default_rng(0)
+    B, S, D = 32, 64, 64
+    q, k = (rng.standard_normal((B, S, D)).astype(np.float32) * 8
+            for _ in range(2))
+    v = rng.standard_normal((B, S, D)).astype(np.float32)
+    logits = np.einsum("bqd,bkd->bqk", q.astype(np.float64), k) / 8
+    assert 50 < logits.std() < 80 and logits.max() > 200
+
+    def exact(a, b):
+        return a.astype(np.float64) @ b.astype(np.float64)
+
+    def one_pass(a, b):
+        return exact(_tf32(a), _tf32(b))
+
+    def three_pass(a, b):   # the kernel's split: lo = x - hi, truncated
+        ah, bh = _tf32(a), _tf32(b)
+        al, bl = _tf32(a - ah, False), _tf32(b - bh, False)
+        return exact(al, bh) + exact(ah, bl) + exact(ah, bh)
+
+    def plain_f32(a, b):
+        return a.astype(np.float32) @ b.astype(np.float32)
+
+    want = _attention(q, k, v, exact)
+    scale = np.abs(want).max()
+    err = {name: np.abs(_attention(q, k, v, fn) - want).max() / scale
+           for name, fn in [("tf32", one_pass), ("3xtf32", three_pass),
+                            ("f32", plain_f32)]}
+    assert err["tf32"] > 1e-3, err
+    assert err["3xtf32"] <= 10 * err["f32"], err
+    assert err["3xtf32"] <= 1e-4, err

@@ -149,8 +149,51 @@ def test_gram_kernel_matches_plain_version(cuda, case, linear):
     assert kernel.LAUNCHES["gram"] == 1
     assert got.shape == (case[0], case[0]) and got.dtype == torch.float32
     assert _rel(got, want) <= TOL
+    assert torch.equal(got, got.T)
     if not linear:
         assert bool((got.diagonal() == 1).all())
+
+
+# K6's tiling: B off the 32-row tile on both sides (1, 31, 33, 257) against
+# D off its 16-column chunks and its eight warp slices (1, 7, 257, 2048)
+GRAM_TILING = [(B, D) for B in (1, 31, 33, 257) for D in (1, 7, 257, 2048)]
+
+
+@pytest.mark.parametrize("linear", [False, True], ids=["rbf", "linear"])
+@pytest.mark.parametrize("case", GRAM_TILING,
+                         ids=[str(c) for c in GRAM_TILING])
+def test_gram_kernel_tiling_is_exact_and_symmetric(cuda, case, linear):
+    # sigma^2 = D, about half the squared distance of two unit-normal rows:
+    # the mean-distance bandwidth of a single row is 0 (clamped to 1e-8),
+    # where the plain version's own rounding of |a|^2 + |a|^2 - 2 a.a
+    # turns its diagonal of 1 into 0
+    x = _gram_input(*case, cuda, False)
+    s2 = torch.full((), float(1 if linear else case[1]), device=cuda)
+    got = kernel.gram(x, s2, linear=linear)
+    torch.cuda.synchronize()
+    assert _rel(got, ref.gram(x, s2, linear)) <= TOL
+    assert torch.equal(got, got.T)
+    if not linear:
+        assert bool((got.diagonal() == 1).all())
+
+
+@pytest.mark.parametrize("case", [(257, 7), (33, 2048), (64, 1)],
+                         ids=["257x7", "33x2048", "64x1"])
+def test_gram_kernel_identical_rows_give_exactly_one(cuda, case):
+    """Identical rows in different tiles: their distance is exactly 0
+    only if every tile sums norms and dots in the same order."""
+    B, D = case
+    x = _gram_input(1, D, cuda, False).repeat(B, 1).contiguous()
+    got = kernel.gram(x, hsic.rbf_sigma2(x) + 1.0)
+    assert bool((got == 1).all())
+
+
+def test_gram_kernel_is_the_same_from_run_to_run(cuda):
+    x = _gram_input(257, 257, cuda, False)
+    s2 = hsic.rbf_sigma2(x)
+    for linear in (False, True):
+        runs = [kernel.gram(x, s2, linear=linear) for _ in range(3)]
+        assert all(torch.equal(r, runs[0]) for r in runs)
 
 
 def test_gram_kernel_upcasts_bf16(cuda):
@@ -233,6 +276,21 @@ FLASH_CASES = [
 ]
 
 
+# K4's tiling: head dims off the MMA's k of 8 (1, 3, 20, 100), fewer query
+# rows than one warp's 16, several 32-row kv tiles with a ragged tail under
+# causal + window
+FLASH_TILING = [
+    (2, 70, 90, 4, 2, 1, True, 0, "float32"),
+    (2, 70, 90, 4, 2, 3, False, 0, "float32"),
+    (2, 70, 90, 4, 2, 20, True, 0, "float32"),
+    (2, 70, 90, 4, 2, 100, False, 0, "float32"),
+    (2, 5, 40, 2, 2, 64, False, 0, "float32"),
+    (3, 9, 9, 2, 1, 32, True, 0, "float32"),
+    (1, 1000, 1000, 2, 2, 64, True, 300, "float32"),
+    (1, 1000, 1000, 2, 2, 20, True, 300, "bfloat16"),
+]
+
+
 def _flash_inputs(case, device):
     B, Sq, Skv, H, KV, D, _, _, dtype = case
     rng = np.random.default_rng(Sq * 1000 + Skv)
@@ -243,8 +301,8 @@ def _flash_inputs(case, device):
     return q, k, v
 
 
-@pytest.mark.parametrize("case", FLASH_CASES,
-                         ids=[str(c) for c in FLASH_CASES])
+@pytest.mark.parametrize("case", FLASH_CASES + FLASH_TILING,
+                         ids=[str(c) for c in FLASH_CASES + FLASH_TILING])
 def test_flash_kernel_matches_plain_version(cuda, case):
     causal, window, dtype = case[6], case[7], case[8]
     q, k, v = _flash_inputs(case, cuda)
@@ -278,6 +336,15 @@ def test_flash_autograd_matches_plain_path(cuda, case):
     for x, y in zip(a, b):
         assert _rel(x.grad, y.grad) <= TOL
         assert torch.isfinite(x.grad).all()
+
+
+def test_flash_kernel_is_the_same_from_run_to_run(cuda):
+    for case in (FLASH_CASES[0], FLASH_TILING[6]):
+        q, k, v = _flash_inputs(case, cuda)
+        runs = [fa_kernel.flash_attention_fwd(q, k, v, causal=case[6],
+                                              window=case[7])
+                for _ in range(3)]
+        assert all(torch.equal(r, runs[0]) for r in runs)
 
 
 def test_flash_wrapper_raises_on_bad_inputs(cuda):
