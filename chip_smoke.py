@@ -156,10 +156,13 @@ FLASH_TIMED = [FLASH_VIT, (2, 256, 256, 8, 2, 64, True, 0, "float32"),
                (1, 1024, 1024, 8, 8, 64, True, 0, "float32")]
 BF16_TOL = 2e-2
 
-# K5: (B, S, H, Dh, random_state0, gate_scale).  The xlstm-1.3b shape, the
-# reference's audit shapes (kernels/slstm_scan/ops.py), S=1, S=200 (ragged
-# against the reference's 128-step blocks), head dims 1, 3 and 48, random
-# non-zero initial states, and gates up to |g| = 100
+# K5 forward and backward: (B, S, H, Dh, random_state0, gate_scale).  The
+# xlstm-1.3b shape, the reference's audit shapes (kernels/slstm_scan/ops.py),
+# S=1, S=200 (ragged against the reference's 128-step blocks), head dims 1,
+# 3 and 48, random non-zero initial states, gates up to |g| = 100, B = 64
+# (four row chunks), H = 8 (256 blocks with r resident: past what the card
+# holds at once, so r streams from L2) and Dh = 1024 at H = 16 (r's slice
+# does not fit in shared memory; a block owns several column tiles)
 SLSTM_MAIN = (16, 256, 4, 512, False, 1.0)
 SLSTM_CASES = [SLSTM_MAIN,
                (2, 256, 2, 512, False, 1.0),
@@ -169,8 +172,10 @@ SLSTM_CASES = [SLSTM_MAIN,
                (3, 37, 3, 1, True, 1.0),
                (3, 37, 3, 3, True, 1.0),
                (2, 37, 2, 48, True, 1.0),
-               (16, 256, 4, 512, True, 100.0)]
-SLSTM_GRAD_CASES = [SLSTM_CASES[2], SLSTM_CASES[7]]
+               (16, 256, 4, 512, True, 100.0),
+               (64, 64, 4, 512, True, 1.0),
+               (16, 64, 8, 512, True, 1.0),
+               (2, 16, 16, 1024, True, 1.0)]
 STATE = ("c", "n", "m", "h")
 
 # main path sizes (a CPU rehearsal shrinks them)
@@ -266,6 +271,19 @@ def slstm_work(B, S, H, Dh, *_):
             F32_PRODUCT_FLOPS_PER_S)
 
 
+def slstm_bwd_work(B, S, H, Dh, *_):
+    """One K5 backward call: the saved g, c, n, m, the cotangent of hs, r,
+    the initial c, n, m and the four final-state cotangents read once, dg
+    and the four initial-state gradients written once; the recurrent
+    products dh = dg r^T (2 Dh^2 FLOPs per gate, step, row and head), ~60
+    FLOPs of gate arithmetic per (step, row, head, column).  dr and db are
+    plain products outside the kernel."""
+    step = B * S * H * Dh
+    nbytes = 4 * (4 * step + 3 * step + step + 4 * H * Dh * Dh
+                  + 7 * B * H * Dh + 4 * step + 4 * B * H * Dh)
+    return (nbytes, 2 * step * 4 * Dh, 60 * step, F32_PRODUCT_FLOPS_PER_S)
+
+
 def gram_work(B, D, linear):
     """One K6 call: x and sigma^2 read, the Gram written."""
     return (4 * B * D + 4 + 4 * B * B, *gram_flops(B, D, linear),
@@ -296,7 +314,8 @@ def nhsic_work(name, B, Dx, Dz, lx, lz=False):
 
 
 WORK = {"flash_attention_fwd": flash_work, "slstm_scan_fwd": slstm_work,
-        "gram": gram_work, "gram_stats": gram_stats_work}
+        "slstm_scan_bwd": slstm_bwd_work, "gram": gram_work,
+        "gram_stats": gram_stats_work}
 
 
 def bound_ms(name, shape):
@@ -406,7 +425,17 @@ def kernel_phase(torch, kernel, ops, ref, hsic):
     return errs
 
 
+# device kernel names of each streaming nHSIC wrapper (K2 adds its
+# partials in a second launch)
+STREAMING_KERNELS = {"nhsic_rowsums": ("rowsums_kernel",),
+                     "nhsic_stats_feats": ("stats_kernel",
+                                           "sum_partials_kernel"),
+                     "nhsic_grad": ("grad_kernel",)}
+
+
 def timing_phase(torch, kernel, ref, hsic):
+    """K1-K3 and their plain versions at the main paths' shapes: CUDA
+    events and the profiler's device time of the kernels."""
     rows = []
     for shape in MAIN_PATH_SHAPES:
         B, Dx, Dz, lx = shape
@@ -414,15 +443,18 @@ def timing_phase(torch, kernel, ref, hsic):
         args = kernel_args(torch, hsic, ref, x, z, lx)
         for n in STREAMING:
             a, kw = args[n]
-            ms = time_ms(torch, lambda: getattr(kernel, n)(*a, **kw))
+            fn = lambda: getattr(kernel, n)(*a, **kw)
+            ms = time_ms(torch, fn)
+            dev = device_ms(torch, fn, STREAMING_KERNELS[n])
             plain = time_ms(torch, lambda: getattr(ref, n)(*a, **kw))
             b_ms, b_by = bound_ms(n, (B, Dx, Dz, lx))
             rows.append({"name": n, "shape": [B, Dx, Dz, lx], "ms": ms,
-                         "plain_ms": plain, "bound_ms": b_ms,
-                         "bound_by": b_by})
+                         "device_ms": dev, "plain_ms": plain,
+                         "bound_ms": b_ms, "bound_by": b_by})
             print(f"  time {n} B={B} Dx={Dx} Dz={Dz} linear_x={lx}: "
-                  f"kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                  f"bound {b_ms:.2e} ms ({b_by})", flush=True)
+                  f"kernel {ms:.4f} ms (device {fmt_ms(dev)}), plain "
+                  f"{plain:.4f} ms, bound {b_ms:.2e} ms ({b_by})",
+                  flush=True)
     return rows
 
 
@@ -617,7 +649,7 @@ def bench_path(torch, kernels):
     want = {"gram": 2 * n, "gram_stats": n, "nhsic_rowsums": 2 * n + rows_n,
             "nhsic_stats_feats": 2 * n + rows_n, "nhsic_grad": n,
             "flash_attention_fwd": len(kernels_bench.ATTN_SHAPES) * calls,
-            "slstm_scan_fwd": 0}
+            "slstm_scan_fwd": 0, "slstm_scan_bwd": 0}
     check(counts == want, f"kernel benchmark launches {counts}, expected "
           f"{want}")
     print(f"  launches {counts}; rows written to "
@@ -753,62 +785,118 @@ def slstm_inputs(torch, case):
     return [t.cuda() for t in (g_in, r, b, *st)]
 
 
+def slstm_cotangents(torch, inputs):
+    """A cotangent of hs and of each final state, from a fixed seed."""
+    gen = torch.Generator().manual_seed(1)
+    B, S, _, H, Dh = inputs[0].shape
+    return [torch.randn((B, S, H, Dh), generator=gen).cuda()] + [
+        torch.randn((B, H, Dh), generator=gen).cuda() for _ in STATE]
+
+
+def same_bits(torch, fn, runs=3):
+    """Whether ``runs`` calls of ``fn`` give the same bits in every
+    output."""
+    outs = [fn() for _ in range(runs)]
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for o in outs[1:] for a, b in
+               zip(o, outs[0]))
+
+
 def slstm_phase(torch, skernel, sops, sref):
-    """K5 against its plain version at every listed shape: ``hs`` and the
-    four final states.  Then its autograd gradient (to g_in, r, b and the
-    initial state, for a cotangent of every output) against autograd of
-    the plain version."""
+    """K5 at every listed shape.  The forward against its plain version:
+    ``hs``, the four final states and the states it saves for the backward.
+    The backward kernel, on the forward kernel's saved states and a
+    cotangent of every output, against ``slstm_scan_bwd_ref`` on the same
+    inputs.  Then the autograd op (forward and backward kernels, r's and
+    b's gradients as products) against autograd of the plain version: the
+    gradient to g_in, r, b and the initial state.  At the main shape both
+    kernels must give the same bits over three runs."""
     errs = {}
     for case in SLSTM_CASES:
-        g_in, r, b, *st = slstm_inputs(torch, case)
-        got = skernel.slstm_scan_fwd(g_in, r, b, *st)
-        hs, fin = sref.slstm_scan_ref(g_in, r, b, dict(zip(STATE, st)))
+        inputs = slstm_inputs(torch, case)
+        g_in, r, b, *st = inputs
+        got = skernel.slstm_scan_fwd(*inputs, save=True)
+        hs, fin, saved = sref.slstm_scan_ref(g_in, r, b, dict(zip(STATE, st)),
+                                             save=True)
         torch.cuda.synchronize()
-        want = [hs] + [fin[k] for k in STATE]
+        want = [hs] + [fin[k] for k in STATE] + [saved[k] for k in "gcnm"]
         rel, ab = rel_abs(got, want)
         check(rel <= TOL and all(bool(torch.isfinite(a).all()) for a in got),
               f"slstm_scan_fwd at {case}: rel err {rel}")
         track(errs, "slstm_scan_fwd", rel, ab)
-        print(f"  check slstm {case}: rel err {rel:.2e}", flush=True)
-    for case in SLSTM_GRAD_CASES:
-        inputs = slstm_inputs(torch, case)
-        gen = torch.Generator().manual_seed(1)
-        hs_shape = inputs[0].shape[:2] + inputs[0].shape[3:]
-        cot = [torch.randn(hs_shape, generator=gen).cuda()] + [
-            torch.randn(inputs[3].shape, generator=gen).cuda()
-            for _ in STATE]
+
+        cot = slstm_cotangents(torch, inputs)
+        bwd_args = [*got[5:], r, *st[:3], *cot]
+        dgot = skernel.slstm_scan_bwd(*bwd_args)
+        dwant = sref.slstm_scan_bwd_ref(*bwd_args)
+        torch.cuda.synchronize()
+        rel_b, ab_b = rel_abs(dgot, dwant)
+        check(rel_b <= TOL and all(bool(torch.isfinite(a).all())
+                                   for a in dgot),
+              f"slstm_scan_bwd at {case}: rel err {rel_b}")
+        track(errs, "slstm_scan_bwd", rel_b, ab_b)
+
         a = [t.clone().requires_grad_() for t in inputs]
-        b = [t.clone().requires_grad_() for t in inputs]
-        hs, fin = sops.slstm_scan(*a[:3], dict(zip(STATE, a[3:])))
-        torch.autograd.backward([hs] + [fin[k] for k in STATE], cot)
-        hs_p, fin_p = sref.slstm_scan_ref(*b[:3], dict(zip(STATE, b[3:])))
+        p = [t.clone().requires_grad_() for t in inputs]
+        hs_k, fin_k = sops.slstm_scan(*a[:3], dict(zip(STATE, a[3:])))
+        torch.autograd.backward([hs_k] + [fin_k[k] for k in STATE], cot)
+        hs_p, fin_p = sref.slstm_scan_ref(*p[:3], dict(zip(STATE, p[3:])))
         torch.autograd.backward([hs_p] + [fin_p[k] for k in STATE], cot)
-        rel_o, _ = rel_abs([hs.detach()] + [fin[k].detach() for k in STATE],
-                           [hs_p.detach()] + [fin_p[k].detach()
-                                              for k in STATE])
-        rel_g, _ = rel_abs([x.grad for x in a], [y.grad for y in b])
-        check(rel_o <= TOL and rel_g <= TOL,
-              f"autograd slstm at {case}: {rel_o}, {rel_g}")
-        check(all(bool(torch.isfinite(x.grad).all()) for x in a),
-              "non-finite slstm grad")
-        print(f"  check slstm autograd {case}: out {rel_o:.2e}, grads "
-              f"{rel_g:.2e}", flush=True)
+        rel_g, _ = rel_abs([x.grad for x in a], [y.grad for y in p])
+        check(rel_g <= TOL and all(bool(torch.isfinite(x.grad).all())
+                                   for x in a),
+              f"autograd slstm at {case}: grads rel err {rel_g}")
+        print(f"  check slstm {case}: forward rel err {rel:.2e}, backward "
+              f"kernel {rel_b:.2e}, autograd grads {rel_g:.2e}", flush=True)
+        del a, p, hs_k, fin_k, hs_p, fin_p, got, saved, dgot, dwant
+    inputs = slstm_inputs(torch, SLSTM_MAIN)
+    fwd = lambda: skernel.slstm_scan_fwd(*inputs, save=True)
+    saved = fwd()[5:]
+    cot = slstm_cotangents(torch, inputs)
+    check(same_bits(torch, fwd), "slstm_scan_fwd: bits differ between runs")
+    check(same_bits(torch, lambda: skernel.slstm_scan_bwd(
+        *saved, inputs[1], *inputs[3:6], *cot)),
+        "slstm_scan_bwd: bits differ between runs")
+    print(f"  slstm_scan_fwd, slstm_scan_bwd at {SLSTM_MAIN}: the same bits "
+          f"over three runs", flush=True)
     return errs
 
 
-def slstm_timing(torch, skernel, sref):
-    """K5 and its plain version at the xlstm-1.3b shape.  No single
-    PyTorch call computes an sLSTM scan, so there is no library time."""
-    g_in, r, b, *st = slstm_inputs(torch, SLSTM_MAIN)
-    ms = time_ms(torch, lambda: skernel.slstm_scan_fwd(g_in, r, b, *st))
-    plain = time_ms(torch, lambda: sref.slstm_scan_ref(
-        g_in, r, b, dict(zip(STATE, st))))
-    b_ms, b_by = bound_ms("slstm_scan_fwd", SLSTM_MAIN)
-    print(f"  time slstm_scan_fwd {SLSTM_MAIN}: kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms, bound {b_ms:.3f} ms ({b_by})", flush=True)
-    return {"name": "slstm_scan_fwd", "shape": list(SLSTM_MAIN), "ms": ms,
-            "plain_ms": plain, "library_ms": None, "bound_ms": b_ms,
-            "bound_by": b_by}
+def slstm_timing(torch, skernel, sops, sref):
+    """K5's forward and backward at the xlstm-1.3b shape: CUDA events,
+    the profiler's device time of the kernel, the plain version (for the
+    backward: autograd of the plain loop, its backward pass alone) and the
+    bound.  No single PyTorch call computes an sLSTM scan or its backward,
+    so there is no library time."""
+    inputs = slstm_inputs(torch, SLSTM_MAIN)
+    g_in, r, b, *st = inputs
+    saved = skernel.slstm_scan_fwd(*inputs, save=True)[5:]
+    cot = slstm_cotangents(torch, inputs)
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    hs, fin = sref.slstm_scan_ref(*leaves[:3], dict(zip(STATE, leaves[3:])))
+    outs = [hs] + [fin[k] for k in STATE]
+    calls = {
+        "slstm_scan_fwd": (
+            "slstm_fwd_kernel", lambda: skernel.slstm_scan_fwd(*inputs),
+            lambda: sref.slstm_scan_ref(g_in, r, b, dict(zip(STATE, st)))),
+        "slstm_scan_bwd": (
+            "slstm_bwd_kernel",
+            lambda: skernel.slstm_scan_bwd(*saved, r, *st[:3], *cot),
+            lambda: torch.autograd.grad(outs, leaves, cot,
+                                        retain_graph=True))}
+    rows = []
+    for name, (kname, fn, plain_fn) in calls.items():
+        ms = time_ms(torch, fn)
+        dev = device_ms(torch, fn, (kname,))
+        plain = time_ms(torch, plain_fn, runs=5, warmup=1)
+        b_ms, b_by = bound_ms(name, SLSTM_MAIN)
+        print(f"  time {name} {SLSTM_MAIN}: kernel {ms:.4f} ms (device "
+              f"{fmt_ms(dev)}), plain {plain:.4f} ms, bound {b_ms:.3f} ms "
+              f"({b_by})", flush=True)
+        rows.append({"name": name, "shape": list(SLSTM_MAIN), "ms": ms,
+                     "device_ms": dev, "plain_ms": plain, "library_ms": None,
+                     "bound_ms": b_ms, "bound_by": b_by})
+    return rows
 
 
 def reset_all(kernels):
@@ -834,7 +922,7 @@ def record_outcomes(server):
     return outcomes
 
 
-def run_rounds(torch, server, kernels, n):
+def run_rounds(torch, server, kernels, n, quiet=False):
     """``n`` rounds; per round the seconds, peak allocated bytes, local
     steps and each kernel's launches."""
     outcomes = record_outcomes(server)
@@ -853,15 +941,16 @@ def run_rounds(torch, server, kernels, n):
         steps = sum(sum(o.num_batches) for o in outcomes[done:])
         rounds.append(dict(vars(rr), seconds=sec, peak_bytes=peak,
                            launches=launches, local_steps=steps))
-        print(f"  round {r}: {rr}", flush=True)
-        print(f"    {sec:.3f} s, peak allocated {peak / 2**20:.1f} MiB, "
-              f"{steps} local steps, launches {launches}", flush=True)
+        if not quiet:
+            print(f"  round {r}: {rr}", flush=True)
+            print(f"    {sec:.3f} s, peak allocated {peak / 2**20:.1f} MiB, "
+                  f"{steps} local steps, launches {launches}", flush=True)
     return rounds
 
 
-def main_path(torch, kernels, np):
-    """Main path 1: four rounds of full-width ResNet18, one per stage, with
-    an evaluation each round."""
+def resnet_server(np, quiet=False):
+    """Main path 1's server: full-width ResNet18 over a 100-device fleet,
+    built from SEED."""
     from repro_torch.core.progressive import make_adapter
     from repro_torch.data.loader import Batcher
     from repro_torch.data.partition import dirichlet_partition
@@ -885,11 +974,20 @@ def main_path(torch, kernels, np):
     server = NeuLiteServer(adapter, [ds.subset(p) for p in parts], flc,
                            test_batcher=test)
     steps = [b.steps_per_epoch for b in server.batchers]
-    print(f"  clients: {len(steps)}, local steps per epoch: min {min(steps)} "
-          f"median {int(np.median(steps))} max {max(steps)}", flush=True)
+    if not quiet:
+        print(f"  clients: {len(steps)}, local steps per epoch: min "
+              f"{min(steps)} median {int(np.median(steps))} max "
+              f"{max(steps)}", flush=True)
+    return server
 
+
+def main_path(torch, kernels, np):
+    """Main path 1: four rounds of full-width ResNet18, one per stage, with
+    an evaluation each round."""
+    server = resnet_server(np)
     reset_all(kernels)
-    rounds = run_rounds(torch, server, kernels, flc.num_stages)
+    rounds = run_rounds(torch, server, kernels,
+                        server.adapter.plan.num_stages)
     counts = read_all(kernels)
 
     hsic = {n: counts[n] for n in STREAMING}
@@ -899,7 +997,8 @@ def main_path(torch, kernels, np):
           f"expected 2 launches of each nHSIC kernel per step "
           f"({n_steps} steps): {hsic}")
     check(counts["flash_attention_fwd"] == 0, "flash attention in a CNN")
-    check(counts["slstm_scan_fwd"] == 0, "an sLSTM scan in a CNN")
+    check(counts["slstm_scan_fwd"] == counts["slstm_scan_bwd"] == 0,
+          "an sLSTM scan in a CNN")
     check(counts["gram"] == 0 and counts["gram_stats"] == 0,
           f"a dense-Gram kernel on the ResNet path: {counts}")
     check(any(r["n_feasible"] > 0 for r in rounds), "no feasible round")
@@ -912,8 +1011,115 @@ def main_path(torch, kernels, np):
     return server, rounds, counts
 
 
+def _same_run(torch, rounds_a, params_a, rounds_b, params_b):
+    """Whether two runs gave the same bits: round losses (by repr, which
+    round-trips a float and equals itself for NaN) and params."""
+    return ([repr(r["mean_loss"]) for r in rounds_a]
+            == [repr(r["mean_loss"]) for r in rounds_b]
+            and all(torch.equal(a, b) for a, b in zip(_leaves(params_a),
+                                                      _leaves(params_b))))
+
+
+def determinism_phase(torch, kernels, np, rounds, params):
+    """Main path 1's four rounds again from the same seed: the port as it
+    is (a server on a CUDA device makes cuDNN deterministic) must repeat
+    the first run bit for bit, round losses and params.  Then, for the
+    record, twice with ``cudnn.deterministic`` back at PyTorch's default
+    (what the port did before): their s/round, whether they repeat each
+    other, and once more under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)``: the ops on this path that PyTorch names as having
+    no deterministic implementation."""
+    import warnings
+
+    def run(default_cudnn):
+        server = resnet_server(np, quiet=True)
+        if default_cudnn:
+            torch.backends.cudnn.deterministic = False
+        reset_all(kernels)
+        out = run_rounds(torch, server, kernels,
+                         server.adapter.plan.num_stages, quiet=True)
+        return out, server.params
+
+    again, again_params = run(False)
+    repeats = _same_run(torch, rounds, params, again, again_params)
+    losses = [r["mean_loss"] for r in again]
+    print(f"  the port again from seed {SEED}: round losses {losses} and "
+          f"params {'identical' if repeats else 'DIFFER'}", flush=True)
+    check(repeats, "main path 1 does not repeat itself bit for bit")
+    base = [run(True) for _ in range(2)]
+    base_repeats = _same_run(torch, base[0][0], base[0][1], base[1][0],
+                             base[1][1])
+    convs = conv_repeats(torch)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run(True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = True
+    flagged = sorted({str(w.message).split("\n")[0][:200] for w in caught
+                      if "determinis" in str(w.message)})
+
+    def per_round(rr):
+        return [r["seconds"] for r in rr]
+
+    out = {"repeats": repeats, "seconds": per_round(rounds),
+           "again_seconds": per_round(again),
+           "default_cudnn_seconds": [per_round(b[0]) for b in base],
+           "default_cudnn_losses": [[r["mean_loss"] for r in b[0]]
+                                    for b in base],
+           "default_cudnn_repeats": base_repeats,
+           "conv_repeats": convs, "flagged_ops": flagged}
+    print(f"  s/round, deterministic cuDNN: {per_round(rounds)}, "
+          f"{per_round(again)}; PyTorch's default cuDNN: "
+          f"{out['default_cudnn_seconds']} (losses "
+          f"{out['default_cudnn_losses']}, "
+          f"{'identical' if base_repeats else 'differ'})", flush=True)
+    print(f"  ops without a deterministic implementation: {flagged or 'none'}",
+          flush=True)
+    print(f"  cuDNN conv passes that repeat their bits over three calls "
+          f"(PyTorch's default / deterministic): {convs}", flush=True)
+    return out
+
+
+# ResNet18's 3x3 convs at 32x32 inputs: (channels, side) of each stage
+RESNET_CONVS = [(64, 32), (128, 16), (256, 8), (512, 4)]
+
+
+def conv_repeats(torch):
+    """Which passes of a 3x3 conv (batch 32, ResNet18's channels and
+    sides) give the same bits over three calls, with PyTorch's default
+    cuDNN and with ``cudnn.deterministic``: forward, input gradient,
+    weight gradient."""
+    import torch.nn.functional as F
+    out = {}
+    for det in (False, True):
+        torch.backends.cudnn.deterministic = det
+        for ch, side in RESNET_CONVS:
+            g = torch.Generator().manual_seed(ch)
+            x = torch.randn((32, ch, side, side), generator=g).cuda()
+            w = (torch.randn((ch, ch, 3, 3), generator=g) * 0.05).cuda()
+            cot = torch.randn((32, ch, side, side), generator=g).cuda()
+            x.requires_grad_()
+            w.requires_grad_()
+            runs = []
+            for _ in range(3):
+                y = F.conv2d(x, w, padding=1)
+                runs.append((y, *torch.autograd.grad(y, [x, w], cot)))
+            same = [all(torch.equal(r[i], runs[0][i]) for r in runs[1:])
+                    for i in range(3)]
+            key = f"{'deterministic' if det else 'default'} {ch}x{side}"
+            out[key] = dict(zip(("forward", "input_grad", "weight_grad"),
+                                same))
+    torch.backends.cudnn.deterministic = True
+    return out
+
+
 # the kernel that runs once per layer of a kind, in every forward
 LAYER_KERNELS = {"attn": "flash_attention_fwd", "slstm": "slstm_scan_fwd"}
+# the kernel that runs once per trainable layer of a kind, in every backward
+BACKWARD_KERNELS = {"slstm": "slstm_scan_bwd"}
 
 
 def transformer_rounds(torch, kernels, np, server, test_batcher, t0):
@@ -930,6 +1136,8 @@ def transformer_rounds(torch, kernels, np, server, test_batcher, t0):
           f"{adapter.plan.bounds}", flush=True)
     per_period = {name: sum(1 for k, _ in cfg.pattern if k == kind)
                   for kind, name in LAYER_KERNELS.items()}
+    per_period_bwd = {name: sum(1 for k, _ in cfg.pattern if k == kind)
+                      for kind, name in BACKWARD_KERNELS.items()}
 
     reset_all(kernels)
     rounds = run_rounds(torch, server, kernels, adapter.plan.num_stages)
@@ -937,7 +1145,8 @@ def transformer_rounds(torch, kernels, np, server, test_batcher, t0):
     before = read_all(kernels)
     acc = server.evaluate()
     counts = read_all(kernels)
-    eval_launches = {n: counts[n] - before[n] for n in per_period}
+    eval_launches = {n: counts[n] - before[n]
+                     for n in [*per_period, *per_period_bwd]}
 
     for r in rounds:
         periods = adapter.plan.stage_ranges(r["stage"])[2][1]
@@ -946,6 +1155,12 @@ def transformer_rounds(torch, kernels, np, server, test_batcher, t0):
         n = r["local_steps"]
         check(r["n_selected"] > 0 and n > 0, f"round {r['round_idx']} "
               f"trained no client")
+        # the backward runs through the trainable periods only: the
+        # boundary unit and the active block (the frozen prefix runs
+        # without grad)
+        _, (b0, b1), (a0, a1) = adapter.plan.stage_ranges(r["stage"])
+        r["layer_launches_per_step"].update(
+            {n_: (b1 - b0 + a1 - a0) * k for n_, k in per_period_bwd.items()})
         for name, per_step in r["layer_launches_per_step"].items():
             check(r["launches"][name] == n * per_step,
                   f"round {r['round_idx']}: {r['launches']}, expected {n} "
@@ -959,6 +1174,8 @@ def transformer_rounds(torch, kernels, np, server, test_batcher, t0):
         check(eval_launches[name] == n_eval * cfg.num_periods * k,
               f"evaluation: {eval_launches}, expected {n_eval} batches x "
               f"{cfg.num_periods * k} launches of {name}")
+    check(all(eval_launches[n] == 0 for n in per_period_bwd),
+          f"a backward kernel in evaluation: {eval_launches}")
     check(all(math.isfinite(r["mean_loss"]) for r in rounds),
           "non-finite round loss")
     check(all(bool(torch.isfinite(p).all()) for p in
@@ -1199,7 +1416,7 @@ def slstm_layer_check(torch, server, plain_adapter):
 KERNEL_NAMES = {"nhsic": ("rowsums_kernel", "stats_kernel",
                           "sum_partials_kernel", "grad_kernel"),
                 "flash": ("flash_fwd_kernel",),
-                "slstm": ("slstm_scan_kernel",)}
+                "slstm": ("slstm_fwd_kernel", "slstm_bwd_kernel")}
 
 
 def step_profile(torch, server, steps=5):
@@ -1311,11 +1528,14 @@ def main():
     errs.update(gram_phase(torch, kernel, ops, ref, hsic))
     timing = timing_phase(torch, kernel, ref, hsic)
     timing += flash_timing(torch, fkernel, fref)
-    timing.append(slstm_timing(torch, skernel, sref))
+    timing += slstm_timing(torch, skernel, sops, sref)
     timing += gram_timing(torch, kernel, ref, hsic)
 
     phase("main path 1: ResNet18")
     server, rounds, counts = main_path(torch, kernels, np)
+    phase("determinism of main path 1")
+    determinism = determinism_phase(torch, kernels, np, rounds,
+                                    server.params)
     phase("step check")
     steps = step_check(torch, server)
     phase("step profile")
@@ -1365,6 +1585,7 @@ def main():
                 "src/repro/kernels/flash_attention/kernel.py:127",
                 "slstm_scan_fwd":
                 "src/repro/kernels/slstm_scan/kernel.py:109",
+                "slstm_scan_bwd": "src/repro/kernels/slstm_scan/ops.py:28",
                 "gram": "src/repro/kernels/hsic_gram/kernel.py:70",
                 "gram_stats": "src/repro/kernels/hsic_gram/kernel.py:139"}
     timed = {n: next(r for r in timing if r["name"] == n
@@ -1373,8 +1594,8 @@ def main():
     timed["flash_attention_fwd"] = next(
         r for r in timing if r["name"] == "flash_attention_fwd"
         and tuple(r["shape"]) == FLASH_VIT)
-    timed["slstm_scan_fwd"] = next(r for r in timing
-                                   if r["name"] == "slstm_scan_fwd")
+    for n in ("slstm_scan_fwd", "slstm_scan_bwd"):
+        timed[n] = next(r for r in timing if r["name"] == n)
     # K6's entry is the linear Gram, which has a library yardstick
     # (x @ x.T), at the audit shape; its RBF row rides along
     gram_rows = [r for r in timing if r["name"] in ("gram", "gram_stats")
@@ -1408,7 +1629,8 @@ def main():
     with open(OUT, "w") as f:
         json.dump({"smi": smi, "torch": torch.__version__,
                    "build_seconds": build_s, "timing": timing,
-                   "rounds": rounds, "launches": counts, "step_check": steps,
+                   "rounds": rounds, "launches": counts,
+                   "determinism": determinism, "step_check": steps,
                    "step_profile": profiles,
                    "vit": {"rounds": vrounds, "launches": vcounts,
                            "test_acc": vacc, "step_check": vsteps,

@@ -1,19 +1,28 @@
-"""Times one call of the K4 and K6 wrappers of a checkout of the port, so
-that two checkouts can be compared on one card.
+"""Times one call of the K4, K6 and K5 wrappers, and of the sLSTM scan's
+backward, of a checkout of the port, so that two checkouts can be compared
+on one card.
 
     python src/repro_torch/benchmarks/kernel_calls.py --src <checkout>/src \
         --label <name> [--out <file.jsonl>]
 
 imports ``repro_torch`` from ``--src`` (so an older checkout, unpacked
 beside this one, is timed with its own wrappers and kernels) and, for
-``flash_attention_fwd`` at the ViT-12 shape and ``gram`` at (B, D) =
-(256, 256) and (32, 256), linear and RBF, prints one JSON line each:
+``flash_attention_fwd`` at the ViT-12 shape, ``gram`` at (B, D) =
+(256, 256) and (32, 256), linear and RBF, ``slstm_scan_fwd`` at the
+xlstm-1.3b shape (B=16, S=256, H=4, Dh=512) and ``slstm_scan_bwd``, the
+backward of ``ops.slstm_scan`` at that shape for a cotangent of every
+output (whatever the checkout's backward is: autograd of the plain loop
+before the backward kernel, the kernel and two products after), prints one
+JSON line each:
 
 * ``event_ms``: CUDA events around one call, median of 30 (the host's
   launch gap included, as ``chip_smoke.py`` times every kernel);
 * ``host_ms``: the host clock per call over 200 calls issued back to back
   without a synchronisation, the wrapper's own Python and launch time;
-* ``device_ms``: the profiler's device time of the kernel per call.
+* ``device_ms``: the profiler's device time of the kernel per call (for
+  ``slstm_scan_bwd``: of every device op of the backward);
+* ``device_ops``: the device ops (kernels, copies, fills) the profiler
+  records per call.
 
 Needs a CUDA card; exits 2 without one.  TF32 is off.
 """
@@ -41,6 +50,8 @@ def main(argv=None) -> int:
 
     from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.hsic_gram import kernel as hkernel
+    from repro_torch.kernels.slstm_scan import kernel as skernel
+    from repro_torch.kernels.slstm_scan import ops as sops
     torch.backends.cuda.matmul.allow_tf32 = False
 
     def event_ms(fn, runs=30):
@@ -68,16 +79,19 @@ def main(argv=None) -> int:
         return t
 
     def device_ms(fn, name, runs=30):
+        """(device ms of the kernels whose names contain ``name``, or of
+        all when it is None; device ops) per call."""
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and name in e.name)
-        return us / 1e3 / runs if us else None
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        us = sum(e.time_range.elapsed_us() for e in dev
+                 if name is None or name in e.name)
+        return (us / 1e3 / runs if us else None), len(dev) / runs
 
     gen = torch.Generator().manual_seed(0)
     calls = []
@@ -93,11 +107,30 @@ def main(argv=None) -> int:
             calls.append(("gram", [B, D, linear], "gram_kernel",
                           lambda x=x, s2=s2, linear=linear:
                           hkernel.gram(x, s2, linear=linear)))
+    shape = [16, 256, 4, 512]
+    B, S, H, Dh = shape
+    g_in = torch.randn((B, S, 4, H, Dh), generator=gen).cuda()
+    r = (torch.randn((4, H, Dh, Dh), generator=gen) * Dh ** -0.5).cuda()
+    b = (torch.randn((4, H, Dh), generator=gen) * 0.1).cuda()
+    st = [torch.zeros((B, H, Dh), device="cuda") + v
+          for v in (0.0, 0.0, -30.0, 0.0)]
+    calls.append(("slstm_scan_fwd", shape, "slstm",
+                  lambda: skernel.slstm_scan_fwd(g_in, r, b, *st)))
+    leaves = [t.clone().requires_grad_() for t in (g_in, r, b, *st)]
+    hs, fin = sops.slstm_scan(*leaves[:3], dict(zip("cnmh", leaves[3:])))
+    outs = [hs, *fin.values()]
+    cot = [torch.randn(o.shape, generator=gen).cuda() for o in outs]
+    calls.append(("slstm_scan_bwd", shape, None,
+                  lambda: torch.autograd.grad(outs, leaves, cot,
+                                              retain_graph=True)))
     lines = []
     for name, shape, kname, fn in calls:
+        slow = name == "slstm_scan_bwd"
+        dev, ops = device_ms(fn, kname, runs=3 if slow else 30)
         row = {"label": args.label, "name": name, "shape": shape,
-               "event_ms": event_ms(fn), "host_ms": host_ms(fn),
-               "device_ms": device_ms(fn, kname),
+               "event_ms": event_ms(fn, runs=5 if slow else 30),
+               "host_ms": host_ms(fn, calls=5 if slow else 200),
+               "device_ms": dev, "device_ops": ops,
                "card": torch.cuda.get_device_name(0)}
         lines.append(json.dumps(row))
         print(lines[-1], flush=True)

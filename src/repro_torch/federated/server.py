@@ -10,8 +10,11 @@
 
 ``RoundResult.mean_loss`` is the |D_c|-weighted mean of client losses.  Each
 round reads the device once, for its losses; ``evaluate`` reads it once.
-The port has the sequential runtime and random selection; checkpointing,
-the async and vectorized runtimes and TiFL/Oort come with later parts.
+On a CUDA device the server makes cuDNN deterministic (deterministic
+algorithms, no autotuning), so a run repeats bit for bit, as the
+reference's rounds do.  The port has the sequential runtime and random
+selection; checkpointing, the async and vectorized runtimes and TiFL/Oort
+come with later parts.
 """
 from __future__ import annotations
 
@@ -89,6 +92,10 @@ class NeuLiteServer:
         self.adapter = adapter
         self.flc = flc
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # cuDNN's default conv algorithms are nondeterministic
+            torch.backends.cudnn.deterministic = True
+            torch.backends.cudnn.benchmark = False
         self.rng = np.random.default_rng(flc.seed)
         self.params = (adapter.init_params(flc.seed, self.device)
                        if params is None else params)

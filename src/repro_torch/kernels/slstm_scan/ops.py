@@ -1,44 +1,49 @@
 """Differentiable sLSTM scan (port of ``repro.kernels.slstm_scan.ops``).
 
 The forward is the CUDA kernel (``kernel.slstm_scan_fwd``; its plain
-version on CPU tensors).  The backward recomputes through autograd of
-``ref.slstm_scan_ref``, as the reference's ``_scan_bwd`` takes the VJP of
-its ``slstm_scan_ref``: the JAX package has no backward kernel, so neither
-has the port.  Only ``g_in``, ``r``, ``b`` and the initial state are saved.
+version on CPU tensors).  When a gradient is needed it also saves the
+per-step pre-activations and states, and the backward is the reverse-scan
+kernel (``kernel.slstm_scan_bwd``; ``ref.slstm_scan_bwd_ref`` on CPU
+tensors), the counterpart of the reference's ``_scan_bwd``, which takes the
+VJP of its plain scan.  r's and b's gradients are two plain large products
+of the gate gradients, as XLA computes them in the reference.  Without
+grad (the frozen prefix, evaluation) nothing is saved.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.slstm_scan import kernel, ref
-
-_STATE = ("c", "n", "m", "h")
+from repro_torch.kernels.slstm_scan import kernel
+from repro_torch.kernels.slstm_scan.kernel import STATE
 
 
 class SLSTMScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, g_in, r, b, c0, n0, m0, h0):
-        ctx.save_for_backward(g_in, r, b, c0, n0, m0, h0)
-        return kernel.slstm_scan_fwd(g_in, r, b, c0, n0, m0, h0)
+        if not any(ctx.needs_input_grad):
+            return kernel.slstm_scan_fwd(g_in, r, b, c0, n0, m0, h0)
+        hs, *fin, g, cs, ns, ms = kernel.slstm_scan_fwd(
+            g_in, r, b, c0, n0, m0, h0, save=True)
+        ctx.save_for_backward(r, c0, n0, m0, h0, hs, g, cs, ns, ms)
+        return (hs, *fin)
 
     @staticmethod
-    def backward(ctx, *cts):
-        inputs = ctx.saved_tensors
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(True) for t in inputs]
-            hs, fin = ref.slstm_scan_ref(*leaves[:3],
-                                         dict(zip(_STATE, leaves[3:])))
-            # an output the caller did not use has a cotangent of zeros
-            return torch.autograd.grad([hs] + [fin[k] for k in _STATE],
-                                       leaves, cts)
+    def backward(ctx, dhs, dc, dn, dm, dh):
+        r, c0, n0, m0, h0, hs, g, cs, ns, ms = ctx.saved_tensors
+        dg, dc0, dn0, dm0, dh0 = kernel.slstm_scan_bwd(
+            g, cs, ns, ms, r, c0, n0, m0,
+            *(t.contiguous() for t in (dhs, dc, dn, dm, dh)))
+        h_prev = torch.cat([h0[:, None], hs[:, :-1]], dim=1)
+        dr = torch.einsum("bshe,bsghj->ghej", h_prev, dg)
+        return dg, dr, dg.sum(dim=(0, 1)), dc0, dn0, dm0, dh0
 
 
 def slstm_scan(g_in, r, b, state0: dict):
     """g_in: (B, S, 4, H, Dh); r: (4, H, Dh, Dh); b: (4, H, Dh); state0:
     dict(c, n, m, h) each (B, H, Dh).  Returns (hs (B, S, H, Dh), final
-    state dict).  Differentiable in all four inputs (backward: autograd of
-    the plain version)."""
+    state dict).  Differentiable in all four inputs (backward: the
+    reverse-scan kernel)."""
     hs, *fin = SLSTMScan.apply(g_in.contiguous(), r.contiguous(),
                                b.contiguous(),
-                               *(state0[k].contiguous() for k in _STATE))
-    return hs, dict(zip(_STATE, fin))
+                               *(state0[k].contiguous() for k in STATE))
+    return hs, dict(zip(STATE, fin))

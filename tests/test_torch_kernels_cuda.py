@@ -1,5 +1,6 @@
 """The CUDA kernels (streaming and dense-Gram nHSIC, flash-attention
-forward, sLSTM scan) against their plain versions, on the card.  Marked
+forward, sLSTM scan forward and backward) against their plain versions,
+and the ResNet path's rounds against themselves, on the card.  Marked
 ``cuda``: without a card every test here skips (the kernels have no CPU
 mode).  On a machine with one:
 
@@ -361,7 +362,11 @@ def test_flash_wrapper_raises_on_bad_inputs(cuda):
 # (B, S, H, Dh, random_state0, gate_scale): the xlstm-1.3b shape, the
 # reference's audit shapes (kernels/slstm_scan/ops.py), S=1, S=200 (ragged
 # against the reference's 128-step blocks), head dims 1, 3 and 48, random
-# non-zero initial states, and gates up to |g| = 100
+# non-zero initial states, gates up to |g| = 100, B = 64 (four row chunks),
+# H = 8 (past the blocks the card holds at once with r resident: r
+# streams), Dh = 1024 at H = 16 (r's slice exceeds shared memory; a block
+# owns several column tiles) and H = 1100 (more heads than blocks fit at
+# once: the heads go in several launches)
 SLSTM_CASES = [
     (16, 256, 4, 512, False, 1.0),
     (2, 256, 2, 512, False, 1.0),
@@ -372,6 +377,10 @@ SLSTM_CASES = [
     (3, 37, 3, 3, True, 1.0),
     (2, 37, 2, 48, True, 1.0),
     (2, 64, 2, 128, True, 100.0),
+    (64, 64, 4, 512, True, 1.0),
+    (16, 64, 8, 512, True, 1.0),
+    (2, 16, 16, 1024, True, 1.0),
+    (2, 5, 1100, 2, True, 1.0),
 ]
 STATE = ("c", "n", "m", "h")
 
@@ -406,29 +415,125 @@ def test_slstm_kernel_matches_plain_version(cuda, case):
     got = sl_kernel.slstm_scan_fwd(g_in, r, b, *st)
     hs, fin = sl_ref.slstm_scan_ref(g_in, r, b, dict(zip(STATE, st)))
     torch.cuda.synchronize()
-    assert sl_kernel.LAUNCHES == {"slstm_scan_fwd": 1}
+    assert sl_kernel.LAUNCHES == {"slstm_scan_fwd": 1, "slstm_scan_bwd": 0}
     assert got[0].shape == hs.shape
     for a, want in zip(got, [hs] + [fin[k] for k in STATE], strict=True):
         assert torch.isfinite(a).all()
         assert _rel(a, want) <= TOL
 
 
-@pytest.mark.parametrize("case", [SLSTM_CASES[2], SLSTM_CASES[7]],
-                         ids=[str(c) for c in (SLSTM_CASES[2],
-                                               SLSTM_CASES[7])])
+def _slstm_cotangents(inputs, device):
+    gen = torch.Generator(device).manual_seed(0)
+    B, S, _, H, Dh = inputs[0].shape
+    return [torch.randn((B, S, H, Dh), device=device, generator=gen)] + [
+        torch.randn((B, H, Dh), device=device, generator=gen) for _ in STATE]
+
+
+@pytest.mark.parametrize("case", SLSTM_CASES,
+                         ids=[str(c) for c in SLSTM_CASES])
+def test_slstm_saved_states_and_backward_kernel_match_plain_versions(cuda,
+                                                                     case):
+    """The forward's saved pre-activations and states against the plain
+    scan's; the backward kernel, on those states, against
+    ``slstm_scan_bwd_ref`` on the same inputs."""
+    inputs = _slstm_inputs(case, cuda)
+    g_in, r, b, *st = inputs
+    sl_kernel.reset_launches()
+    got = sl_kernel.slstm_scan_fwd(*inputs, save=True)
+    _, _, saved = sl_ref.slstm_scan_ref(g_in, r, b, dict(zip(STATE, st)),
+                                        save=True)
+    for a, want in zip(got[5:], [saved[k] for k in "gcnm"], strict=True):
+        assert _rel(a, want) <= TOL
+    args = [*got[5:], r, *st[:3], *_slstm_cotangents(inputs, cuda)]
+    dgot = sl_kernel.slstm_scan_bwd(*args)
+    dwant = sl_ref.slstm_scan_bwd_ref(*args)
+    torch.cuda.synchronize()
+    assert sl_kernel.LAUNCHES == {"slstm_scan_fwd": 1, "slstm_scan_bwd": 1}
+    for a, want in zip(dgot, dwant, strict=True):
+        assert torch.isfinite(a).all()
+        assert _rel(a, want) <= TOL
+
+
+def test_slstm_kernels_are_the_same_from_run_to_run(cuda):
+    inputs = _slstm_inputs(SLSTM_CASES[0], cuda)
+    cot = _slstm_cotangents(inputs, cuda)
+    runs = []
+    for _ in range(3):
+        out = sl_kernel.slstm_scan_fwd(*inputs, save=True)
+        runs.append(out + sl_kernel.slstm_scan_bwd(*out[5:], inputs[1],
+                                                   *inputs[3:6], *cot))
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(run, runs[0]))
+
+
+def test_slstm_backward_kernel_splits_a_tie_of_the_stabiliser(cuda):
+    """g_i = log sigmoid(g_f) + m_0 exactly: g_f = 30 (log sigmoid is
+    -9.4e-14 on any rounding) and m_0 = g_i = 1 tie in f32; r = 0 and
+    b = 0, one step.  The kernel splits the final m's cotangent half and
+    half between g_i and g_f, as autograd of the plain scan does."""
+    B, H, Dh = 2, 2, 32
+    g_in = torch.randn((B, 1, 4, H, Dh), device=cuda,
+                       generator=torch.Generator(cuda).manual_seed(1))
+    g_in[:, 0, 0] = 1.0
+    g_in[:, 0, 1] = 30.0
+    r = torch.zeros((4, H, Dh, Dh), device=cuda)
+    b = torch.zeros((4, H, Dh), device=cuda)
+    st = [torch.full((B, H, Dh), v, device=cuda) for v in (0.5, 1.0, 1.0,
+                                                            0.0)]
+    cot = _slstm_cotangents([g_in], cuda)
+    a = [t.clone().requires_grad_() for t in (g_in, r, b, *st)]
+    p = [t.clone().requires_grad_() for t in (g_in, r, b, *st)]
+    hs, fin = sl_ops.slstm_scan(*a[:3], dict(zip(STATE, a[3:])))
+    torch.autograd.backward([hs] + [fin[k] for k in STATE], cot)
+    hs_p, fin_p = sl_ref.slstm_scan_ref(*p[:3], dict(zip(STATE, p[3:])))
+    torch.autograd.backward([hs_p] + [fin_p[k] for k in STATE], cot)
+    for x, y in zip(a, p, strict=True):
+        assert _rel(x.grad, y.grad) <= TOL
+
+
+def test_resnet_rounds_repeat_bit_for_bit(cuda):
+    """Two ResNet18 rounds (narrow, 16x16) from one seed, twice: the
+    same round losses and params to the bit (the server makes cuDNN
+    deterministic on the card)."""
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.core.progressive import make_adapter
+    from repro_torch.data.partition import dirichlet_partition
+    from repro_torch.data.synthetic import make_image_dataset
+    from repro_torch.federated.server import FLConfig, NeuLiteServer
+    from repro_torch.models.cnn import CNNConfig
+
+    def run():
+        ccfg = CNNConfig(name="resnet18", arch="resnet18", num_classes=10,
+                         image_size=16, width_mult=0.25)
+        flc = FLConfig(n_devices=8, clients_per_round=2, local_epochs=1,
+                       batch_size=16, num_stages=4, use_hsic_kernel=True,
+                       seed=0)
+        ds = make_image_dataset(0, 512, num_classes=10, image_size=16)
+        parts = dirichlet_partition(0, ds.labels, flc.n_devices,
+                                    alpha=flc.alpha)
+        server = NeuLiteServer(make_adapter(ccfg, flc.num_stages),
+                               [ds.subset(q) for q in parts], flc)
+        losses = [repr(server.run_round(i).mean_loss) for i in range(2)]
+        return losses, tree_leaves(server.params)
+
+    (la, pa), (lb, pb) = run(), run()
+    assert la == lb
+    assert all(torch.equal(x, y) for x, y in zip(pa, pb, strict=True))
+
+
+@pytest.mark.parametrize("case", SLSTM_CASES,
+                         ids=[str(c) for c in SLSTM_CASES])
 def test_slstm_autograd_matches_plain_path(cuda, case):
     inputs = _slstm_inputs(case, cuda)
-    gen = torch.Generator(cuda).manual_seed(0)
-    cot = [torch.randn(inputs[0].shape[:2] + inputs[0].shape[3:],
-                       device=cuda, generator=gen)] + [
-        torch.randn(inputs[3].shape, device=cuda, generator=gen)
-        for _ in STATE]
+    cot = _slstm_cotangents(inputs, cuda)
+    sl_kernel.reset_launches()
     a = [t.clone().requires_grad_() for t in inputs]
     b = [t.clone().requires_grad_() for t in inputs]
     hs, fin = sl_ops.slstm_scan(*a[:3], dict(zip(STATE, a[3:])))
     torch.autograd.backward([hs] + [fin[k] for k in STATE], cot)
     hs_p, fin_p = sl_ref.slstm_scan_ref(*b[:3], dict(zip(STATE, b[3:])))
     torch.autograd.backward([hs_p] + [fin_p[k] for k in STATE], cot)
+    assert sl_kernel.LAUNCHES == {"slstm_scan_fwd": 1, "slstm_scan_bwd": 1}
     for x, y in zip(a, b, strict=True):
         assert torch.isfinite(x.grad).all()
         assert _rel(x.grad, y.grad) <= TOL

@@ -112,7 +112,7 @@ def test_slstm_wrapper_on_cpu_takes_the_plain_version_and_counts_nothing():
     assert all(torch.equal(a, w) for a, w in
                zip(got, [hs, fin["c"], fin["n"], fin["m"], fin["h"]]))
     assert torch.equal(ops.slstm_scan(g_in, r, b, st)[0], hs)
-    assert kernel.LAUNCHES == {"slstm_scan_fwd": 0}
+    assert kernel.LAUNCHES == {"slstm_scan_fwd": 0, "slstm_scan_bwd": 0}
 
 
 def test_kernel_inputs_are_checked():

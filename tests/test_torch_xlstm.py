@@ -177,7 +177,8 @@ def test_stage_step_matches(small_xlstm, t, kernel):
     _check_step(t_adapter, t_params, t_batch,
                 _ref_step(adapter, params, r_batch, t), t)
     # on the CPU the scan wrapper takes its plain version: no launch
-    assert t_slstm_kernel.LAUNCHES == {"slstm_scan_fwd": 0}
+    assert t_slstm_kernel.LAUNCHES == {"slstm_scan_fwd": 0,
+                                       "slstm_scan_bwd": 0}
 
 
 ROUND_TOL = 1e-3
