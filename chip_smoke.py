@@ -9,12 +9,15 @@
    compiler per source, all started together; prints the build time.
 2. Kernel phase: each kernel's wrapper against its plain PyTorch version on
    the card, with TF32 off.  K1-K3 (forward, and the autograd backward of
-   nHSIC) at both main paths' shapes and at batches/widths off the 32-row
-   tile; K4 at the ViT-12 shape, the reference's audit shapes (bf16, ragged
-   S=200, windowed), GQA, causal with Sq != Skv, causal+window with empty
-   rows (exactly 0), its tiling (head dims 1, 3, 20, 100; Sq=5 and 9;
-   Skv=1000 with a window of 300), the same bits over three runs, and its
-   autograd gradient; K5 (``hs`` and the four
+   nHSIC) at the main paths' shapes, at batches/widths off the 32-row
+   tile and at the edges of K2's and K3's thread-block clusters (D below
+   the cluster size, off a multiple of 4, 4096 and above; B from 1 to
+   256), identical rows (K2 and K3's gradients then exactly 0), and K2's
+   and K3's bits over three runs; K4 at the ViT-12 shape, the reference's
+   audit shapes (bf16, ragged S=200, windowed), GQA, causal with Sq !=
+   Skv, causal+window with empty rows (exactly 0), its tiling (head dims
+   1, 3, 20, 100; Sq=5 and 9; Skv=1000 with a window of 300), the same
+   bits over three runs, and its autograd gradient; K5 (``hs`` and the four
    final states) at the xlstm-1.3b shape, the reference's audit shapes,
    S=1, ragged S=200, head dims 1, 3 and 48, random initial states and
    gates up to |g| = 100, and its autograd gradient.  Bar: scale-relative
@@ -104,7 +107,25 @@ MAIN_PATH_SHAPES = [(32, 3, 64, False), (32, 64, 128, False),
 # off the tile: B in {48, 256}, D in {1, 512}; then identical rows
 EXTRA_SHAPES = [(48, 1, 512, False), (48, 512, 1, True), (256, 1, 512, False),
                 (256, 512, 1, True), (256, 512, 512, False)]
+# the edges of K2's and K3's clusters (4 to 16 ranks, about 64 columns of
+# the wider side a rank, each owning a slice of D in multiples of 4, at most
+# 256 columns at once): D = 1 and D < C (trailing ranks own nothing), D off
+# a multiple of 4 or of the slice, D = 4096 (16 slices of 256), D above
+# 16 x 256 (slices taken in segments, 4100 also off a multiple of 4);
+# B = 1, 16 (one entry of four computed), 33, 48 and 256 (more than one
+# tile).  B = 1 with an RBF z of one column: a single row's mean-distance
+# bandwidth clamps to 1e-8, and over more columns the plain version's own
+# rounding then turns the diagonal of 1 into 0
+CLUSTER_EDGE_SHAPES = [(1, 5, 1, True), (16, 4096, 100, False),
+                       (33, 10, 4096, True), (48, 100, 33, True),
+                       (256, 1, 4096, False), (33, 4100, 3, False),
+                       (48, 8192, 64, False)]
 DEGENERATE_SHAPES = [(32, 5, 8, False), (48, 10, 64, True)]
+# identical rows, both sides RBF: K2 must give exactly 0 and K3 exactly 0
+# gradients (not held against the plain versions, whose rounding makes a
+# diagonal distance of identical rows other than 0)
+IDENTICAL_SHAPES = [(32, 5, 8), (16, 2048, 2048), (33, 4100, 3),
+                    (256, 64, 1), (1, 1, 7)]
 TIMED_SHAPE = (32, 256, 512, False)   # the ResNet path's largest call
 STREAMING = ("nhsic_rowsums", "nhsic_stats_feats", "nhsic_grad")   # K1-K3
 
@@ -385,7 +406,8 @@ def rel_each(got, want):
 def kernel_phase(torch, kernel, ops, ref, hsic):
     names = STREAMING
     errs = {}
-    cases = ([(s, False) for s in MAIN_PATH_SHAPES + EXTRA_SHAPES]
+    cases = ([(s, False) for s in MAIN_PATH_SHAPES + EXTRA_SHAPES
+              + CLUSTER_EDGE_SHAPES]
              + [(s, True) for s in DEGENERATE_SHAPES])
     for (B, Dx, Dz, lx), degenerate in cases:
         x, z = inputs(torch, B, Dx, Dz, lx, degenerate)
@@ -417,20 +439,47 @@ def kernel_phase(torch, kernel, ops, ref, hsic):
         print(f"  check B={B} Dx={Dx} Dz={Dz} linear_x={lx}{tag}: "
               + ", ".join(line)
               + f", nhsic value {rel_v:.2e} grad {rel_g:.2e}", flush=True)
-    a, _ = kernel_args(torch, hsic, ref, *inputs(torch, 256, 64, 128, False),
-                       False)["nhsic_stats_feats"]
-    first = kernel.nhsic_stats_feats(*a)
-    check(all(torch.equal(first, kernel.nhsic_stats_feats(*a))
-              for _ in range(3)), "nhsic_stats_feats differs between runs")
+    for B, Dx, Dz in IDENTICAL_SHAPES:
+        check(exactly_zero(torch, kernel, hsic,
+                           *inputs(torch, B, Dx, Dz, False, True)),
+              f"identical rows at {(B, Dx, Dz)}: K2 or K3 not exactly 0")
+    print(f"  identical rows at {len(IDENTICAL_SHAPES)} shapes: K2 and K3 "
+          f"exactly 0", flush=True)
+    for shape in [(256, 64, 128, False), (32, 256, 512, False),
+                  (16, 2048, 2048, False)]:
+        args = kernel_args(torch, hsic, ref, *inputs(torch, *shape),
+                           shape[3])
+        for n in ("nhsic_stats_feats", "nhsic_grad"):
+            a, kw = args[n]
+            check(same_bits(torch, lambda: getattr(kernel, n)(*a, **kw)),
+                  f"{n} at {shape}: bits differ between runs")
+    print("  nhsic_stats_feats, nhsic_grad at B=256, 32, 16: the same bits "
+          "over three runs", flush=True)
     return errs
 
 
+def exactly_zero(torch, kernel, hsic, x, z):
+    """Identical rows, both Grams RBF: K1 gives row sums of exactly B, so
+    every centred entry is exactly 0; K2 must then give exactly 0 and K3
+    exactly 0 gradients."""
+    B = x.shape[0]
+    s2 = torch.stack([hsic.rbf_sigma2(x), hsic.rbf_sigma2(z)])
+    rxs, rzs = kernel.nhsic_rowsums(x, z, s2)
+    s = torch.cat([s2, torch.stack([rxs.sum(), rzs.sum()]) / (B * B)])
+    stats = kernel.nhsic_stats_feats(x, z, rxs / B, rzs / B, s)
+    scal = torch.cat([s, torch.tensor([0.7, 0.3, -0.2], device=x.device)])
+    gx, gz = kernel.nhsic_grad(x, z, rxs / B, rzs / B, scal)
+    return bool((stats == 0).all() & (gx == 0).all() & (gz == 0).all())
+
+
 # device kernel names of each streaming nHSIC wrapper (K2 adds its
-# partials in a second launch)
+# partials in a second launch where B > 32); each is a __global__ function
+# of nhsic.cu and no substring of another kernel's name
+# (tests/test_torch_profiler_names.py)
 STREAMING_KERNELS = {"nhsic_rowsums": ("rowsums_kernel",),
-                     "nhsic_stats_feats": ("stats_kernel",
+                     "nhsic_stats_feats": ("nhsic_stats_kernel",
                                            "sum_partials_kernel"),
-                     "nhsic_grad": ("grad_kernel",)}
+                     "nhsic_grad": ("nhsic_grad_kernel",)}
 
 
 def timing_phase(torch, kernel, ref, hsic):
@@ -1413,8 +1462,8 @@ def slstm_layer_check(torch, server, plain_adapter):
 
 
 # device kernel names of the hand-written kernels, for the profile
-KERNEL_NAMES = {"nhsic": ("rowsums_kernel", "stats_kernel",
-                          "sum_partials_kernel", "grad_kernel"),
+KERNEL_NAMES = {"nhsic": ("rowsums_kernel", "nhsic_stats_kernel",
+                          "sum_partials_kernel", "nhsic_grad_kernel"),
                 "flash": ("flash_fwd_kernel",),
                 "slstm": ("slstm_fwd_kernel", "slstm_bwd_kernel")}
 

@@ -1,13 +1,17 @@
-"""Times one call of the K4, K6 and K5 wrappers, and of the sLSTM scan's
-backward, of a checkout of the port, so that two checkouts can be compared
-on one card.
+"""Times one call of the K2, K3, K4, K6 and K5 wrappers, and of the sLSTM
+scan's backward, of a checkout of the port, so that two checkouts can be
+compared on one card.
 
     python src/repro_torch/benchmarks/kernel_calls.py --src <checkout>/src \
         --label <name> [--out <file.jsonl>]
 
 imports ``repro_torch`` from ``--src`` (so an older checkout, unpacked
 beside this one, is timed with its own wrappers and kernels) and, for
-``flash_attention_fwd`` at the ViT-12 shape, ``gram`` at (B, D) =
+``nhsic_stats_feats`` (K2) and ``nhsic_grad`` (K3) at the ResNet path's
+largest call (B, Dx, Dz) = (32, 256, 512), the xlstm-1.3b's h_xz (16,
+2048, 2048) and the kernel benchmark's largest nHSIC row (256, 256, 64),
+with their inputs as the nHSIC forward and backward build
+them, ``flash_attention_fwd`` at the ViT-12 shape, ``gram`` at (B, D) =
 (256, 256) and (32, 256), linear and RBF, ``slstm_scan_fwd`` at the
 xlstm-1.3b shape (B=16, S=256, H=4, Dh=512) and ``slstm_scan_bwd``, the
 backward of ``ops.slstm_scan`` at that shape for a cotangent of every
@@ -20,7 +24,8 @@ JSON line each:
 * ``host_ms``: the host clock per call over 200 calls issued back to back
   without a synchronisation, the wrapper's own Python and launch time;
 * ``device_ms``: the profiler's device time of the kernel per call (for
-  ``slstm_scan_bwd``: of every device op of the backward);
+  K2 and K3, of all their launches, and for ``slstm_scan_bwd``, of every
+  device op of the backward);
 * ``device_ops``: the device ops (kernels, copies, fills) the profiler
   records per call.
 
@@ -48,8 +53,10 @@ def main(argv=None) -> int:
     sys.path.insert(0, args.src)
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.core import hsic
     from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.hsic_gram import kernel as hkernel
+    from repro_torch.kernels.hsic_gram import ref as href
     from repro_torch.kernels.slstm_scan import kernel as skernel
     from repro_torch.kernels.slstm_scan import ops as sops
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -95,6 +102,20 @@ def main(argv=None) -> int:
 
     gen = torch.Generator().manual_seed(0)
     calls = []
+    for B, Dx, Dz in ((32, 256, 512), (16, 2048, 2048), (256, 256, 64)):
+        x = torch.randn((B, Dx), generator=gen).cuda()
+        z = torch.randn((B, Dz), generator=gen).cuda()
+        s2 = torch.stack([hsic.rbf_sigma2(x), hsic.rbf_sigma2(z)])
+        rxs, rzs = href.nhsic_rowsums(x, z, s2)
+        rx, rz = rxs / B, rzs / B
+        s = torch.cat([s2, torch.stack([rxs.sum(), rzs.sum()]) / (B * B)])
+        scal = torch.cat([s, torch.tensor([0.7, 0.3, -0.2], device="cuda")])
+        calls.append(("nhsic_stats_feats", [B, Dx, Dz, False], None,
+                      lambda x=x, z=z, rx=rx, rz=rz, s=s:
+                      hkernel.nhsic_stats_feats(x, z, rx, rz, s)))
+        calls.append(("nhsic_grad", [B, Dx, Dz, False], None,
+                      lambda x=x, z=z, rx=rx, rz=rz, scal=scal:
+                      hkernel.nhsic_grad(x, z, rx, rz, scal)))
     q, k, v = (torch.randn((32, 64, 6, 64), generator=gen).cuda()
                for _ in range(3))
     calls.append(("flash_attention_fwd", [32, 64, 64, 6, 6, 64, False, 0],

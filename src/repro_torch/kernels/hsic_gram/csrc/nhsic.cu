@@ -14,11 +14,10 @@
 //   gram_stats         <- kernel.py:gram_stats_pallas        (_stats_kernel)
 //
 // What bounds them on the H100: at the training batch (B = 32) each call
-// reads at most (32 x 768) floats and does about 1 MFLOP, which the card
-// moves and computes in well under a microsecond, so launch latency bounds
-// every call.  The design answers that with one launch per call for the
-// row sums, the gradient and the dense Gram (two for each statistics
-// kernel, see below) and no host synchronisation: scalars such as sigma^2
+// reads at most (32 x 4096) floats and does a few MFLOP, which the card
+// moves and computes in about a microsecond, so latency bounds every call:
+// the launch, the chain of dependent loads and barriers, and how many SMs
+// share the work.  No call synchronises the host: scalars such as sigma^2
 // and the Gram means are read from device memory by the kernel.  At large
 // B the Gram arithmetic (2 B^2 D FLOPs per matrix) dominates; it runs in
 // fp32 on CUDA cores.  The dense-Gram statistics read two (B, B) Grams
@@ -28,20 +27,68 @@
 // mantissa, and an MMA's internal order of summation would make the
 // distance of two identical rows depend on where they sit (see K6 below).
 //
-// Design, per kernel:
-//   * A thread block owns a 32-row tile and loops over the 32-column tiles
-//     itself (the TPU grid ran that axis in order), so row sums and gradient
-//     rows need no reduction across blocks.
-//   * Statistics need a reduction over all (i, j) tiles.  Each block writes
-//     its three partial sums to a scratch buffer and a second launch adds
-//     them in a fixed order: results are the same from run to run (no
-//     atomics), as resumed training runs require.
+// Properties every kernel keeps:
+//   * Results are the same from run to run: no atomics, every sum in a
+//     fixed order, as resumed training runs require.
 //   * B and D are arbitrary.  Rows and columns outside [0, B) are masked in
 //     the kernel: a masked entry adds nothing to any sum and is never
 //     written.  (A zero pad row would add exp(0) = 1 to an RBF Gram, which
 //     is why the TPU version never pads the streaming kernels.)
-//   * Row norms are accumulated with the same fma sequence as the dot
-//     products, so a diagonal distance is exactly 0.
+//   * Row norms are accumulated with the same fma sequence, and added in
+//     the same order, as the dot products, so a diagonal distance is
+//     exactly 0 and identical rows have an RBF value of exactly 1.
+//
+// K1, the row sums: a block owns a 32-row tile and loops over the
+// 32-column tiles itself (the TPU grid ran that axis in order), stepping
+// through D in 32-column chunks, so its rows need no reduction across
+// blocks.  At B <= 32 a call is one block on one SM.
+//
+// K2 (statistics) and K3 (gradient).  Their first version was K1's design:
+// a call at B <= 32 (every call of the training paths) ran on one block of
+// one of the 132 SMs, walking the whole of D in 32-column chunks with two
+// block barriers each; K2 added a second launch, and K3 zero-filled dx and
+// dz in device memory and added each column tile's W . x_j into them
+// there.  That took 0.074 / 0.168 ms of device time at B = 32, Dx = 256,
+// Dz = 512 and 0.343 / 0.590 ms at B = 16, Dx = Dz = 2048 (NVIDIA H100
+// 80GB HBM3, 700.00 W), 1,000-10,000x their bounds.  The redesign:
+//   * One launch, and a thread-block cluster of C blocks (4 to 16, about
+//     64 columns of D a block, `cluster_size`) for each row tile (K3) or
+//     tile pair (K2):
+//     rank r of the cluster owns a slice of the columns of x and of z
+//     (multiples of 4 floats, so cp.async moves 16 bytes where D % 4 ==
+//     0), so a B = 32 call runs on C SMs.  A slice wider than 256 columns
+//     is taken in segments (K3 recomputes the Grams per segment); trailing
+//     ranks of a narrow D own nothing and add exact zeros.
+//   * Each rank loads its slice of the tile's rows into shared memory once
+//     (the z rows load while x is multiplied) and computes the partial
+//     32 x 32 dot tile (4 entries a thread; a batch of B <= 16 computes
+//     only the one entry of each thread that is not masked) and the
+//     partial squared norms.  The partials go to the rank's shared memory;
+//     after one cluster barrier every rank reads all C partials through
+//     distributed shared memory in rank order 0..C-1 and adds them, so
+//     every rank holds the same full tile, bit for bit.
+//   * K3: every rank forms Kx, Kz, the centred values, G and W of the
+//     tile (1,024 entries, redundant across ranks) and the row sums of W,
+//     then its own slice of W . x_j from the column tile's rows already in
+//     its shared memory, summed over column tiles in registers; dx and dz
+//     are written once, coalesced, with the RBF term rowsum(W)_i x_i from
+//     the row tile's rows in shared memory: no zero fill, no += through
+//     device memory, no second read of x.  A second cluster barrier, whose
+//     wait is deferred past the product, keeps each rank's partials alive
+//     while the others read them.
+//   * K2: rank r takes 1024 / C of the tile's entries for the three
+//     centred products; the ranks' three sums are stored into rank 0's
+//     shared memory, added there in rank order after a second barrier, and
+//     written to `out` where the call has one tile; otherwise to `partial`,
+//     which sum_partials_kernel adds in tile order.
+//   * A launch that the card refuses (for instance a cluster it cannot
+//     place) returns its error; the wrapper raises.
+// Measured (benchmarks/kernel_calls.py, the first version timed in the
+// same run; NVIDIA H100 80GB HBM3, 700.00 W): K2 0.0074 / 0.0087 ms of
+// device time at B = 32, Dx = 256, Dz = 512 and at B = 16, Dx = Dz = 2048
+// (first version 0.074 / 0.338), K3 0.0130 / 0.0123 (0.170 / 0.609); both
+// remain latency-bound, about 5.5 (K2) and 8 (K3) us at the smallest
+// shapes.  Cluster sizes: benchmarks/nhsic_cluster.py and PERF.md.
 //
 // K6, the dense Gram.  Its work at the benchmark's B = 256, D = 256 is
 // 16.8 MFLOP (well under a microsecond on the CUDA cores) and 0.5 MB (0.16
@@ -69,9 +116,12 @@
 //     without a special case; the clamp at 0 stays.  It stays on CUDA cores
 //     for that reason: the arithmetic is not what bounds it.
 // Measured: PERF.md (chip_smoke.py's gram timing).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -186,46 +236,6 @@ rowsums_kernel(const float* __restrict__ x, const float* __restrict__ z,
     __syncthreads();
   }
   if (tid < TILE && i0 + tid < B) out[i0 + tid] = rsum;
-}
-
-// Grid (column tiles, row tiles).  s = [s2x, s2z, mean Kx, mean Kz]; rx, rz
-// are the Gram row means.  Writes this tile's (sum Kxc Kzc, sum Kxc^2,
-// sum Kzc^2) to partial[3 * block].
-__global__ void __launch_bounds__(THREADS)
-stats_kernel(const float* __restrict__ x, const float* __restrict__ z,
-             const float* __restrict__ rx, const float* __restrict__ rz,
-             const float* __restrict__ s, float* __restrict__ partial, int B,
-             int Dx, int Dz, int lx, int lz) {
-  __shared__ TileSmem sm;
-  __shared__ float Kx[TILE][TILE + 1];
-  __shared__ float Kz[TILE][TILE + 1];
-  __shared__ float red[THREADS / 32];
-  const int i0 = blockIdx.y * TILE, j0 = blockIdx.x * TILE;
-  gram_tile(x, B, Dx, i0, j0, lx, s[0], sm, Kx);
-  gram_tile(z, B, Dz, i0, j0, lz, s[1], sm, Kz);
-  const float mx = s[2], mz = s[3];
-  const int c = threadIdx.x % TILE, j = j0 + c;
-  float p0 = 0.f, p1 = 0.f, p2 = 0.f;
-#pragma unroll
-  for (int q = 0; q < PER_THREAD; ++q) {
-    const int r = entry_row(q), i = i0 + r;
-    if (i < B && j < B) {
-      const float kxc = Kx[r][c] - rx[i] - rx[j] + mx;
-      const float kzc = Kz[r][c] - rz[i] - rz[j] + mz;
-      p0 = fmaf(kxc, kzc, p0);
-      p1 = fmaf(kxc, kxc, p1);
-      p2 = fmaf(kzc, kzc, p2);
-    }
-  }
-  const int blk = blockIdx.y * gridDim.x + blockIdx.x;
-  p0 = block_sum(p0, red);
-  p1 = block_sum(p1, red);
-  p2 = block_sum(p2, red);
-  if (threadIdx.x == 0) {
-    partial[3 * blk + 0] = p0;
-    partial[3 * blk + 1] = p1;
-    partial[3 * blk + 2] = p2;
-  }
 }
 
 // One block: out[k] = sum over blocks of partial[3 * blk + k], fixed order.
@@ -477,96 +487,676 @@ gram_stats_kernel(const float* __restrict__ kx, const float* __restrict__ kz,
   }
 }
 
-// Adds W . a[j0:j0+TILE] * scale to the rows of g this block owns.
-__device__ void accumulate_rows(const float (*W)[TILE + 1],
-                                const float* __restrict__ a,
-                                float* __restrict__ g, int B, int D, int i0,
-                                int j0, float scale) {
-  const int ncols = min(TILE, B - j0);
-  for (int e = threadIdx.x; e < TILE * D; e += THREADS) {
-    const int r = e / D, d = e % D, i = i0 + r;
-    if (i >= B) break;                       // e only grows from here
-    float acc = 0.f;
-    for (int c = 0; c < ncols; ++c)
-      acc = fmaf(W[r][c], a[(size_t)(j0 + c) * D + d], acc);
-    g[(size_t)i * D + d] += scale * acc;
+// ---- K2 and K3: the D axis split over a thread-block cluster (see the
+// header) ----
+constexpr int SEG = 256;          // most columns of a rank's slice that its
+                                  // slabs hold at once
+constexpr int WLD = TILE + 4;     // row stride of a transposed W tile
+constexpr int NORMS = 2 * TILE * TILE;       // offset of the norms in XCH
+constexpr int XCH = NORMS + 4 * TILE;        // floats a rank publishes per
+                                             // tile pair: the x and z dots,
+                                             // then x row, x column, z row,
+                                             // z column norms
+constexpr int MAX_CLUSTER = 16;
+
+__host__ __device__ constexpr int slice_of(int D, int C) {
+  return ((D + C - 1) / C + 3) / 4 * 4;
+}
+// slab row stride: a multiple of 4 (16-byte rows) with ld / 4 odd, so 8
+// rows read at one column fall on 8 distinct bank groups
+__host__ __device__ constexpr int ld_of(int slice) {
+  return ((slice < SEG ? slice : SEG) + 7) / 8 * 8 + 4;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+__device__ __forceinline__ float* peer(float* p, int rank) {
+  return cg::this_cluster().map_shared_rank(p, rank);
+}
+
+// One side (x or z) of the pair as the cluster splits it: rank r owns the
+// columns [r * slice, (r + 1) * slice) of D, in nseg segments of at most
+// SEG columns; trailing ranks may own none.  `row` and `col` are the
+// rank's slabs (TILE x ld) of the row tile's and the column tile's rows
+// (`col` only where a call has more than one tile; a diagonal tile pair
+// reads `row` twice); the keys say which (tile * nseg + segment) each
+// holds, -1 none.  Every field is the same in all threads of a block.
+struct Side {
+  const float* a;
+  int D, slice, nseg, ld;
+  bool vec, linear;
+  float* row;
+  float* col;
+  int row_key, col_key;
+};
+
+__device__ __forceinline__ Side make_side(const float* a, int D, int C,
+                                          int linear, int vec) {
+  Side s;
+  s.a = a;
+  s.D = D;
+  s.slice = slice_of(D, C);
+  s.nseg = (s.slice + SEG - 1) / SEG;
+  s.ld = ld_of(s.slice);
+  s.vec = vec;
+  s.linear = linear;
+  s.row = s.col = nullptr;
+  s.row_key = s.col_key = -1;
+  return s;
+}
+
+__device__ __forceinline__ int seg_col0(const Side& s, int rank, int seg) {
+  return rank * s.slice + seg * SEG;
+}
+__device__ __forceinline__ int seg_width(const Side& s, int rank, int seg) {
+  const int end = rank * s.slice + min(s.slice, (seg + 1) * SEG);
+  return max(min(s.D, end) - seg_col0(s, rank, seg), 0);
+}
+
+// Issues the copies (the caller commits) of rows [row0, row0 + TILE) x
+// columns [col0, col0 + width) of a (B, D) into the slab dst, zero-filling
+// rows >= B and the columns up to the next multiple of 4.  `vec`: D % 4
+// == 0 and `a` 16-byte aligned, so every copy moves 16 bytes.
+__device__ void load_slab(float* dst, int ld, const float* __restrict__ a,
+                          int B, int D, int row0, int col0, int width,
+                          bool vec) {
+  const int w4 = (width + 3) / 4 * 4;
+  if (vec) {
+    const int g = w4 / 4;
+    for (int e = threadIdx.x; e < TILE * g; e += THREADS) {
+      const int r = e / g, k = 4 * (e % g);
+      const bool in = row0 + r < B;
+      cp_async(dst + r * ld + k,
+               in ? a + (size_t)(row0 + r) * D + col0 + k : a, true, in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < TILE * w4; e += THREADS) {
+      const int r = e / w4, k = e % w4;
+      const bool in = row0 + r < B && k < width;
+      cp_async(dst + r * ld + k,
+               in ? a + (size_t)(row0 + r) * D + col0 + k : a, false, in);
+    }
   }
 }
 
-// Grid (row tiles).  scal = [s2x, s2z, mean Kx, mean Kz, cA, cBx, cBz].
-// With Kc the centred Grams, G_x = cA Kzc - cBx Kxc and G_z = cA Kxc - cBz
-// Kzc.  RBF: W = G o K (-1 / 2 s2), dx_i = 4 (rowsum(W)_i x_i - (W x)_i);
-// linear: dx = 2 G x.  Each block owns its rows of dx and dz.
-__global__ void __launch_bounds__(THREADS)
-grad_kernel(const float* __restrict__ x, const float* __restrict__ z,
-            const float* __restrict__ rx, const float* __restrict__ rz,
-            const float* __restrict__ scal, float* __restrict__ dx,
-            float* __restrict__ dz, int B, int Dx, int Dz, int lx, int lz) {
-  __shared__ TileSmem sm;
-  __shared__ float Wx[TILE][TILE + 1];
-  __shared__ float Wz[TILE][TILE + 1];
-  __shared__ float wsx[TILE];
-  __shared__ float wsz[TILE];
-  const float s2x = scal[0], s2z = scal[1], mx = scal[2], mz = scal[3];
-  const float ca = scal[4], cbx = scal[5], cbz = scal[6];
-  const int i0 = blockIdx.x * TILE;
-  const int tid = threadIdx.x, c = tid % TILE;
-  if (tid < TILE) {
-    wsx[tid] = 0.f;
-    wsz[tid] = 0.f;
+// Issues the copies that bring segment `seg` of row tile `it` and column
+// tile `jt` into s's slabs, unless they hold it already.
+__device__ __forceinline__ void issue_side(Side& s, int B, int rank, int it,
+                                           int jt, int seg) {
+  const int c0 = seg_col0(s, rank, seg), w = seg_width(s, rank, seg);
+  if (s.row_key != it * s.nseg + seg) {
+    load_slab(s.row, s.ld, s.a, B, s.D, it * TILE, c0, w, s.vec);
+    s.row_key = it * s.nseg + seg;
   }
-  for (int e = tid; e < TILE * Dx && i0 + e / Dx < B; e += THREADS)
-    dx[(size_t)i0 * Dx + e] = 0.f;
-  for (int e = tid; e < TILE * Dz && i0 + e / Dz < B; e += THREADS)
-    dz[(size_t)i0 * Dz + e] = 0.f;
-  for (int j0 = 0; j0 < B; j0 += TILE) {
-    gram_tile(x, B, Dx, i0, j0, lx, s2x, sm, Wx);   // Wx holds Kx for now
-    gram_tile(z, B, Dz, i0, j0, lz, s2z, sm, Wz);   // Wz holds Kz for now
-    float wx[PER_THREAD], wz[PER_THREAD];
-    const int j = j0 + c;
-#pragma unroll
-    for (int q = 0; q < PER_THREAD; ++q) {
-      const int r = entry_row(q), i = i0 + r;
-      wx[q] = 0.f;
-      wz[q] = 0.f;
-      if (i < B && j < B) {
-        const float kx = Wx[r][c], kz = Wz[r][c];
-        const float kxc = kx - rx[i] - rx[j] + mx;
-        const float kzc = kz - rz[i] - rz[j] + mz;
-        const float gx = ca * kzc - cbx * kxc;
-        const float gz = ca * kxc - cbz * kzc;
-        wx[q] = lx ? gx : gx * kx * (-1.f / (2.f * s2x));
-        wz[q] = lz ? gz : gz * kz * (-1.f / (2.f * s2z));
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < PER_THREAD; ++q) {
-      Wx[entry_row(q)][c] = wx[q];
-      Wz[entry_row(q)][c] = wz[q];
-    }
-    __syncthreads();
-    if (tid < TILE) {
-      float sr = 0.f;
-      for (int cc = 0; cc < TILE; ++cc) sr += Wx[tid][cc];
-      wsx[tid] += sr;
-    } else if (tid < 2 * TILE) {
-      float sr = 0.f;
-      for (int cc = 0; cc < TILE; ++cc) sr += Wz[tid - TILE][cc];
-      wsz[tid - TILE] += sr;
-    }
-    accumulate_rows(Wx, x, dx, B, Dx, i0, j0, lx ? 2.f : -4.f);
-    accumulate_rows(Wz, z, dz, B, Dz, i0, j0, lz ? 2.f : -4.f);
-    __syncthreads();
+  if (jt != it && s.col_key != jt * s.nseg + seg) {
+    load_slab(s.col, s.ld, s.a, B, s.D, jt * TILE, c0, w, s.vec);
+    s.col_key = jt * s.nseg + seg;
   }
-  // RBF: the rowsum(W) x_i half of the chain rule, once over all columns
-  if (!lx)
-    for (int e = tid; e < TILE * Dx && i0 + e / Dx < B; e += THREADS)
-      dx[(size_t)i0 * Dx + e] += 4.f * wsx[e / Dx] * x[(size_t)i0 * Dx + e];
-  if (!lz)
-    for (int e = tid; e < TILE * Dz && i0 + e / Dz < B; e += THREADS)
-      dz[(size_t)i0 * Dz + e] += 4.f * wsz[e / Dz] * z[(size_t)i0 * Dz + e];
 }
+
+// The slab that holds the rows of `tile` (`it` the row tile), loaded with
+// segment `seg` first if it holds another (only where a slice has more
+// than one segment).
+__device__ __forceinline__ const float* slab_with(Side& s, int B, int rank,
+                                                  int it, int tile, int seg) {
+  const bool own = tile == it;
+  int& key = own ? s.row_key : s.col_key;
+  float* slab = own ? s.row : s.col;
+  if (key != tile * s.nseg + seg) {
+    __syncthreads();                     // the slab's last readers are done
+    load_slab(slab, s.ld, s.a, B, s.D, tile * TILE, seg_col0(s, rank, seg),
+              seg_width(s, rank, seg), s.vec);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    key = tile * s.nseg + seg;
+  }
+  return slab;
+}
+
+// Thread t owns the tile entries (tr, tc), (tr, tc + 16), (tr + 16, tc),
+// (tr + 16, tc + 16), tr = t / 16, tc = t % 16, and adds the products of
+// columns [0, w4) of the slabs a (row tile) and b (column tile) to them.
+// QUARTER: rows and columns >= 16 are all masked (B <= 16), so only the
+// first entry is computed.  NORM (threads < 2 TILE): also the squared norm
+// of slab row `nr`, with the fma sequence of the dot products, so that
+// identical rows give a dot equal to their norms, bit for bit.
+template <bool QUARTER, bool NORM>
+__device__ __forceinline__ void slab_dots(const float* a, const float* b,
+                                          int ld, int w4, float acc[4],
+                                          float& nrm, const float* nr) {
+  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
+  const float* a0 = a + tr * ld;
+  const float* b0 = b + tc * ld;
+#pragma unroll 2
+  for (int k = 0; k < w4; k += 4) {
+    const float4 A0 = ld4(a0 + k), B0 = ld4(b0 + k);
+    float4 A1, B1, N;
+    if (!QUARTER) {
+      A1 = ld4(a0 + 16 * ld + k);
+      B1 = ld4(b0 + 16 * ld + k);
+    }
+    if (NORM) N = ld4(nr + k);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const float av = lane_of(A0, kk), bv = lane_of(B0, kk);
+      acc[0] = fmaf(av, bv, acc[0]);
+      if (!QUARTER) {
+        acc[1] = fmaf(av, lane_of(B1, kk), acc[1]);
+        acc[2] = fmaf(lane_of(A1, kk), bv, acc[2]);
+        acc[3] = fmaf(lane_of(A1, kk), lane_of(B1, kk), acc[3]);
+      }
+      if (NORM) nrm = fmaf(lane_of(N, kk), lane_of(N, kk), nrm);
+    }
+  }
+}
+
+__device__ __forceinline__ void side_dots(const Side& s, int rank, int seg,
+                                          bool diag, bool quarter,
+                                          float acc[4], float& nrm) {
+  const int w4 = (seg_width(s, rank, seg) + 3) / 4 * 4;
+  const float* b = diag ? s.row : s.col;
+  const int t = threadIdx.x;
+  if (t < 2 * TILE) {                    // warps 0 and 1: + the norms
+    const float* nr = t < TILE ? s.row + t * s.ld : b + (t - TILE) * s.ld;
+    if (quarter) slab_dots<true, true>(s.row, b, s.ld, w4, acc, nrm, nr);
+    else slab_dots<false, true>(s.row, b, s.ld, w4, acc, nrm, nr);
+  } else {
+    if (quarter) slab_dots<true, false>(s.row, b, s.ld, w4, acc, nrm, b);
+    else slab_dots<false, false>(s.row, b, s.ld, w4, acc, nrm, b);
+  }
+}
+
+// This rank's partial dot products (4 entries a thread) and norms (threads
+// < 2 TILE: row tile row t, then column tile row t - TILE) of the x and z
+// Gram tiles (it, jt) over its slices of Dx and Dz.  The z slabs load
+// while the last x segment is multiplied.
+__device__ __forceinline__ void gram_pass(Side& X, Side& Z, int B, int rank,
+                                          int it, int jt, float ax[4],
+                                          float az[4], float& nx, float& nz) {
+  const bool diag = it == jt;
+  const bool quarter = B - it * TILE <= 16 && B - jt * TILE <= 16;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) ax[q] = az[q] = 0.f;
+  nx = nz = 0.f;
+  issue_side(X, B, rank, it, jt, 0);
+  cp_async_commit();
+  for (int s = 0; s < X.nseg; ++s) {
+    if (s + 1 == X.nseg) {
+      issue_side(Z, B, rank, it, jt, 0);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    side_dots(X, rank, s, diag, quarter, ax, nx);
+    if (s + 1 < X.nseg) {
+      __syncthreads();
+      issue_side(X, B, rank, it, jt, s + 1);
+      cp_async_commit();
+    }
+  }
+  for (int s = 0; s < Z.nseg; ++s) {
+    cp_async_wait<0>();
+    __syncthreads();
+    side_dots(Z, rank, s, diag, quarter, az, nz);
+    if (s + 1 < Z.nseg) {
+      __syncthreads();
+      issue_side(Z, B, rank, it, jt, s + 1);
+      cp_async_commit();
+    }
+  }
+}
+
+// Row-major index of entry q of this thread (see slab_dots).
+__device__ __forceinline__ int entry_of(int q) {
+  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
+  return (tr + 16 * (q >> 1)) * TILE + tc + 16 * (q & 1);
+}
+
+// Writes this rank's partials to its exchange buffer.
+__device__ __forceinline__ void publish(float* xch, const float ax[4],
+                                        const float az[4], float nx,
+                                        float nz) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    xch[entry_of(q)] = ax[q];
+    xch[TILE * TILE + entry_of(q)] = az[q];
+  }
+  const int t = threadIdx.x;
+  if (t < 2 * TILE) {
+    xch[NORMS + t] = nx;
+    xch[NORMS + 2 * TILE + t] = nz;
+  }
+}
+
+__device__ __forceinline__ float kernel_value(float dot, float nr, float nc,
+                                              bool linear, float ninv) {
+  return linear ? dot : expf(fmaxf(nr + nc - 2.f * dot, 0.f) * ninv);
+}
+
+// K3's W . x_j on one side: acc[q][e] += sum_c Wt[c][rb RPT + q]
+// xs[c][4 cg + e] over the ncols valid columns c of the column tile; xs is
+// the slab of the column tile's rows.
+template <int RPT>
+__device__ __forceinline__ void apply_w(const float* Wt, const float* xs,
+                                        int ld, int ncols, int cg, int rb,
+                                        float (&acc)[8][4]) {
+  for (int c = 0; c < ncols; ++c) {
+    const float4 xv = ld4(xs + c * ld + 4 * cg);
+    const float* wr = Wt + c * WLD + rb * RPT;
+    float wv[RPT];
+    if constexpr (RPT >= 4) {
+#pragma unroll
+      for (int h = 0; h < RPT / 4; ++h) {
+        const float4 w4 = ld4(wr + 4 * h);
+        wv[4 * h] = w4.x;
+        wv[4 * h + 1] = w4.y;
+        wv[4 * h + 2] = w4.z;
+        wv[4 * h + 3] = w4.w;
+      }
+    } else if constexpr (RPT == 2) {
+      const float2 w2 = *reinterpret_cast<const float2*>(wr);
+      wv[0] = w2.x;
+      wv[1] = w2.y;
+    } else {
+      wv[0] = wr[0];
+    }
+#pragma unroll
+    for (int q = 0; q < RPT; ++q) {
+      acc[q][0] = fmaf(wv[q], xv.x, acc[q][0]);
+      acc[q][1] = fmaf(wv[q], xv.y, acc[q][1]);
+      acc[q][2] = fmaf(wv[q], xv.z, acc[q][2]);
+      acc[q][3] = fmaf(wv[q], xv.w, acc[q][3]);
+    }
+  }
+}
+
+// K3's output rows of one side: g[i0 + r][c0 + 4 cg + e] = scale acc[q][e]
+// (+ 4 rowsum(W)_r xr[r][4 cg + e] for RBF), r = rb RPT + q, written once.
+template <int RPT>
+__device__ __forceinline__ void write_rows(float* __restrict__ g,
+                                           const float* xr, int ld,
+                                           const float* ws, float scale,
+                                           bool rbf, int B, int D, int i0,
+                                           int c0, int w, int cg, int rb,
+                                           bool vec,
+                                           const float (&acc)[8][4]) {
+  const int k = 4 * cg;
+#pragma unroll
+  for (int q = 0; q < RPT; ++q) {
+    const int r = rb * RPT + q;
+    if (i0 + r >= B) break;
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      v[e] = scale * acc[q][e];
+      if (rbf) v[e] = fmaf(4.f * ws[r], xr[r * ld + k + e], v[e]);
+    }
+    float* dst = g + (size_t)(i0 + r) * D + c0 + k;
+    if (vec) {
+      *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (k + e < w) dst[e] = v[e];
+    }
+  }
+}
+
+// Which columns and rows of a side's segment this thread computes in K3's
+// W . x: the segment's w columns as g groups of 4, gp the next power of 2;
+// thread t takes group t % gp and rows [rb rpt, rb rpt + rpt), rb = t / gp,
+// so that all 256 threads have work once the segment is 32 columns wide.
+struct Item {
+  int w, cg, rb, rpt;
+  bool on;
+};
+
+__device__ __forceinline__ Item item_of(const Side& s, int rank, int seg,
+                                        int B, int i0) {
+  Item m;
+  m.w = seg < s.nseg ? seg_width(s, rank, seg) : 0;
+  const int g = (m.w + 3) / 4;
+  int gp = 1;
+  while (gp < g) gp <<= 1;               // g <= SEG / 4 = 64
+  m.rpt = gp > 8 ? gp / 8 : 1;
+  m.cg = threadIdx.x % gp;
+  m.rb = threadIdx.x / gp;
+  m.on = m.cg < g && m.rb * m.rpt < min(TILE, B - i0);
+  return m;
+}
+
+__device__ __forceinline__ void apply_item(const Item& m, const float* Wt,
+                                           const float* xs, int ld,
+                                           int ncols, float (&acc)[8][4]) {
+  if (!m.on) return;
+  switch (m.rpt) {
+    case 8: apply_w<8>(Wt, xs, ld, ncols, m.cg, m.rb, acc); break;
+    case 4: apply_w<4>(Wt, xs, ld, ncols, m.cg, m.rb, acc); break;
+    case 2: apply_w<2>(Wt, xs, ld, ncols, m.cg, m.rb, acc); break;
+    default: apply_w<1>(Wt, xs, ld, ncols, m.cg, m.rb, acc);
+  }
+}
+
+__device__ __forceinline__ void write_item(const Item& m, float* g,
+                                           const Side& s, const float* xr,
+                                           const float* ws, int B, int i0,
+                                           int c0, bool vec,
+                                           const float (&acc)[8][4]) {
+  if (!m.on) return;
+  const float scale = s.linear ? 2.f : -4.f;
+#define NHSIC_WRITE(R)                                                    \
+  write_rows<R>(g, xr, s.ld, ws, scale, !s.linear, B, s.D, i0, c0, m.w,   \
+                m.cg, m.rb, vec, acc)
+  switch (m.rpt) {
+    case 8: NHSIC_WRITE(8); break;
+    case 4: NHSIC_WRITE(4); break;
+    case 2: NHSIC_WRITE(2); break;
+    default: NHSIC_WRITE(1);
+  }
+#undef NHSIC_WRITE
+}
+
+// Floats of dynamic shared memory of each kernel: the slabs (two per side
+// where the call has more than one tile), then the kernel's buffers.
+__host__ __device__ constexpr int slab_floats(int D, int C, bool two) {
+  return (two ? 2 : 1) * TILE * ld_of(slice_of(D, C));
+}
+constexpr int GRAD_BUFS = 2 * TILE * WLD + XCH + 4 * TILE + 2 * TILE;
+constexpr int STATS_BUFS = XCH + 4 * MAX_CLUSTER + THREADS / 32;
+
+// K2.  Grid (C, column tiles, row tiles), clusters of C = gridDim.x blocks
+// along x, one per tile pair; block x is the cluster's rank.  s = [s2x,
+// s2z, mean Kx, mean Kz]; rx, rz are the Gram row means.  The ranks'
+// partial dots are added through DSMEM in rank order, each rank taking
+// 1024 / C of the tile's entries; their (sum Kxc Kzc, sum Kxc^2,
+// sum Kzc^2) are added in rank order by rank 0, which writes `out` where
+// the call has one tile and partial[3 * (row tile * tiles + column tile)]
+// otherwise.
+__global__ void __launch_bounds__(THREADS)
+nhsic_stats_kernel(const float* __restrict__ x, const float* __restrict__ z,
+                   const float* __restrict__ rx, const float* __restrict__ rz,
+                   const float* __restrict__ s, float* __restrict__ partial,
+                   float* __restrict__ out, int B, int Dx, int Dz, int lx,
+                   int lz, int vx, int vz) {
+  extern __shared__ float4 nhsic_smem4[];
+  float* smem = reinterpret_cast<float*>(nhsic_smem4);
+  const int C = gridDim.x, rank = blockIdx.x;
+  const int jt = blockIdx.y, it = blockIdx.z, nt = gridDim.y;
+  const int i0 = it * TILE, j0 = jt * TILE, t = threadIdx.x;
+  Side X = make_side(x, Dx, C, lx, vx), Z = make_side(z, Dz, C, lz, vz);
+  float* p = smem;
+  X.row = p;
+  p += TILE * X.ld;
+  if (nt > 1) {
+    X.col = p;
+    p += TILE * X.ld;
+  }
+  Z.row = p;
+  p += TILE * Z.ld;
+  if (nt > 1) {
+    Z.col = p;
+    p += TILE * Z.ld;
+  }
+  float* xch = p;
+  float* P = xch + XCH;                  // [rank][3], filled in rank 0
+  float* red = P + 4 * MAX_CLUSTER;
+
+  float ax[4], az[4], nx, nz;
+  gram_pass(X, Z, B, rank, it, jt, ax, az, nx, nz);
+  publish(xch, ax, az, nx, nz);
+  cluster_arrive();
+  cluster_wait();
+
+  const float nix = -0.5f / s[0], niz = -0.5f / s[1];
+  const float mx = s[2], mz = s[3];
+  const int per = TILE * TILE / C;
+  float p0 = 0.f, p1 = 0.f, p2 = 0.f;
+  for (int e = rank * per + t; e < (rank + 1) * per; e += THREADS) {
+    const int r = e / TILE, c = e % TILE, i = i0 + r, j = j0 + c;
+    if (i >= B || j >= B) continue;
+    float dxv = 0.f, dzv = 0.f, nxr = 0.f, nxc = 0.f, nzr = 0.f, nzc = 0.f;
+#pragma unroll 4
+    for (int q = 0; q < C; ++q) {        // rank order: the same bits in
+      const float* o = peer(xch, q);     // every rank and on every run
+      dxv += o[e];
+      dzv += o[TILE * TILE + e];
+      nxr += o[NORMS + r];
+      nxc += o[NORMS + TILE + c];
+      nzr += o[NORMS + 2 * TILE + r];
+      nzc += o[NORMS + 3 * TILE + c];
+    }
+    const float kxc = kernel_value(dxv, nxr, nxc, lx, nix) - rx[i] - rx[j]
+                      + mx;
+    const float kzc = kernel_value(dzv, nzr, nzc, lz, niz) - rz[i] - rz[j]
+                      + mz;
+    p0 = fmaf(kxc, kzc, p0);
+    p1 = fmaf(kxc, kxc, p1);
+    p2 = fmaf(kzc, kzc, p2);
+  }
+  p0 = block_sum(p0, red);
+  p1 = block_sum(p1, red);
+  p2 = block_sum(p2, red);
+  if (t == 0) {
+    float* P0 = peer(P, 0);
+    P0[3 * rank + 0] = p0;
+    P0[3 * rank + 1] = p1;
+    P0[3 * rank + 2] = p2;
+  }
+  cluster_arrive();                      // every rank's reads and P done
+  cluster_wait();
+  if (rank == 0 && t < 3) {
+    float v = 0.f;
+    for (int q = 0; q < C; ++q) v += P[3 * q + t];
+    (nt == 1 ? out : partial + 3 * (it * nt + jt))[t] = v;
+  }
+}
+
+// K3.  Grid (C, row tiles), clusters of C = gridDim.x blocks along x, one
+// per row tile; block x is the cluster's rank.  scal = [s2x, s2z, mean Kx,
+// mean Kz, cA, cBx, cBz].  With Kc the centred Grams, G_x = cA Kzc - cBx
+// Kxc and G_z = cA Kxc - cBz Kzc.  RBF: W = G o K (-1 / 2 s2), dx_i =
+// 4 (rowsum(W)_i x_i - (W x)_i); linear: dx = 2 G x.  For each column
+// tile every rank adds the ranks' partial dots in rank order (all ranks
+// hold the same tile), forms W, and adds W . x_j on its own columns from
+// its slabs; the rows of dx and dz it owns are written once at the end.
+__global__ void __launch_bounds__(THREADS)
+nhsic_grad_kernel(const float* __restrict__ x, const float* __restrict__ z,
+                  const float* __restrict__ rx, const float* __restrict__ rz,
+                  const float* __restrict__ scal, float* __restrict__ dx,
+                  float* __restrict__ dz, int B, int Dx, int Dz, int lx,
+                  int lz, int vx, int vz) {
+  extern __shared__ float4 nhsic_smem4[];
+  float* smem = reinterpret_cast<float*>(nhsic_smem4);
+  const int C = gridDim.x, rank = blockIdx.x;
+  const int it = blockIdx.y, nt = gridDim.y, i0 = it * TILE;
+  const int t = threadIdx.x, tr = t / 16, tc = t % 16;
+  Side X = make_side(x, Dx, C, lx, vx), Z = make_side(z, Dz, C, lz, vz);
+  float* p = smem;
+  X.row = p;
+  p += TILE * X.ld;
+  if (nt > 1) {
+    X.col = p;
+    p += TILE * X.ld;
+  }
+  Z.row = p;
+  p += TILE * Z.ld;
+  if (nt > 1) {
+    Z.col = p;
+    p += TILE * Z.ld;
+  }
+  float* Wtx = p;                        // W transposed: Wt[c][r]
+  float* Wtz = Wtx + TILE * WLD;
+  float* xch = Wtz + TILE * WLD;
+  float* nrm = xch + XCH;                // the cluster's norms, as in XCH
+  float* wsx = nrm + 4 * TILE;           // rowsum(W) of the row tile
+  float* wsz = wsx + TILE;
+
+  const float nix = -0.5f / scal[0], niz = -0.5f / scal[1];
+  const float mx = scal[2], mz = scal[3];
+  const float ca = scal[4], cbx = scal[5], cbz = scal[6];
+  const int nseg = max(X.nseg, Z.nseg);  // 1 unless D > C SEG
+  bool first = true;
+  for (int sg = 0; sg < nseg; ++sg) {
+    const Item mx_ = item_of(X, rank, sg, B, i0);
+    const Item mz_ = item_of(Z, rank, sg, B, i0);
+    float accx[8][4], accz[8][4];
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) accx[q][e] = accz[q][e] = 0.f;
+    if (t < TILE) wsx[t] = wsz[t] = 0.f;
+    for (int jt = 0; jt < nt; ++jt) {
+      const int j0 = jt * TILE;
+      float ax[4], az[4], nx, nz;
+      gram_pass(X, Z, B, rank, it, jt, ax, az, nx, nz);
+      if (!first) cluster_wait();        // no rank reads xch any more
+      first = false;
+      publish(xch, ax, az, nx, nz);
+      cluster_arrive();
+      cluster_wait();
+      // the full tile: the ranks' partials added in rank order
+      bool valid[4];
+      float dxs[4], dzs[4], ns = 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int e = entry_of(q);
+        valid[q] = i0 + e / TILE < B && j0 + e % TILE < B;
+        dxs[q] = dzs[q] = 0.f;
+      }
+#pragma unroll 4
+      for (int r = 0; r < C; ++r) {
+        const float* o = peer(xch, r);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (valid[q]) {
+            dxs[q] += o[entry_of(q)];
+            dzs[q] += o[TILE * TILE + entry_of(q)];
+          }
+        if (t < 4 * TILE) ns += o[NORMS + t];
+      }
+      cluster_arrive();                  // this rank's reads are done
+      if (t < 4 * TILE) nrm[t] = ns;
+      __syncthreads();
+      // W, its row sums, and Wt for the product
+      float wx[4], wz[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int e = entry_of(q), r = e / TILE, c = e % TILE;
+        wx[q] = wz[q] = 0.f;
+        if (valid[q]) {
+          const int i = i0 + r, j = j0 + c;
+          const float kx = kernel_value(dxs[q], nrm[r], nrm[TILE + c], lx,
+                                        nix);
+          const float kz = kernel_value(dzs[q], nrm[2 * TILE + r],
+                                        nrm[3 * TILE + c], lz, niz);
+          const float kxc = kx - rx[i] - rx[j] + mx;
+          const float kzc = kz - rz[i] - rz[j] + mz;
+          const float gx = ca * kzc - cbx * kxc;
+          const float gz = ca * kxc - cbz * kzc;
+          wx[q] = lx ? gx : gx * kx * nix;
+          wz[q] = lz ? gz : gz * kz * niz;
+        }
+        Wtx[c * WLD + r] = wx[q];
+        Wtz[c * WLD + r] = wz[q];
+      }
+      // rows tr and tr + 16, over the 16 lanes that share them
+      float sx0 = wx[0] + wx[1], sx1 = wx[2] + wx[3];
+      float sz0 = wz[0] + wz[1], sz1 = wz[2] + wz[3];
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) {
+        sx0 += __shfl_xor_sync(0xffffffffu, sx0, off);
+        sx1 += __shfl_xor_sync(0xffffffffu, sx1, off);
+        sz0 += __shfl_xor_sync(0xffffffffu, sz0, off);
+        sz1 += __shfl_xor_sync(0xffffffffu, sz1, off);
+      }
+      if (tc == 0) {
+        wsx[tr] += sx0;
+        wsx[tr + 16] += sx1;
+        wsz[tr] += sz0;
+        wsz[tr + 16] += sz1;
+      }
+      __syncthreads();
+      const int ncols = min(TILE, B - j0);
+      if (sg < X.nseg)
+        apply_item(mx_, Wtx, slab_with(X, B, rank, it, jt, sg), X.ld, ncols,
+                   accx);
+      if (sg < Z.nseg)
+        apply_item(mz_, Wtz, slab_with(Z, B, rank, it, jt, sg), Z.ld, ncols,
+                   accz);
+      __syncthreads();                   // slabs and Wt free for the next
+    }
+    if (sg < X.nseg)
+      write_item(mx_, dx, X, slab_with(X, B, rank, it, it, sg), wsx, B, i0,
+                 seg_col0(X, rank, sg), X.vec, accx);
+    if (sg < Z.nseg)
+      write_item(mz_, dz, Z, slab_with(Z, B, rank, it, it, sg), wsz, B, i0,
+                 seg_col0(Z, rank, sg), Z.vec, accz);
+    __syncthreads();
+  }
+  cluster_wait();                        // no rank reads this block's xch
+}
+
+// Cluster size of a K2 or K3 call: about 64 columns of the wider side a
+// rank, 4 to 16 ranks.  Timed against fixed sizes 1 to 16 at the training
+// paths' shapes by benchmarks/nhsic_cluster.py (see PERF.md): more
+// ranks cost cluster-barrier and DSMEM time, fewer leave each rank more
+// columns to load and multiply in turn.
+int cluster_size(int Dx, int Dz) {
+  const int cols = (Dx > Dz ? Dx : Dz) / 64;
+  int c = 4;
+  while (c < cols && c < MAX_CLUSTER) c *= 2;
+  return c;
+}
+
+// Sets a cluster kernel's attributes once: the dynamic shared memory it
+// may take and clusters of 16 (above the portable 8).
+template <typename Kernel>
+int allow_clusters(Kernel kernel, bool& done, int smem_max) {
+  if (done) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_max);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  done = true;
+  return 0;
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<size_t>(p) % 16 == 0;
+}
+
+cudaLaunchConfig_t cluster_config(dim3 grid, int smem_bytes,
+                                  cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = grid.x;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// the most shared memory either kernel takes: two slabs of SEG columns a
+// side
+constexpr int SLABS_MAX = 4 * TILE * ld_of(SEG);
 
 int tiles(int B) { return (B + TILE - 1) / TILE; }
 
@@ -585,17 +1175,31 @@ extern "C" int nhsic_rowsums(const void* x, const void* z, const void* s2,
   return (int)cudaGetLastError();
 }
 
-// `partial` is scratch of 3 * tiles(B)^2 floats; `out` receives 3 floats.
+// `partial` is scratch of 3 * tiles(B)^2 floats (written where tiles(B) >
+// 1, then added by a second launch); `out` receives 3 floats.
 extern "C" int nhsic_stats_feats(const void* x, const void* z, const void* rx,
                                  const void* rz, const void* s, void* partial,
                                  void* out, int B, int Dx, int Dz, int lx,
                                  int lz, void* stream) {
-  const int nb = tiles(B);
-  stats_kernel<<<dim3(nb, nb), THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)z, (const float*)rx, (const float*)rz,
-      (const float*)s, (float*)partial, B, Dx, Dz, lx, lz);
-  const int err = (int)cudaGetLastError();
+  static bool ready = false;
+  int err = allow_clusters(nhsic_stats_kernel, ready,
+                           (int)sizeof(float) * (SLABS_MAX + STATS_BUFS));
   if (err != 0) return err;
+  const int nb = tiles(B), C = cluster_size(Dx, Dz);
+  const int smem = (int)sizeof(float) * (slab_floats(Dx, C, nb > 1)
+                                         + slab_floats(Dz, C, nb > 1)
+                                         + STATS_BUFS);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      dim3(C, nb, nb), smem, (cudaStream_t)stream, &attr);
+  err = (int)cudaLaunchKernelEx(
+      &cfg, nhsic_stats_kernel, (const float*)x, (const float*)z,
+      (const float*)rx, (const float*)rz, (const float*)s, (float*)partial,
+      (float*)out, B, Dx, Dz, lx, lz, (int)(Dx % 4 == 0 && aligned16(x)),
+      (int)(Dz % 4 == 0 && aligned16(z)));
+  const int last = (int)cudaGetLastError();   // also clears a launch error
+  if (err == 0) err = last;
+  if (err != 0 || nb == 1) return err;
   sum_partials_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)partial, nb * nb, (float*)out);
   return (int)cudaGetLastError();
@@ -604,10 +1208,25 @@ extern "C" int nhsic_stats_feats(const void* x, const void* z, const void* rx,
 extern "C" int nhsic_grad(const void* x, const void* z, const void* rx,
                           const void* rz, const void* scal, void* dx, void* dz,
                           int B, int Dx, int Dz, int lx, int lz, void* stream) {
-  grad_kernel<<<tiles(B), THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)z, (const float*)rx, (const float*)rz,
-      (const float*)scal, (float*)dx, (float*)dz, B, Dx, Dz, lx, lz);
-  return (int)cudaGetLastError();
+  static bool ready = false;
+  int err = allow_clusters(nhsic_grad_kernel, ready,
+                           (int)sizeof(float) * (SLABS_MAX + GRAD_BUFS));
+  if (err != 0) return err;
+  const int nb = tiles(B), C = cluster_size(Dx, Dz);
+  const int smem = (int)sizeof(float) * (slab_floats(Dx, C, nb > 1)
+                                         + slab_floats(Dz, C, nb > 1)
+                                         + GRAD_BUFS);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      dim3(C, nb), smem, (cudaStream_t)stream, &attr);
+  err = (int)cudaLaunchKernelEx(
+      &cfg, nhsic_grad_kernel, (const float*)x, (const float*)z,
+      (const float*)rx, (const float*)rz, (const float*)scal, (float*)dx,
+      (float*)dz, B, Dx, Dz, lx, lz,
+      (int)(Dx % 4 == 0 && aligned16(x) && aligned16(dx)),
+      (int)(Dz % 4 == 0 && aligned16(z) && aligned16(dz)));
+  const int last = (int)cudaGetLastError();
+  return err != 0 ? err : last;
 }
 
 extern "C" int gram(const void* x, const void* s2, void* out, int B, int D,

@@ -118,9 +118,10 @@ def nhsic_stats_feats(x, z, rx, rz, s, *, linear_x: bool = False,
     check_kernel_inputs("nhsic_stats_feats", x.device, x=x, z=z, rx=rx,
                         rz=rz, s=s)
     tiles = -(-B // TILE)
-    partial = torch.empty(3 * tiles * tiles, device=x.device,
-                          dtype=torch.float32)
     out = torch.empty(3, device=x.device, dtype=torch.float32)
+    # one tile: the kernel writes `out` itself and never touches `partial`
+    partial = out if tiles == 1 else torch.empty(
+        3 * tiles * tiles, device=x.device, dtype=torch.float32)
     _launch("nhsic_stats_feats", x.data_ptr(), z.data_ptr(), rx.data_ptr(),
             rz.data_ptr(), s.data_ptr(), partial.data_ptr(), out.data_ptr(),
             B, Dx, Dz, int(linear_x), int(linear_z), _stream(x.device))

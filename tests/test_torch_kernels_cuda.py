@@ -37,7 +37,21 @@ CASES = [(32, 3, 64, False, False), (32, 64, 128, False, False),
          (32, 10, 64, True, False), (16, 2048, 2048, False, False),
          (16, 256, 64, True, False), (48, 1, 512, False, False),
          (256, 512, 1, True, False), (48, 7, 33, True, False),
-         (32, 5, 8, False, True)]
+         (32, 5, 8, False, True),
+         # the edges of K2's and K3's clusters (4 to 16 ranks, about 64
+         # columns of the wider side a rank, each owning a slice of D in
+         # multiples of 4, at most 256 columns at once): D = 1 and D < C
+         # (trailing ranks own nothing), D off a multiple of 4 or of the
+         # slice, D = 4096, D above 16 x 256 (the slices taken in
+         # segments); B = 1, 16, 33, 48, 256.  B = 1 with
+         # an RBF z of one column: a single row's mean-distance bandwidth
+         # clamps to 1e-8, and over more columns the plain version's own
+         # rounding then turns the diagonal of 1 into 0 (identical rows
+         # below take B = 1 with seven)
+         (1, 5, 1, True, False), (16, 4096, 100, False, False),
+         (33, 10, 4096, True, False), (48, 100, 33, True, False),
+         (256, 1, 4096, False, False), (33, 4100, 3, False, False),
+         (48, 8192, 64, False, False), (16, 3, 5, False, False)]
 
 
 @pytest.fixture
@@ -108,6 +122,59 @@ def test_statistics_are_the_same_from_run_to_run(cuda):
     x, z = _inputs((256, 64, 128, False, False), cuda)
     runs = [ops.nhsic(x, z) for _ in range(3)]
     assert all(torch.equal(r, runs[0]) for r in runs)
+
+
+def _kernel_args(x, z, lx=False):
+    """K2's and K3's inputs as the nHSIC forward and backward build them,
+    the row sums from K1."""
+    B = x.shape[0]
+    one = torch.ones((), device=x.device)
+    s2 = torch.stack([one if lx else hsic.rbf_sigma2(x), hsic.rbf_sigma2(z)])
+    rxs, rzs = kernel.nhsic_rowsums(x, z, s2, linear_x=lx)
+    s = torch.cat([s2, torch.stack([rxs.sum(), rzs.sum()]) / (B * B)])
+    scal = torch.cat([s, torch.tensor([0.7, 0.3, -0.2], device=x.device)])
+    return rxs / B, rzs / B, s, scal
+
+
+REPEAT_CASES = [(256, 64, 128, False, False), (32, 256, 512, False, False),
+                (16, 2048, 2048, False, False), (48, 8192, 64, False, False)]
+
+
+@pytest.mark.parametrize("case", REPEAT_CASES,
+                         ids=[str(c) for c in REPEAT_CASES])
+def test_stats_and_grad_kernels_repeat_their_bits(cuda, case):
+    x, z = _inputs(case, cuda)
+    rx, rz, s, scal = _kernel_args(x, z)
+    stats = [kernel.nhsic_stats_feats(x, z, rx, rz, s) for _ in range(3)]
+    grads = [kernel.nhsic_grad(x, z, rx, rz, scal) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, stats[0]) for a in stats)
+    assert all(torch.equal(a, b) for g in grads for a, b in zip(g, grads[0]))
+
+
+IDENTICAL_CASES = [(32, 5, 8, False, True), (16, 2048, 2048, False, True),
+                   (33, 4100, 3, False, True), (256, 64, 1, False, True),
+                   (1, 1, 7, False, True)]
+
+
+@pytest.mark.parametrize("case", IDENTICAL_CASES,
+                         ids=[str(c) for c in IDENTICAL_CASES])
+def test_identical_rows_give_exact_zeros(cuda, case):
+    """Identical rows, RBF on both sides: K1's row sums are exactly B, so
+    every centred Gram entry is exactly 0, and so must be K2's statistics,
+    K3's gradients and the op's value and gradients."""
+    x, z = _inputs(case, cuda)
+    rx, rz, s, scal = _kernel_args(x, z)
+    assert torch.equal(rx, torch.ones_like(rx))
+    assert (kernel.nhsic_stats_feats(x, z, rx, rz, s) == 0).all()
+    gx, gz = kernel.nhsic_grad(x, z, rx, rz, scal)
+    assert (gx == 0).all() and (gz == 0).all()
+    xa, za = x.clone().requires_grad_(), z.clone().requires_grad_()
+    v = ops.nhsic(xa, za)
+    v.backward()
+    assert float(v.detach()) == 0.0
+    for g in (xa.grad, za.grad):
+        assert torch.isfinite(g).all() and (g == 0).all()
 
 
 def test_wrappers_raise_on_bad_inputs(cuda):

@@ -85,6 +85,21 @@ def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
                                "nhsic_grad": 0, "gram": 0, "gram_stats": 0}
 
 
+def test_a_refused_kernel_launch_raises_and_counts_nothing(monkeypatch):
+    """An entry point that returns a CUDA error (a cluster the card cannot
+    place, say) makes the wrapper raise; nothing takes the plain version
+    or another kernel instead, and the launch is not counted."""
+    from repro_torch.kernels.hsic_gram import kernel
+    kernel.reset_launches()
+    monkeypatch.setattr(kernel, "_lib", object())
+    for name in ("nhsic_stats_feats", "nhsic_grad"):
+        monkeypatch.setitem(kernel._fns, name, lambda *args: 1)
+        with pytest.raises(RuntimeError, match=f"{name}: .*CUDA error 1"):
+            kernel._launch(name, 0)
+    assert kernel.LAUNCHES["nhsic_stats_feats"] == 0
+    assert kernel.LAUNCHES["nhsic_grad"] == 0
+
+
 def test_flash_wrapper_on_cpu_takes_the_plain_version_and_counts_nothing():
     from repro_torch.kernels.flash_attention import kernel, ops, ref
     kernel.reset_launches()
