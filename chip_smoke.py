@@ -10,14 +10,15 @@
 2. Kernel phase: each kernel's wrapper against its plain PyTorch version on
    the card, with TF32 off.  K1-K3 (forward, and the autograd backward of
    nHSIC) at the main paths' shapes, at batches/widths off the 32-row
-   tile and at the edges of K2's and K3's thread-block clusters (D below
-   the cluster size, off a multiple of 4, 4096 and above; B from 1 to
-   256), identical rows (K2 and K3's gradients then exactly 0), and K2's
-   and K3's bits over three runs; K4 at the ViT-12 shape, the reference's
-   audit shapes (bf16, ragged S=200, windowed), GQA, causal with Sq !=
-   Skv, causal+window with empty rows (exactly 0), its tiling (head dims
-   1, 3, 20, 100; Sq=5 and 9; Skv=1000 with a window of 300), the same
-   bits over three runs, and its autograd gradient; K5 (``hs`` and the four
+   tile and at the edges of K1's, K2's and K3's thread-block clusters (D
+   below the cluster size, off a multiple of 4, 4096 and above; B from 1
+   to 256), identical rows (K1's row sums then exactly B, K2 and K3's
+   gradients exactly 0), and K1's, K2's and K3's bits over three runs;
+   K4 at the ViT-12 shape, the reference's audit shapes (bf16, ragged
+   S=200, windowed), GQA, causal with Sq != Skv, causal+window with empty
+   rows (exactly 0), its tiling (head dims 1, 3, 20, 100; Sq=5 and 9;
+   Skv=1000 with a window of 300), the same bits over three runs, and its
+   autograd gradient; K5 (``hs`` and the four
    final states) at the xlstm-1.3b shape, the reference's audit shapes,
    S=1, ragged S=200, head dims 1, 3 and 48, random initial states and
    gates up to |g| = 100, and its autograd gradient.  Bar: scale-relative
@@ -25,18 +26,20 @@
    (centred statistics of two dense Grams) at the reference's audit shape
    (B=256, D=256), its gram test's draws, the main paths' widths, ragged B
    (1, 33, 200), D=1, K6's tiling (B in {1, 31, 33, 257} x D in {1, 7,
-   257, 2048}), non-symmetric Gram pairs and a batch of identical rows;
-   every K6 Gram exactly symmetric, identical rows exactly 1, the same bits
-   over three runs; ``nhsic_unfused`` (K6 twice, then K7, counted per call) against
-   the fused op and plain nHSIC at abs 1e-4.  Times each kernel, its plain
+   257, 2048}), non-symmetric Gram pairs, near-constant Grams (1 +- 1e-3),
+   K7 past one cluster's bands (B = 512, 513, 1000) and a batch of
+   identical rows; every K6 Gram exactly symmetric, identical rows exactly
+   1, the same bits over three runs, one device op per K7 call;
+   ``nhsic_unfused`` (K6 twice, then K7, counted per call) against the
+   fused op and plain nHSIC at abs 1e-4.  Times each kernel, its plain
    version and, for K4, ``F.scaled_dot_product_attention`` and, for the
    linear K6, ``x @ x.T`` as yardsticks (CUDA events, median of 30
    calls); for K4 (at the ViT-12 shape and the kernel benchmark's two
    attention shapes), K6 and K7 also the profiler's device time of the
-   kernel and of the yardstick, and the host share of each call (event
-   time less device time).  Bounds count matrix products at the tensor
-   cores' rate (3xTF32 for f32, bf16 for bf16) and all other arithmetic at
-   the float32 rate.
+   kernel (for K7, of every device op of its wrapper) and of the
+   yardstick, and the host share of each call (event time less device
+   time).  Bounds count matrix products at the tensor cores' rate (3xTF32
+   for f32, bf16 for bf16) and all other arithmetic at the float32 rate.
 3. Main path 1: the port's ``NeuLiteServer`` (sequential runtime, nHSIC
    through the kernels) on the paper's ResNet18 at full width, 32x32x3,
    10 classes, batch 32, 4 stages: four rounds, one per stage, over a
@@ -107,7 +110,7 @@ MAIN_PATH_SHAPES = [(32, 3, 64, False), (32, 64, 128, False),
 # off the tile: B in {48, 256}, D in {1, 512}; then identical rows
 EXTRA_SHAPES = [(48, 1, 512, False), (48, 512, 1, True), (256, 1, 512, False),
                 (256, 512, 1, True), (256, 512, 512, False)]
-# the edges of K2's and K3's clusters (4 to 16 ranks, about 64 columns of
+# the edges of K1's, K2's and K3's clusters (4 to 16 ranks, about 64 columns of
 # the wider side a rank, each owning a slice of D in multiples of 4, at most
 # 256 columns at once): D = 1 and D < C (trailing ranks own nothing), D off
 # a multiple of 4 or of the slice, D = 4096 (16 slices of 256), D above
@@ -121,9 +124,10 @@ CLUSTER_EDGE_SHAPES = [(1, 5, 1, True), (16, 4096, 100, False),
                        (256, 1, 4096, False), (33, 4100, 3, False),
                        (48, 8192, 64, False)]
 DEGENERATE_SHAPES = [(32, 5, 8, False), (48, 10, 64, True)]
-# identical rows, both sides RBF: K2 must give exactly 0 and K3 exactly 0
-# gradients (not held against the plain versions, whose rounding makes a
-# diagonal distance of identical rows other than 0)
+# identical rows, both sides RBF: K1 must give row sums of exactly B, K2
+# exactly 0 and K3 exactly 0 gradients (not held against the plain
+# versions, whose rounding makes a diagonal distance of identical rows
+# other than 0)
 IDENTICAL_SHAPES = [(32, 5, 8), (16, 2048, 2048), (33, 4100, 3),
                     (256, 64, 1), (1, 1, 7)]
 TIMED_SHAPE = (32, 256, 512, False)   # the ResNet path's largest call
@@ -136,9 +140,11 @@ GRAM_CASES = list(dict.fromkeys(
     [(256, 256), (8, 4), (16, 16), (32, 64), (48, 200), (1, 5), (33, 7),
      (200, 64), (64, 1)]
     + [(B, D) for B, Dx, Dz, _ in MAIN_PATH_SHAPES for D in (Dx, Dz)]))
-# K7: batches of the Gram pairs (the x and z Grams of each, and the
-# non-symmetric cross-Grams of two different sets of rows)
-GRAM_STATS_BATCHES = [256, 32, 16, 48, 1, 33, 200]
+# K7: batches of the Gram pairs (the x and z Grams of each, the
+# non-symmetric cross-Grams of two different sets of rows, and two
+# near-constant Grams); 512 is the last B whose bands K7 keeps in shared
+# memory, one a rank; above it a rank takes several bands in turn
+GRAM_STATS_BATCHES = [256, 32, 16, 48, 1, 33, 200, 512, 513, 1000]
 # K6's tiling: B off the 32-row tile on both sides against D off its
 # 16-column chunks and eight warp slices, at the fixed bandwidth
 # sigma^2 = D (a single row's mean-distance bandwidth is 0, where the
@@ -312,10 +318,10 @@ def gram_work(B, D, linear):
 
 
 def gram_stats_work(B):
-    """One K7 call: two Grams and their row, column and total means read,
-    three sums written; the means' reductions, the centring and three
-    products per entry, all elementwise."""
-    return 8 * B * B + 16 * B + 8 + 12, 0, 18 * B * B, F32_PRODUCT_FLOPS_PER_S
+    """One K7 call: two Grams read, three sums written; per entry of each
+    Gram its row and column sums (2), its centring (3), and the three
+    products with their sums (6 in all), all elementwise."""
+    return 8 * B * B + 12, 0, 16 * B * B, F32_PRODUCT_FLOPS_PER_S
 
 
 def nhsic_work(name, B, Dx, Dz, lx, lz=False):
@@ -442,29 +448,32 @@ def kernel_phase(torch, kernel, ops, ref, hsic):
     for B, Dx, Dz in IDENTICAL_SHAPES:
         check(exactly_zero(torch, kernel, hsic,
                            *inputs(torch, B, Dx, Dz, False, True)),
-              f"identical rows at {(B, Dx, Dz)}: K2 or K3 not exactly 0")
-    print(f"  identical rows at {len(IDENTICAL_SHAPES)} shapes: K2 and K3 "
-          f"exactly 0", flush=True)
+              f"identical rows at {(B, Dx, Dz)}: K1 not exactly B or K2 "
+              f"or K3 not exactly 0")
+    print(f"  identical rows at {len(IDENTICAL_SHAPES)} shapes: K1 exactly "
+          f"B, K2 and K3 exactly 0", flush=True)
     for shape in [(256, 64, 128, False), (32, 256, 512, False),
                   (16, 2048, 2048, False)]:
         args = kernel_args(torch, hsic, ref, *inputs(torch, *shape),
                            shape[3])
-        for n in ("nhsic_stats_feats", "nhsic_grad"):
+        for n in STREAMING:
             a, kw = args[n]
             check(same_bits(torch, lambda: getattr(kernel, n)(*a, **kw)),
                   f"{n} at {shape}: bits differ between runs")
-    print("  nhsic_stats_feats, nhsic_grad at B=256, 32, 16: the same bits "
-          "over three runs", flush=True)
+    print("  nhsic_rowsums, nhsic_stats_feats, nhsic_grad at B=256, 32, 16: "
+          "the same bits over three runs", flush=True)
     return errs
 
 
 def exactly_zero(torch, kernel, hsic, x, z):
-    """Identical rows, both Grams RBF: K1 gives row sums of exactly B, so
-    every centred entry is exactly 0; K2 must then give exactly 0 and K3
-    exactly 0 gradients."""
+    """Identical rows, both Grams RBF: K1 must give row sums of exactly B,
+    so that every centred entry is exactly 0; K2 must then give exactly 0
+    and K3 exactly 0 gradients."""
     B = x.shape[0]
     s2 = torch.stack([hsic.rbf_sigma2(x), hsic.rbf_sigma2(z)])
     rxs, rzs = kernel.nhsic_rowsums(x, z, s2)
+    if not bool((rxs == B).all() & (rzs == B).all()):
+        return False
     s = torch.cat([s2, torch.stack([rxs.sum(), rzs.sum()]) / (B * B)])
     stats = kernel.nhsic_stats_feats(x, z, rxs / B, rzs / B, s)
     scal = torch.cat([s, torch.tensor([0.7, 0.3, -0.2], device=x.device)])
@@ -473,13 +482,14 @@ def exactly_zero(torch, kernel, hsic, x, z):
 
 
 # device kernel names of each streaming nHSIC wrapper (K2 adds its
-# partials in a second launch where B > 32); each is a __global__ function
-# of nhsic.cu and no substring of another kernel's name
-# (tests/test_torch_profiler_names.py)
-STREAMING_KERNELS = {"nhsic_rowsums": ("rowsums_kernel",),
+# partials in a second launch where B > 32) and of each dense-Gram
+# wrapper; each is a __global__ function of nhsic.cu and no substring of
+# another kernel's name (tests/test_torch_profiler_names.py)
+STREAMING_KERNELS = {"nhsic_rowsums": ("nhsic_rowsums_kernel",),
                      "nhsic_stats_feats": ("nhsic_stats_kernel",
                                            "sum_partials_kernel"),
                      "nhsic_grad": ("nhsic_grad_kernel",)}
+GRAM_KERNELS = {"gram": ("gram_kernel",), "gram_stats": ("gram_stats_kernel",)}
 
 
 def timing_phase(torch, kernel, ref, hsic):
@@ -510,6 +520,17 @@ def timing_phase(torch, kernel, ref, hsic):
 def gram_input(torch, B, D, seed=0):
     g = torch.Generator().manual_seed(B * 7919 + D * 31 + seed)
     return torch.randn(B, D, generator=g).cuda()
+
+
+def near_constant_grams(torch, B):
+    """Two non-symmetric (B, B) Grams with every entry in 1 +- 1e-3, where
+    centring cancels all but the last three digits.  They share half their
+    variation, so their trace term is about half their norms: between two
+    independent ones it is a sum that cancels to f32 rounding noise, the
+    plain version's too, and no relative bar holds for it."""
+    g = torch.Generator().manual_seed(B)
+    u, v = (2 * torch.rand((B, B), generator=g) - 1 for _ in range(2))
+    return (1 + 1e-3 * u).cuda(), (1 + 1e-3 * (u + v) / 2).cuda()
 
 
 def cross_gram(torch, hsic, ref, a, b):
@@ -563,23 +584,25 @@ def gram_phase(torch, kernel, ops, ref, hsic):
         pairs = [(kernel.gram(x, hsic.rbf_sigma2(x)),
                   kernel.gram(z, 1.0, linear=True)),
                  (cross_gram(torch, hsic, ref, x, y),
-                  cross_gram(torch, hsic, ref, z, w))]
+                  cross_gram(torch, hsic, ref, z, w)),
+                 near_constant_grams(torch, B)]
         for kx, kz in pairs:
             got = kernel.gram_stats(kx, kz)
             rel, ab = rel_each(got, ref.gram_stats(kx, kz))
             torch.cuda.synchronize()
             check(rel <= TOL, f"gram_stats at B={B}: rel err {rel}")
             track(errs, "gram_stats", rel, ab)
-    kx, kz = pairs[0]
-    first = kernel.gram_stats(kx, kz)
-    check(all(torch.equal(first, kernel.gram_stats(kx, kz))
-              for _ in range(3)), "gram_stats differs between runs")
+        if B in (256, 1000):   # bands kept in shared memory, and not
+            kx, kz = pairs[0]
+            check(same_bits(torch, lambda: (kernel.gram_stats(kx, kz),)),
+                  f"gram_stats at B={B} differs between runs")
     (ga, gr), (sa, sr) = errs["gram"], errs["gram_stats"]
     print(f"  check gram: {2 * len(cases)} Grams, exactly symmetric, "
           f"identical rows exactly 1, bit-identical over three runs, "
           f"rel err <= {gr:.2e}, "
-          f"abs <= {ga:.2e}; gram_stats: {2 * len(GRAM_STATS_BATCHES)} "
-          f"pairs, each sum's rel err <= {sr:.2e}, abs <= {sa:.2e}",
+          f"abs <= {ga:.2e}; gram_stats: {3 * len(GRAM_STATS_BATCHES)} "
+          f"pairs, each sum's rel err <= {sr:.2e}, abs <= {sa:.2e}, "
+          f"bit-identical over three runs at B=256 and 1000",
           flush=True)
     cases = ([(s, False) for s in MAIN_PATH_SHAPES + EXTRA_SHAPES]
              + [(s, True) for s in DEGENERATE_SHAPES])
@@ -623,6 +646,21 @@ def device_ms(torch, fn, names=None, runs=30):
     return sum(ms) if ms else None
 
 
+def device_ops(torch, fn, runs=10):
+    """(device ops per call of ``fn``, the set of their names) from
+    ``torch.profiler``, or None when it records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (len(names) / runs, set(names)) if names else None
+
+
 def device_kernel_ms(torch, prof, runs):
     """Device ms per run of each kernel name a profile recorded."""
     by_name = {}
@@ -650,7 +688,7 @@ def gram_timing(torch, kernel, ref, hsic):
             plain = time_ms(torch, lambda: ref.gram(x, s, linear))
             lib = time_ms(torch, lambda: x @ x.T) if linear else None
             dev = device_ms(torch, lambda: kernel.gram(x, s, linear=linear),
-                            ("gram_kernel",))
+                            GRAM_KERNELS["gram"])
             lib_dev = (device_ms(torch, lambda: x @ x.T) if linear
                        else None)
             b_ms, b_by = bound_ms("gram", (B, D, linear))
@@ -669,15 +707,21 @@ def gram_timing(torch, kernel, ref, hsic):
         kz = kernel.gram(gram_input(torch, B, 64, 1), 1.0, linear=True)
         ms = time_ms(torch, lambda: kernel.gram_stats(kx, kz))
         plain = time_ms(torch, lambda: ref.gram_stats(kx, kz))
-        dev = device_ms(torch, lambda: kernel.gram_stats(kx, kz),
-                        ("gram_stats_kernel", "sum_partials_kernel"))
+        # every device op of the wrapper call: K7 alone
+        ops = device_ops(torch, lambda: kernel.gram_stats(kx, kz))
+        check(ops is None or (ops[0] == 1 and all(
+            any(n in k for n in GRAM_KERNELS["gram_stats"]) for k in ops[1])),
+            f"gram_stats at B={B}: device ops {ops}, expected one "
+            f"{GRAM_KERNELS['gram_stats']} a call")
+        dev = device_ms(torch, lambda: kernel.gram_stats(kx, kz))
         b_ms, b_by = bound_ms("gram_stats", (B,))
         rows.append({"name": "gram_stats", "shape": [B], "ms": ms,
                      "plain_ms": plain, "library_ms": None, "device_ms": dev,
                      "bound_ms": b_ms, "bound_by": b_by})
-        print(f"  time gram_stats B={B}: kernel {ms:.4f} ms (device {dev}, "
-              f"both launches), plain {plain:.4f} ms, bound {b_ms:.2e} ms "
-              f"({b_by})", flush=True)
+        print(f"  time gram_stats B={B}: kernel {ms:.4f} ms (device "
+              f"{fmt_ms(dev)}, every device op of the call, host share "
+              f"{host_share(ms, dev)}), plain {plain:.4f} ms, bound "
+              f"{b_ms:.2e} ms ({b_by})", flush=True)
     return rows
 
 
@@ -1462,7 +1506,7 @@ def slstm_layer_check(torch, server, plain_adapter):
 
 
 # device kernel names of the hand-written kernels, for the profile
-KERNEL_NAMES = {"nhsic": ("rowsums_kernel", "nhsic_stats_kernel",
+KERNEL_NAMES = {"nhsic": ("nhsic_rowsums_kernel", "nhsic_stats_kernel",
                           "sum_partials_kernel", "nhsic_grad_kernel"),
                 "flash": ("flash_fwd_kernel",),
                 "slstm": ("slstm_fwd_kernel", "slstm_bwd_kernel")}

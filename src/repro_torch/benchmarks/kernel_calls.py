@@ -1,18 +1,21 @@
-"""Times one call of the K2, K3, K4, K6 and K5 wrappers, and of the sLSTM
-scan's backward, of a checkout of the port, so that two checkouts can be
-compared on one card.
+"""Times one call of the K1, K2, K3, K4, K6, K7 and K5 wrappers, and of
+the sLSTM scan's backward, of a checkout of the port, so that two
+checkouts can be compared on one card.
 
     python src/repro_torch/benchmarks/kernel_calls.py --src <checkout>/src \
         --label <name> [--out <file.jsonl>]
 
 imports ``repro_torch`` from ``--src`` (so an older checkout, unpacked
 beside this one, is timed with its own wrappers and kernels) and, for
-``nhsic_stats_feats`` (K2) and ``nhsic_grad`` (K3) at the ResNet path's
-largest call (B, Dx, Dz) = (32, 256, 512), the xlstm-1.3b's h_xz (16,
-2048, 2048) and the kernel benchmark's largest nHSIC row (256, 256, 64),
-with their inputs as the nHSIC forward and backward build
-them, ``flash_attention_fwd`` at the ViT-12 shape, ``gram`` at (B, D) =
-(256, 256) and (32, 256), linear and RBF, ``slstm_scan_fwd`` at the
+``nhsic_rowsums`` (K1), ``nhsic_stats_feats`` (K2) and ``nhsic_grad``
+(K3) at the ResNet path's largest call (B, Dx, Dz) = (32, 256, 512), the
+xlstm-1.3b's h_xz (16, 2048, 2048) and the kernel benchmark's largest
+nHSIC row (256, 256, 64), with their inputs as the nHSIC forward and
+backward build them, ``flash_attention_fwd`` at the ViT-12 shape, ``gram``
+at (B, D) = (256, 256) and (32, 256), linear and RBF, ``gram_stats`` (K7)
+at B = 256 and 32 on the Grams ``chip_smoke.py``'s gram timing builds (the
+RBF Gram of (B, 256) rows and the linear Gram of (B, 64)),
+``slstm_scan_fwd`` at the
 xlstm-1.3b shape (B=16, S=256, H=4, Dh=512) and ``slstm_scan_bwd``, the
 backward of ``ops.slstm_scan`` at that shape for a cotangent of every
 output (whatever the checkout's backward is: autograd of the plain loop
@@ -24,8 +27,8 @@ JSON line each:
 * ``host_ms``: the host clock per call over 200 calls issued back to back
   without a synchronisation, the wrapper's own Python and launch time;
 * ``device_ms``: the profiler's device time of the kernel per call (for
-  K2 and K3, of all their launches, and for ``slstm_scan_bwd``, of every
-  device op of the backward);
+  K1, K2, K3 and K7, of every device op of the wrapper call, and for
+  ``slstm_scan_bwd``, of every device op of the backward);
 * ``device_ops``: the device ops (kernels, copies, fills) the profiler
   records per call.
 
@@ -110,6 +113,9 @@ def main(argv=None) -> int:
         rx, rz = rxs / B, rzs / B
         s = torch.cat([s2, torch.stack([rxs.sum(), rzs.sum()]) / (B * B)])
         scal = torch.cat([s, torch.tensor([0.7, 0.3, -0.2], device="cuda")])
+        calls.append(("nhsic_rowsums", [B, Dx, Dz, False], None,
+                      lambda x=x, z=z, s2=s2:
+                      hkernel.nhsic_rowsums(x, z, s2)))
         calls.append(("nhsic_stats_feats", [B, Dx, Dz, False], None,
                       lambda x=x, z=z, rx=rx, rz=rz, s=s:
                       hkernel.nhsic_stats_feats(x, z, rx, rz, s)))
@@ -128,6 +134,11 @@ def main(argv=None) -> int:
             calls.append(("gram", [B, D, linear], "gram_kernel",
                           lambda x=x, s2=s2, linear=linear:
                           hkernel.gram(x, s2, linear=linear)))
+        kx = hkernel.gram(x, hsic.rbf_sigma2(x))
+        kz = hkernel.gram(torch.randn((B, 64), generator=gen).cuda(), 1.0,
+                          linear=True)
+        calls.append(("gram_stats", [B], None,
+                      lambda kx=kx, kz=kz: hkernel.gram_stats(kx, kz)))
     shape = [16, 256, 4, 512]
     B, S, H, Dh = shape
     g_in = torch.randn((B, S, 4, H, Dh), generator=gen).cuda()

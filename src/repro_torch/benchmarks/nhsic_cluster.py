@@ -1,19 +1,21 @@
-"""How the device time of K2 (``nhsic_stats_feats``) and K3 (``nhsic_grad``)
-depends on the size of their thread-block clusters, on one card.
+"""How the device time of K1 (``nhsic_rowsums``), K2
+(``nhsic_stats_feats``) and K3 (``nhsic_grad``) depends on the size of
+their thread-block clusters, on one card.
 
     python src/repro_torch/benchmarks/nhsic_cluster.py [--out <file.jsonl>]
 
-K2 and K3 split the columns of x and z over the C blocks of a cluster
-(``kernels/hsic_gram/csrc/nhsic.cu``, ``cluster_size``).  This builds
-copies of ``nhsic.cu`` whose ``cluster_size`` returns a fixed C (1, 2, 4,
-8, 16; under ``build/kernels/cluster/``, one ``nvcc`` per copy, started
-together) beside the source as it is, and times both kernels of every copy
-at the training paths' shapes (``SHAPES``) with the same inputs: the
-profiler's device time of all the wrapper's launches, mean of 20 calls.
-Each copy's results are checked against the source's own (scale-relative
-1e-3), so a copy that computes something else fails here.  Prints one JSON
-line per (copy, kernel, shape) with the card's name.  Needs a CUDA card
-and ``nvcc``; exits 2 without a card.
+K1, K2 and K3 split the columns of x and z over the C blocks of a cluster
+(``kernels/hsic_gram/csrc/nhsic.cu``, ``cluster_size``, one rule for
+the three).  This builds copies of ``nhsic.cu`` whose ``cluster_size``
+returns a fixed C (1, 2, 4, 8, 16; under ``build/kernels/cluster/``, one
+``nvcc`` per copy, started together) beside the source as it is, and
+times the three kernels of every copy at the training paths' shapes
+(``SHAPES``) with the same inputs: the profiler's device time of all the
+wrapper's launches, mean of 20 calls.  Each copy's results are checked
+against the source's own (scale-relative 1e-3), so a copy that computes
+something else fails here.  Prints one JSON line per (copy, kernel, shape)
+with the card's name.  Needs a CUDA card and ``nvcc``; exits 2 without a
+card.
 """
 from __future__ import annotations
 
@@ -112,6 +114,8 @@ def main(argv=None) -> int:
         for shape, sargs, gargs in cases:
             lx = shape[3]
             for kname, fn in (
+                    ("nhsic_rowsums", lambda: kernel.nhsic_rowsums(
+                        *sargs[:2], sargs[4][:2], linear_x=lx)),
                     ("nhsic_stats_feats", lambda: kernel.nhsic_stats_feats(
                         *sargs, linear_x=lx)),
                     ("nhsic_grad", lambda: kernel.nhsic_grad(

@@ -38,19 +38,38 @@
 //     the same order, as the dot products, so a diagonal distance is
 //     exactly 0 and identical rows have an RBF value of exactly 1.
 //
-// K1, the row sums: a block owns a 32-row tile and loops over the
-// 32-column tiles itself (the TPU grid ran that axis in order), stepping
-// through D in 32-column chunks, so its rows need no reduction across
-// blocks.  At B <= 32 a call is one block on one SM.
+// K1, the row sums.  Its first version was a grid of (row tiles, 2)
+// blocks, one block summing the rows of Kx and one those of Kz: a call at
+// B <= 32 ran on two of the 132 SMs, each walking the whole of D in
+// 32-column chunks through shared memory with two block barriers each and
+// no asynchronous copies.  That took 0.0410 ms of device time at B = 32,
+// Dx = 256, Dz = 512 and 0.1492 ms at B = 16, Dx = Dz = 2048 (NVIDIA H100
+// 80GB HBM3, 700.00 W), 1,400-1,900x its bound.  The redesign is K3's
+// layout (below): one launch of a cluster of C blocks (`cluster_size`, the
+// same C as K2's and K3's) per row tile, both sides in one cluster; each
+// rank computes its slice of the tile's dots and norms with `gram_pass`
+// and publishes them.  Rank r then owns 32 / C of the tile's rows: it adds
+// the ranks' partials of those entries through distributed shared memory
+// in rank order (a rank that read the whole tile, as K3's do, moved 3x K2's
+// DSMEM traffic and took 0.0090 ms), forms Kx and Kz, adds each row's 32
+// entries (a warp a row) to a running sum in registers, column tile 0 to
+// nb - 1 in turn, and writes its rows of rx and rz.  So K1's Gram entries
+// are the same bits as those K2 and K3 centre, and identical rows give RBF
+// row sums of exactly B.  Measured (benchmarks/kernel_calls.py, the first
+// version timed in the same run; NVIDIA H100 80GB HBM3, 700.00 W): 0.0064
+// / 0.0079 ms of device time at the two shapes above (first version 0.0408
+// / 0.1490), 0.036 ms at B = 256, Dx = 256, Dz = 64, where a cluster takes
+// the 8 column tiles in turn (0.161).
 //
-// K2 (statistics) and K3 (gradient).  Their first version was K1's design:
-// a call at B <= 32 (every call of the training paths) ran on one block of
-// one of the 132 SMs, walking the whole of D in 32-column chunks with two
-// block barriers each; K2 added a second launch, and K3 zero-filled dx and
-// dz in device memory and added each column tile's W . x_j into them
-// there.  That took 0.074 / 0.168 ms of device time at B = 32, Dx = 256,
-// Dz = 512 and 0.343 / 0.590 ms at B = 16, Dx = Dz = 2048 (NVIDIA H100
-// 80GB HBM3, 700.00 W), 1,000-10,000x their bounds.  The redesign:
+// K2 (statistics) and K3 (gradient).  Their first version was K1's first
+// design: a call at B <= 32 (every call of the training paths) ran on one
+// block of one of the 132 SMs, walking the whole of D in 32-column chunks
+// with two block barriers each; K2 added a second launch, and K3
+// zero-filled dx and dz in device memory and added each column tile's
+// W . x_j into them there.  That took 0.074 / 0.168 ms of device time at
+// B = 32, Dx = 256, Dz = 512 and 0.343 / 0.590 ms at B = 16, Dx = Dz =
+// 2048 (NVIDIA H100 80GB HBM3, 700.00 W), 1,000-10,000x their bounds.  The
+// redesign:
 //   * One launch, and a thread-block cluster of C blocks (4 to 16, about
 //     64 columns of D a block, `cluster_size`) for each row tile (K3) or
 //     tile pair (K2):
@@ -116,6 +135,39 @@
 //     without a special case; the clamp at 0 stays.  It stays on CUDA cores
 //     for that reason: the arithmetic is not what bounds it.
 // Measured: PERF.md (chip_smoke.py's gram timing).
+//
+// K7, the centred statistics of two dense Grams.  Its first version took
+// the Grams' row, column and total means from five PyTorch reductions in
+// the wrapper, then launched one block per 32 x 32 tile pair and a second
+// kernel that added the tiles' sums: 4.0 us of device time for its own
+// two kernels at B = 256 and at B = 32 (the reductions' device time not
+// measured) and 0.21 / 0.15 ms of event time (NVIDIA H100 80GB HBM3,
+// 700.00 W).  The redesign is one launch of one cluster of C = min(16,
+// tiles(B)) blocks, which computes the means itself, as the TPU kernel's
+// function does:
+//   * Rank r owns the 32-row bands r, r + C, ...  Pass 1 reads its rows of
+//     both Grams once, coalesced, and forms their row sums (a warp a row)
+//     and its partial column sums over its rows (a thread a column, in row
+//     order), all in double, so the order of the terms does not matter at
+//     the f32 bar.  Up to B = 16 x 32 = 512 a rank owns one band, which is
+//     copied into its shared memory by cp.async and read from there; a
+//     rank of a larger B reads its bands from device memory (L2), twice.
+//   * After a cluster barrier every rank adds the C partial column sums
+//     through distributed shared memory in rank order (the C loads issued
+//     together), and the ranks' totals of their row sums in rank order for
+//     the total means.
+//   * Pass 2 centres each entry as K - c_j - r_i + m in f32, the plain
+//     version's order of terms, and sums the three products in double; the
+//     ranks' sums are added in rank order by rank 0, which writes `out`.
+//   * Shared memory holds two doubles per column, so B is at most 13,619
+//     (two Grams of 742 MB each); a larger B is refused and the wrapper
+//     raises.
+// Measured (benchmarks/kernel_calls.py, the first version timed in the same
+// run; NVIDIA H100 80GB HBM3, 700.00 W): 0.0107 / 0.0070 ms of device time
+// at B = 256 / 32 in one device op, against 0.0351 / 0.0196 ms in nine
+// (the wrapper's reductions took 0.031 / 0.016 of it).  About 4.5 us of
+// either is the floor every kernel here pays (K6 takes 4.4 us at B = 32);
+// benchmarks/gram_stats_parts.py times the rest part by part.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -127,75 +179,13 @@ namespace {
 
 constexpr int TILE = 32;                  // rows and columns of one Gram tile
                                           // (kernel.py sizes `partial` by it)
-constexpr int KC = 32;                    // activation columns per smem chunk
 constexpr int THREADS = 256;              // 8 warps
 constexpr int PER_THREAD = TILE * TILE / THREADS;   // tile entries per thread
 constexpr int ROW_STEP = THREADS / TILE;  // rows between a thread's entries
 
-struct TileSmem {
-  float a[TILE][KC + 1];                  // row tile chunk
-  float b[TILE][KC + 1];                  // column tile chunk
-  float na[TILE];                         // squared norms of the row tile
-  float nb[TILE];                         // squared norms of the column tile
-};
-
 // Thread tid owns tile entries (tid / TILE + q * ROW_STEP, tid % TILE).
 __device__ __forceinline__ int entry_row(int q) {
   return threadIdx.x / TILE + q * ROW_STEP;
-}
-
-// K[r][c] = k(a[i0 + r], a[j0 + c]) for the (TILE, TILE) tile at (i0, j0) of
-// the Gram of a (B, D), row-major.  RBF: exp(-max(|a|^2 + |b|^2 - 2 a.b, 0)
-// / (2 s2)); linear: a.b.  Entries outside [0, B)^2 are set to 0.  Ends with
-// a barrier, so the caller may read `out` at once.
-__device__ void gram_tile(const float* __restrict__ a, int B, int D, int i0,
-                          int j0, bool linear, float s2, TileSmem& sm,
-                          float (*out)[TILE + 1]) {
-  const int tid = threadIdx.x;
-  const int c = tid % TILE;
-  float acc[PER_THREAD];
-#pragma unroll
-  for (int q = 0; q < PER_THREAD; ++q) acc[q] = 0.f;
-  float nrm = 0.f;  // tid < TILE: row tile norm; tid < 2 TILE: column tile
-  for (int k0 = 0; k0 < D; k0 += KC) {
-    for (int e = tid; e < TILE * KC; e += THREADS) {
-      const int r = e / KC, kk = e % KC, k = k0 + kk;
-      const int ia = i0 + r, ib = j0 + r;
-      sm.a[r][kk] = (ia < B && k < D) ? a[(size_t)ia * D + k] : 0.f;
-      sm.b[r][kk] = (ib < B && k < D) ? a[(size_t)ib * D + k] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < KC; ++kk) {
-      const float bv = sm.b[c][kk];
-#pragma unroll
-      for (int q = 0; q < PER_THREAD; ++q)
-        acc[q] = fmaf(sm.a[entry_row(q)][kk], bv, acc[q]);
-      if (tid < TILE) {
-        nrm = fmaf(sm.a[tid][kk], sm.a[tid][kk], nrm);
-      } else if (tid < 2 * TILE) {
-        nrm = fmaf(sm.b[tid - TILE][kk], sm.b[tid - TILE][kk], nrm);
-      }
-    }
-    __syncthreads();
-  }
-  if (tid < TILE) {
-    sm.na[tid] = nrm;
-  } else if (tid < 2 * TILE) {
-    sm.nb[tid - TILE] = nrm;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int q = 0; q < PER_THREAD; ++q) {
-    const int r = entry_row(q);
-    float v = acc[q];
-    if (!linear) {
-      const float d2 = fmaxf(sm.na[r] + sm.nb[c] - 2.f * acc[q], 0.f);
-      v = expf(-d2 / (2.f * s2));
-    }
-    out[r][c] = (i0 + r < B && j0 + c < B) ? v : 0.f;
-  }
-  __syncthreads();
 }
 
 // Sum of v over the block, the same order on every run; valid in thread 0.
@@ -211,31 +201,6 @@ __device__ float block_sum(float v, float* red) {
     for (int w = 0; w < THREADS / 32; ++w) s += red[w];
   __syncthreads();
   return s;
-}
-
-// Grid (row tiles, 2): blockIdx.y = 0 sums rows of Kx, 1 rows of Kz.
-__global__ void __launch_bounds__(THREADS)
-rowsums_kernel(const float* __restrict__ x, const float* __restrict__ z,
-               const float* __restrict__ s2, float* __restrict__ rx,
-               float* __restrict__ rz, int B, int Dx, int Dz, int lx, int lz) {
-  __shared__ TileSmem sm;
-  __shared__ float K[TILE][TILE + 1];
-  const bool is_z = blockIdx.y == 1;
-  const float* a = is_z ? z : x;
-  const int D = is_z ? Dz : Dx;
-  const bool linear = is_z ? lz : lx;
-  const float s = s2[is_z ? 1 : 0];
-  float* out = is_z ? rz : rx;
-  const int i0 = blockIdx.x * TILE;
-  const int tid = threadIdx.x;
-  float rsum = 0.f;
-  for (int j0 = 0; j0 < B; j0 += TILE) {
-    gram_tile(a, B, D, i0, j0, linear, s, sm, K);
-    if (tid < TILE)
-      for (int c = 0; c < TILE; ++c) rsum += K[tid][c];   // masked: 0
-    __syncthreads();
-  }
-  if (tid < TILE && i0 + tid < B) out[i0 + tid] = rsum;
 }
 
 // One block: out[k] = sum over blocks of partial[3 * blk + k], fixed order.
@@ -445,45 +410,6 @@ gram_kernel(const float* __restrict__ a, const float* __restrict__ s2,
   for (int q = 0; q < PER_THREAD; ++q) {
     const int r = entry_row(q), i = j0 + r, jj = i0 + cc;
     if (i < B && jj < B) out[(size_t)i * B + jj] = K[cc * (TILE + 1) + r];
-  }
-}
-
-// Grid (column tiles, row tiles).  Centres the (TILE, TILE) tile at
-// (blockIdx.y, blockIdx.x) of the Grams kx and kz (B, B) as K_ij - r_i -
-// c_j + m, with r the row means, c the column means and m = [mean kx,
-// mean kz], and writes the tile's (sum Kxc Kzc, sum Kxc^2, sum Kzc^2) to
-// partial[3 * block].
-__global__ void __launch_bounds__(THREADS)
-gram_stats_kernel(const float* __restrict__ kx, const float* __restrict__ kz,
-                  const float* __restrict__ rx, const float* __restrict__ cx,
-                  const float* __restrict__ rz, const float* __restrict__ cz,
-                  const float* __restrict__ m, float* __restrict__ partial,
-                  int B) {
-  __shared__ float red[THREADS / 32];
-  const int i0 = blockIdx.y * TILE, j0 = blockIdx.x * TILE;
-  const int j = j0 + threadIdx.x % TILE;
-  const float mx = m[0], mz = m[1];
-  float p0 = 0.f, p1 = 0.f, p2 = 0.f;
-#pragma unroll
-  for (int q = 0; q < PER_THREAD; ++q) {
-    const int i = i0 + entry_row(q);
-    if (i < B && j < B) {
-      const size_t e = (size_t)i * B + j;
-      const float kxc = kx[e] - rx[i] - cx[j] + mx;
-      const float kzc = kz[e] - rz[i] - cz[j] + mz;
-      p0 = fmaf(kxc, kzc, p0);
-      p1 = fmaf(kxc, kxc, p1);
-      p2 = fmaf(kzc, kzc, p2);
-    }
-  }
-  const int blk = blockIdx.y * gridDim.x + blockIdx.x;
-  p0 = block_sum(p0, red);
-  p1 = block_sum(p1, red);
-  p2 = block_sum(p2, red);
-  if (threadIdx.x == 0) {
-    partial[3 * blk + 0] = p0;
-    partial[3 * blk + 1] = p1;
-    partial[3 * blk + 2] = p2;
   }
 }
 
@@ -1106,7 +1032,317 @@ nhsic_grad_kernel(const float* __restrict__ x, const float* __restrict__ z,
   cluster_wait();                        // no rank reads this block's xch
 }
 
-// Cluster size of a K2 or K3 call: about 64 columns of the wider side a
+constexpr int ROWSUM_BUFS = XCH + 4 * TILE;
+
+// Sum of v over a warp; every lane gets the same bits.
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// K1.  Grid (C, row tiles), clusters of C = gridDim.x blocks along x, one
+// per row tile; block x is the cluster's rank.  s2 = [s2x, s2z].  For each
+// column tile, rank r adds the ranks' partial dots of its 32 / C rows of
+// the tile in rank order (the same bits as K2's and K3's entries), forms
+// Kx and Kz, and adds each row's 32 entries (a warp a row) to a running
+// sum over the column tiles; it writes rx and rz of its rows.
+__global__ void __launch_bounds__(THREADS)
+nhsic_rowsums_kernel(const float* __restrict__ x, const float* __restrict__ z,
+                     const float* __restrict__ s2, float* __restrict__ rx,
+                     float* __restrict__ rz, int B, int Dx, int Dz, int lx,
+                     int lz, int vx, int vz) {
+  extern __shared__ float4 nhsic_smem4[];
+  float* smem = reinterpret_cast<float*>(nhsic_smem4);
+  const int C = gridDim.x, rank = blockIdx.x;
+  const int it = blockIdx.y, nt = gridDim.y, i0 = it * TILE;
+  const int t = threadIdx.x;
+  Side X = make_side(x, Dx, C, lx, vx), Z = make_side(z, Dz, C, lz, vz);
+  float* p = smem;
+  X.row = p;
+  p += TILE * X.ld;
+  if (nt > 1) {
+    X.col = p;
+    p += TILE * X.ld;
+  }
+  Z.row = p;
+  p += TILE * Z.ld;
+  if (nt > 1) {
+    Z.col = p;
+    p += TILE * Z.ld;
+  }
+  float* xch = p;
+  float* nrm = xch + XCH;                // the cluster's norms, as in XCH
+
+  const float nix = -0.5f / s2[0], niz = -0.5f / s2[1];
+  // this rank's entries of the tile: [rank per, (rank + 1) per), thread t
+  // taking rank per + t + k THREADS (k < 4: per is 1024 / C, C >= 1)
+  const int per = TILE * TILE / C;
+  float sx[4] = {0.f, 0.f, 0.f, 0.f}, sz[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int jt = 0; jt < nt; ++jt) {
+    const int j0 = jt * TILE;
+    float ax[4], az[4], nx, nz;
+    gram_pass(X, Z, B, rank, it, jt, ax, az, nx, nz);
+    if (jt > 0) cluster_wait();          // no rank reads xch any more
+    publish(xch, ax, az, nx, nz);
+    cluster_arrive();
+    cluster_wait();
+    bool valid[4];
+    float dxs[4], dzs[4], ns = 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int e = rank * per + t + k * THREADS;
+      valid[k] = t + k * THREADS < per && i0 + e / TILE < B
+                 && j0 + e % TILE < B;
+      dxs[k] = dzs[k] = 0.f;
+    }
+#pragma unroll 4
+    for (int q = 0; q < C; ++q) {        // rank order, as K2 and K3
+      const float* o = peer(xch, q);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (valid[k]) {
+          const int e = rank * per + t + k * THREADS;
+          dxs[k] += o[e];
+          dzs[k] += o[TILE * TILE + e];
+        }
+      if (t < 4 * TILE) ns += o[NORMS + t];
+    }
+    cluster_arrive();                    // this rank's reads are done
+    if (t < 4 * TILE) nrm[t] = ns;
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (k * THREADS >= per) break;
+      // a masked entry adds nothing (an RBF value of a zero dot is not 0)
+      float kx = 0.f, kz = 0.f;
+      if (valid[k]) {
+        const int e = rank * per + t + k * THREADS, r = e / TILE,
+                  c = e % TILE;
+        kx = kernel_value(dxs[k], nrm[r], nrm[TILE + c], lx, nix);
+        kz = kernel_value(dzs[k], nrm[2 * TILE + r], nrm[3 * TILE + c], lz,
+                          niz);
+      }
+      sx[k] += warp_sum(kx);
+      sz[k] += warp_sum(kz);
+    }
+  }
+  cluster_wait();                        // no rank reads this block's xch
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int i = i0 + (rank * per + t + k * THREADS) / TILE;
+    if (t % 32 == 0 && t + k * THREADS < per && i < B) {
+      rx[i] = sx[k];
+      rz[i] = sz[k];
+    }
+  }
+}
+
+// ---- K7, the centred statistics of two dense Grams (see the header) ----
+__device__ __forceinline__ double* peer_d(double* p, int rank) {
+  return cg::this_cluster().map_shared_rank(p, rank);
+}
+
+// Sums of v[0], v[1], v[2] over the block, the same order on every run;
+// valid in thread 0.  red: 3 THREADS / 32 doubles.
+__device__ void block_sum3(double (&v)[3], double* red) {
+  const int warp = threadIdx.x / 32;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    v[k] = warp_sum(v[k]);
+    if (threadIdx.x % 32 == 0) red[k * (THREADS / 32) + warp] = v[k];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      v[k] = 0.0;
+      for (int w = 0; w < THREADS / 32; ++w)
+        v[k] += red[k * (THREADS / 32) + w];
+    }
+}
+
+// Row stride of a band kept in shared memory: whole 16-byte groups.
+__host__ __device__ constexpr int band_ld(int B) { return (B + 3) / 4 * 4; }
+
+// Floats of K7's dynamic shared memory: the kept bands of both Grams (B <=
+// MAX_CLUSTER TILE), then in doubles the partial column sums, the row sums
+// of the owned rows, the rank's two totals, the ranks' three sums (in rank
+// 0) and a block reduction's buffer, then in floats the two total means and
+// a band's row means.
+constexpr int gram_stats_floats(int B) {
+  return (B <= MAX_CLUSTER * TILE ? 2 * TILE * band_ld(B) : 0)
+         + 2 * (2 * B
+                + 2 * TILE * ((B + MAX_CLUSTER * TILE - 1)
+                              / (MAX_CLUSTER * TILE))
+                + 2 + 3 * MAX_CLUSTER + 3 * THREADS / 32)
+         + 2 + 2 * TILE;
+}
+
+// sum over q < C of p's element i in rank q, added in rank order; the C
+// loads are issued together
+__device__ __forceinline__ double rank_sum(double* p, int i, int C) {
+  double v[MAX_CLUSTER];
+#pragma unroll
+  for (int q = 0; q < MAX_CLUSTER; ++q)
+    if (q < C) v[q] = peer_d(p, q)[i];
+  double s = 0.0;
+#pragma unroll
+  for (int q = 0; q < MAX_CLUSTER; ++q)
+    if (q < C) s += v[q];
+  return s;
+}
+
+// K7.  One cluster of C = gridDim.x blocks; rank r owns the 32-row bands
+// r, r + C, ... of kx and kz (B, B).  Writes out = [sum Kxc Kzc,
+// sum Kxc^2, sum Kzc^2] with Kc_ij = K_ij - c_j - r_i + m (c the column
+// means, r the row means, m the mean).  `vec`: B % 4 == 0 and both Grams
+// 16-byte aligned.
+__global__ void __launch_bounds__(THREADS)
+gram_stats_kernel(const float* __restrict__ kx, const float* __restrict__ kz,
+                  float* __restrict__ out, int B, int vec) {
+  extern __shared__ float4 nhsic_smem4[];
+  float* smem = reinterpret_cast<float*>(nhsic_smem4);
+  const int C = gridDim.x, rank = blockIdx.x, t = threadIdx.x;
+  const int warp = t / 32, lane = t % 32;
+  const int nb = (B + TILE - 1) / TILE;
+  const int mine = (nb - rank + C - 1) / C;        // bands of this rank
+  const int per = (nb + C - 1) / C;                // bands of rank 0, the most
+  const bool keep = nb <= C;                       // one band a rank
+  const int ld = band_ld(B);
+  float* cache = smem;                             // [2][TILE][ld] if keep
+  double* colx = reinterpret_cast<double*>(smem + (keep ? 2 * TILE * ld : 0));
+  double* colz = colx + B;                         // partial column sums
+  double* rowx = colz + B;                         // [per][TILE] row sums
+  double* rowz = rowx + per * TILE;
+  double* tot = rowz + per * TILE;                 // this rank's row sums
+  double* P = tot + 2;                             // [rank][3], in rank 0
+  double* red = P + 3 * MAX_CLUSTER;
+  float* mean = reinterpret_cast<float*>(red + 3 * THREADS / 32);
+  float* rmx = mean + 2;                           // a band's row means
+  float* rmz = rmx + TILE;
+
+  // the rows of band k of this rank: from shared memory where kept
+  auto band = [&](int k, const float*& bx, const float*& bz, int& bld) {
+    const int row0 = (rank + k * C) * TILE;
+    if (keep) {
+      bx = cache;
+      bz = cache + TILE * ld;
+      bld = ld;
+    } else {
+      bx = kx + (size_t)row0 * B;
+      bz = kz + (size_t)row0 * B;
+      bld = B;
+    }
+    return min(TILE, B - row0);
+  };
+
+  if (keep) {
+    load_slab(cache, ld, kx, B, B, rank * TILE, 0, B, vec);
+    load_slab(cache + TILE * ld, ld, kz, B, B, rank * TILE, 0, B, vec);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+  // pass 1: row sums (a warp a row: rows warp + 8 h, h < 4) and partial
+  // column sums (a thread a column, rows in order, bands in order)
+  constexpr int RPW = TILE / (THREADS / 32);       // rows of a warp
+  for (int k = 0; k < mine; ++k) {
+    const float *bx, *bz;
+    int bld;
+    const int nrows = band(k, bx, bz, bld);
+    double sx[RPW], sz[RPW];
+#pragma unroll
+    for (int h = 0; h < RPW; ++h) sx[h] = sz[h] = 0.0;
+    for (int j = lane; j < B; j += 32)
+#pragma unroll
+      for (int h = 0; h < RPW; ++h) {
+        const int r = warp + h * (THREADS / 32);
+        if (r < nrows) {
+          sx[h] += bx[(size_t)r * bld + j];
+          sz[h] += bz[(size_t)r * bld + j];
+        }
+      }
+#pragma unroll
+    for (int h = 0; h < RPW; ++h) {
+      const int r = warp + h * (THREADS / 32);
+      sx[h] = warp_sum(sx[h]);
+      sz[h] = warp_sum(sz[h]);
+      if (lane == 0 && r < nrows) {
+        rowx[k * TILE + r] = sx[h];
+        rowz[k * TILE + r] = sz[h];
+      }
+    }
+    for (int j = t; j < B; j += THREADS) {
+      double cx = k ? colx[j] : 0.0, cz = k ? colz[j] : 0.0;
+      for (int r = 0; r < nrows; ++r) {
+        cx += bx[(size_t)r * bld + j];
+        cz += bz[(size_t)r * bld + j];
+      }
+      colx[j] = cx;
+      colz[j] = cz;
+    }
+  }
+  __syncthreads();
+  // this rank's totals: its row sums (warp 0: kx, warp 1: kz)
+  if (warp < 2) {
+    const double* rows = warp ? rowz : rowx;
+    double s = 0.0;
+    for (int k = 0; k < mine; ++k)
+      if ((rank + k * C) * TILE + lane < B) s += rows[k * TILE + lane];
+    s = warp_sum(s);
+    if (lane == 0) tot[warp] = s;
+  }
+  cluster_arrive();
+  cluster_wait();
+  // the total means: the ranks' totals in rank order, the same bits in
+  // every rank
+  if (t < 2) mean[t] = (float)(rank_sum(tot, t, C) / ((double)B * B));
+  __syncthreads();
+  const float mx = mean[0], mz = mean[1];
+  // pass 2: the centred entries in f32, their products summed in double
+  double ps[3] = {0.0, 0.0, 0.0};
+  for (int k = 0; k < mine; ++k) {
+    const float *bx, *bz;
+    int bld;
+    const int nrows = band(k, bx, bz, bld);
+    if (t < nrows) {
+      rmx[t] = (float)(rowx[k * TILE + t] / B);
+      rmz[t] = (float)(rowz[k * TILE + t] / B);
+    }
+    __syncthreads();
+    for (int j = t; j < B; j += THREADS) {
+      const float cmx = (float)(rank_sum(colx, j, C) / B);
+      const float cmz = (float)(rank_sum(colz, j, C) / B);
+      for (int r = 0; r < nrows; ++r) {
+        const float kxc = bx[(size_t)r * bld + j] - cmx - rmx[r] + mx;
+        const float kzc = bz[(size_t)r * bld + j] - cmz - rmz[r] + mz;
+        ps[0] += (double)kxc * kzc;
+        ps[1] += (double)kxc * kxc;
+        ps[2] += (double)kzc * kzc;
+      }
+    }
+    __syncthreads();                     // rmx, rmz free for the next band
+  }
+  block_sum3(ps, red);
+  if (t == 0) {
+    double* P0 = peer_d(P, 0);
+    P0[3 * rank + 0] = ps[0];
+    P0[3 * rank + 1] = ps[1];
+    P0[3 * rank + 2] = ps[2];
+  }
+  cluster_arrive();                      // every rank's reads and P done
+  cluster_wait();
+  if (rank == 0 && t < 3) {
+    double v = 0.0;
+    for (int q = 0; q < C; ++q) v += P[3 * q + t];
+    out[t] = (float)v;
+  }
+}
+
+// Cluster size of a K1, K2 or K3 call: about 64 columns of the wider side a
 // rank, 4 to 16 ranks.  Timed against fixed sizes 1 to 16 at the training
 // paths' shapes by benchmarks/nhsic_cluster.py (see PERF.md): more
 // ranks cost cluster-barrier and DSMEM time, fewer leave each rank more
@@ -1154,9 +1390,11 @@ cudaLaunchConfig_t cluster_config(dim3 grid, int smem_bytes,
   return cfg;
 }
 
-// the most shared memory either kernel takes: two slabs of SEG columns a
+// the most shared memory K1, K2 or K3 takes: two slabs of SEG columns a
 // side
 constexpr int SLABS_MAX = 4 * TILE * ld_of(SEG);
+// the most dynamic shared memory a block may take (227 KB)
+constexpr int SMEM_OPTIN = 227 * 1024;
 
 int tiles(int B) { return (B + TILE - 1) / TILE; }
 
@@ -1169,10 +1407,23 @@ int tiles(int B) { return (B + TILE - 1) / TILE; }
 extern "C" int nhsic_rowsums(const void* x, const void* z, const void* s2,
                              void* rx, void* rz, int B, int Dx, int Dz, int lx,
                              int lz, void* stream) {
-  rowsums_kernel<<<dim3(tiles(B), 2), THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)z, (const float*)s2, (float*)rx,
-      (float*)rz, B, Dx, Dz, lx, lz);
-  return (int)cudaGetLastError();
+  static bool ready = false;
+  int err = allow_clusters(nhsic_rowsums_kernel, ready,
+                           (int)sizeof(float) * (SLABS_MAX + ROWSUM_BUFS));
+  if (err != 0) return err;
+  const int nb = tiles(B), C = cluster_size(Dx, Dz);
+  const int smem = (int)sizeof(float) * (slab_floats(Dx, C, nb > 1)
+                                         + slab_floats(Dz, C, nb > 1)
+                                         + ROWSUM_BUFS);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      dim3(C, nb), smem, (cudaStream_t)stream, &attr);
+  err = (int)cudaLaunchKernelEx(
+      &cfg, nhsic_rowsums_kernel, (const float*)x, (const float*)z,
+      (const float*)s2, (float*)rx, (float*)rz, B, Dx, Dz, lx, lz,
+      (int)(Dx % 4 == 0 && aligned16(x)), (int)(Dz % 4 == 0 && aligned16(z)));
+  const int last = (int)cudaGetLastError();
+  return err != 0 ? err : last;
 }
 
 // `partial` is scratch of 3 * tiles(B)^2 floats (written where tiles(B) >
@@ -1247,21 +1498,22 @@ extern "C" int gram(const void* x, const void* s2, void* out, int B, int D,
   return (int)cudaGetLastError();
 }
 
-// rx, cx, rz, cz: the (B,) row and column means of kx and kz; m: [mean kx,
-// mean kz].  `partial` is scratch of 3 * tiles(B)^2 floats; `out` receives
-// 3 floats.
-extern "C" int gram_stats(const void* kx, const void* kz, const void* rx,
-                          const void* cx, const void* rz, const void* cz,
-                          const void* m, void* partial, void* out, int B,
+// `out` receives 3 floats.  A B whose column sums do not fit in one
+// block's shared memory (B > 13,619) returns cudaErrorInvalidValue.
+extern "C" int gram_stats(const void* kx, const void* kz, void* out, int B,
                           void* stream) {
-  const int nb = tiles(B);
-  gram_stats_kernel<<<dim3(nb, nb), THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)kx, (const float*)kz, (const float*)rx, (const float*)cx,
-      (const float*)rz, (const float*)cz, (const float*)m, (float*)partial,
-      B);
-  const int err = (int)cudaGetLastError();
+  static bool ready = false;
+  int err = allow_clusters(gram_stats_kernel, ready, SMEM_OPTIN);
   if (err != 0) return err;
-  sum_partials_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)partial, nb * nb, (float*)out);
-  return (int)cudaGetLastError();
+  const size_t smem = sizeof(float) * (size_t)gram_stats_floats(B);
+  if (smem > (size_t)SMEM_OPTIN) return (int)cudaErrorInvalidValue;
+  const int nb = tiles(B), C = nb < MAX_CLUSTER ? nb : MAX_CLUSTER;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      dim3(C), (int)smem, (cudaStream_t)stream, &attr);
+  err = (int)cudaLaunchKernelEx(
+      &cfg, gram_stats_kernel, (const float*)kx, (const float*)kz,
+      (float*)out, B, (int)(B % 4 == 0 && aligned16(kx) && aligned16(kz)));
+  const int last = (int)cudaGetLastError();
+  return err != 0 ? err : last;
 }

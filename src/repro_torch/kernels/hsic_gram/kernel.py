@@ -33,7 +33,7 @@ _ARGTYPES = {
     "nhsic_stats_feats": [_P] * 7 + [_I] * 5 + [_P],
     "nhsic_grad": [_P] * 7 + [_I] * 5 + [_P],
     "gram": [_P] * 3 + [_I] * 3 + [_P],
-    "gram_stats": [_P] * 9 + [_I] + [_P],
+    "gram_stats": [_P] * 3 + [_I] + [_P],
 }
 _lib = None
 _fns = {}     # the bound C entry points, looked up once
@@ -175,8 +175,9 @@ def gram(x, s2, *, linear: bool = False):
 
 def gram_stats(Kx, Kz):
     """Two (B, B) Grams -> (3,) [Σ K̃x∘K̃z, ‖K̃x‖², ‖K̃z‖²] with
-    K̃ = K − rowmean_i − colmean_j + mean, summed in a fixed order.  The
-    means are reduced here, outside the kernel, as the reference does.
+    K̃ = K − rowmean_i − colmean_j + mean, summed in a fixed order.  One
+    launch, which reduces the means itself, as the reference's kernel
+    function does; B is at most 13,619 (the kernel refuses a larger one).
     Replaces ``gram_stats_pallas``."""
     if Kx.device.type == "cpu":
         return ref.gram_stats(Kx, Kz)
@@ -185,14 +186,7 @@ def gram_stats(Kx, Kz):
         raise ValueError(f"gram_stats: Kx and Kz must be (B, B), got "
                          f"{tuple(Kx.shape)} and {tuple(Kz.shape)}")
     check_kernel_inputs("gram_stats", Kx.device, Kx=Kx, Kz=Kz)
-    B = Kx.shape[0]
-    rx, cx, rz, cz = Kx.mean(1), Kx.mean(0), Kz.mean(1), Kz.mean(0)
-    m = torch.stack([Kx.mean(), Kz.mean()])
-    tiles = -(-B // TILE)
-    partial = torch.empty(3 * tiles * tiles, device=Kx.device,
-                          dtype=torch.float32)
     out = torch.empty(3, device=Kx.device, dtype=torch.float32)
-    _launch("gram_stats", Kx.data_ptr(), Kz.data_ptr(), rx.data_ptr(),
-            cx.data_ptr(), rz.data_ptr(), cz.data_ptr(), m.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), B, _stream(Kx.device))
+    _launch("gram_stats", Kx.data_ptr(), Kz.data_ptr(), out.data_ptr(),
+            Kx.shape[0], _stream(Kx.device))
     return out

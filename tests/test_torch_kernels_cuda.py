@@ -177,6 +177,100 @@ def test_identical_rows_give_exact_zeros(cuda, case):
         assert torch.isfinite(g).all() and (g == 0).all()
 
 
+# K1 at the edges of its cluster (K2's and K3's: D = 1 and below the
+# cluster size, off a multiple of 4, 4096 and above) and at B = 1, 16 (one
+# entry of a thread's four live), 33 and 256 (more than one tile): (B, Dx,
+# Dz), each with both sides RBF, both linear, and one of each
+ROWSUM_CASES = [(1, 5, 1), (16, 4096, 100), (33, 10, 4096), (48, 100, 33),
+                (256, 1, 4096), (33, 4100, 3), (48, 8192, 64), (1, 7, 9),
+                (16, 64, 128), (33, 256, 64), (256, 256, 64)]
+SIDES = [(False, False), (True, True), (True, False)]
+
+
+def _rowsum_inputs(B, Dx, Dz, lx, lz, device):
+    rng = np.random.default_rng(B * 1000 + Dx + Dz)
+    sides = []
+    for D, linear in ((Dx, lx), (Dz, lz)):
+        if linear:
+            a = np.eye(D, dtype=np.float32)[rng.integers(0, D, B)]
+        else:
+            a = rng.standard_normal((B, D)).astype(np.float32)
+        sides.append(torch.from_numpy(a).to(device))
+    x, z = sides
+    one = torch.ones((), device=device)
+    s2 = torch.stack([one if lx else hsic.rbf_sigma2(x),
+                      one if lz else hsic.rbf_sigma2(z)])
+    return x, z, s2
+
+
+@pytest.mark.parametrize("sides", SIDES, ids=["rbf-rbf", "lin-lin",
+                                              "lin-rbf"])
+@pytest.mark.parametrize("case", ROWSUM_CASES,
+                         ids=[str(c) for c in ROWSUM_CASES])
+def test_rowsums_kernel_matches_plain_version(cuda, case, sides):
+    """K1 against its plain version, each side at the bar; a single RBF
+    row sums to exactly 1 (its own value: the plain version's clamped
+    bandwidth turns its rounding of a zero distance into exp(-big))."""
+    B, Dx, Dz = case
+    lx, lz = sides
+    x, z, s2 = _rowsum_inputs(B, Dx, Dz, lx, lz, cuda)
+    kernel.reset_launches()
+    got = kernel.nhsic_rowsums(x, z, s2, linear_x=lx, linear_z=lz)
+    want = ref.nhsic_rowsums(x, z, s2, linear_x=lx, linear_z=lz)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES["nhsic_rowsums"] == 1
+    for g, w, linear in zip(got, want, sides):
+        assert g.shape == (B,) and g.dtype == torch.float32
+        assert torch.isfinite(g).all()
+        if B == 1 and not linear:
+            assert torch.equal(g, torch.ones_like(g))
+        else:
+            assert _rel(g, w) <= TOL
+
+
+@pytest.mark.parametrize("case", IDENTICAL_CASES,
+                         ids=[str(c) for c in IDENTICAL_CASES])
+def test_rowsums_of_identical_rows_are_exactly_B(cuda, case):
+    x, z = _inputs(case, cuda)
+    B = x.shape[0]
+    s2 = torch.stack([hsic.rbf_sigma2(x), hsic.rbf_sigma2(z)])
+    rxs, rzs = kernel.nhsic_rowsums(x, z, s2)
+    assert bool((rxs == B).all()) and bool((rzs == B).all())
+
+
+@pytest.mark.parametrize("case", REPEAT_CASES,
+                         ids=[str(c) for c in REPEAT_CASES])
+def test_rowsums_kernel_repeats_its_bits(cuda, case):
+    x, z = _inputs(case, cuda)
+    s2 = torch.stack([hsic.rbf_sigma2(x), hsic.rbf_sigma2(z)])
+    runs = [kernel.nhsic_rowsums(x, z, s2) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for r in runs for a, b in zip(r, runs[0]))
+
+
+def _device_ops(fn, runs=5):
+    """(device ops per call of ``fn``, the names of those ops) from the
+    profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(names) / runs, set(names)
+
+
+@pytest.mark.parametrize("B", [32, 256])
+def test_rowsums_kernel_is_one_device_op(cuda, B):
+    x, z = _inputs((B, 256, 512, False, False), cuda)
+    s2 = torch.stack([hsic.rbf_sigma2(x), hsic.rbf_sigma2(z)])
+    n, names = _device_ops(lambda: kernel.nhsic_rowsums(x, z, s2))
+    assert n == 1 and all("nhsic_rowsums_kernel" in k for k in names)
+
+
 def test_wrappers_raise_on_bad_inputs(cuda):
     x, z = _inputs((32, 3, 64, False, False), cuda)
     s2 = torch.ones(2, device=cuda)
@@ -270,7 +364,7 @@ def test_gram_kernel_upcasts_bf16(cuda):
 
 
 @pytest.mark.parametrize("symmetric", [True, False], ids=["sym", "nonsym"])
-@pytest.mark.parametrize("B", [256, 32, 16, 1, 33, 200])
+@pytest.mark.parametrize("B", [256, 32, 16, 1, 33, 200, 512, 513, 1000])
 def test_gram_stats_kernel_matches_plain_version(cuda, B, symmetric):
     rng = np.random.default_rng(B)
     kx, kz = (torch.from_numpy(rng.uniform(size=(B, B)).astype(np.float32))
@@ -294,6 +388,36 @@ def test_gram_stats_are_the_same_from_run_to_run(cuda):
     kz = kernel.gram(x[:, :64].contiguous(), 1.0, linear=True)
     runs = [kernel.gram_stats(kx, kz) for _ in range(3)]
     assert all(torch.equal(r, runs[0]) for r in runs)
+
+
+@pytest.mark.parametrize("symmetric", [True, False], ids=["sym", "nonsym"])
+@pytest.mark.parametrize("B", [256, 32, 16, 33, 512, 1000])
+def test_gram_stats_kernel_holds_near_constant_grams(cuda, B, symmetric):
+    """Every entry in 1 +- 1e-3: centring cancels all but the last three
+    digits.  The two Grams share half their variation, so the trace term
+    is about half the norms; between two independent ones it is a sum that
+    cancels to f32 rounding noise (the plain version's too), which no
+    relative bar can hold."""
+    rng = np.random.default_rng(B + 7)
+    u, v = (rng.uniform(-1, 1, (B, B)) for _ in range(2))
+    if symmetric:
+        u, v = (u + u.T) / 2, (v + v.T) / 2
+    kx, kz = (torch.from_numpy((1 + 1e-3 * a).astype(np.float32)).to(cuda)
+              for a in (u, (u + v) / 2))
+    got = kernel.gram_stats(kx, kz)
+    want = ref.gram_stats(kx, kz)
+    torch.cuda.synchronize()
+    assert float(((got - want).abs() / want.abs().clamp_min(1e-6)).max()) \
+        <= TOL
+
+
+@pytest.mark.parametrize("B", [32, 256, 1000])
+def test_gram_stats_kernel_is_one_device_op(cuda, B):
+    """The wrapper issues the kernel alone: it reduces the means itself."""
+    kx, kz = (_gram_input(B, 8, cuda, False) for _ in range(2))
+    kx, kz = kernel.gram(kx, 8.0), kernel.gram(kz, 8.0)
+    n, names = _device_ops(lambda: kernel.gram_stats(kx, kz))
+    assert n == 1 and all("gram_stats_kernel" in k for k in names)
 
 
 @pytest.mark.parametrize("case", CASES, ids=[str(c) for c in CASES])

@@ -3,10 +3,10 @@ own ``__global__`` functions.
 
 ``chip_smoke.py`` times each hand-written kernel, and sums its share of a
 step, by matching the profiler's kernel names against substrings
-(``STREAMING_KERNELS``, ``KERNEL_NAMES``).  A name that no kernel has any
-more reads as no time at all, and a name inside another kernel's name
-(``stats_kernel`` in ``gram_stats_kernel``) adds that kernel's time: both
-without a warning.  These tests read the CUDA sources, so they run without
+(``STREAMING_KERNELS``, ``GRAM_KERNELS``, ``KERNEL_NAMES``).  A name that
+no kernel has any more reads as no time at all, and a name inside another
+kernel's name (``stats_kernel`` in ``gram_stats_kernel``) adds that
+kernel's time: both without a warning.  These tests read the CUDA sources, so they run without
 a card.
 """
 import importlib.util
@@ -31,6 +31,8 @@ _spec.loader.exec_module(chip_smoke)
 # (where chip_smoke lists it, family, name)
 NAMES = ([("STREAMING_KERNELS", "nhsic", n)
           for names in chip_smoke.STREAMING_KERNELS.values() for n in names]
+         + [("GRAM_KERNELS", "nhsic", n)
+            for names in chip_smoke.GRAM_KERNELS.values() for n in names]
          + [("KERNEL_NAMES", fam, n)
             for fam, names in chip_smoke.KERNEL_NAMES.items()
             for n in names])
@@ -47,6 +49,10 @@ def test_every_source_declares_kernels():
     assert set(chip_smoke.KERNEL_NAMES) == set(SOURCES)
     assert set(chip_smoke.STREAMING_KERNELS) == {
         "nhsic_rowsums", "nhsic_stats_feats", "nhsic_grad"}
+    assert set(chip_smoke.GRAM_KERNELS) == {"gram", "gram_stats"}
+    # the profile of a training step counts every streaming kernel
+    assert {n for names in chip_smoke.STREAMING_KERNELS.values()
+            for n in names} <= set(chip_smoke.KERNEL_NAMES["nhsic"])
 
 
 @pytest.mark.parametrize("where,family,name", NAMES, ids=IDS)
