@@ -9,7 +9,8 @@
    compiler per source, all started together; prints the build time.
 2. Kernel phase: each kernel's wrapper against its plain PyTorch version on
    the card, with TF32 off.  K1-K3 (forward, and the autograd backward of
-   nHSIC) at the main paths' shapes, at batches/widths off the 32-row
+   nHSIC) at the main paths' shapes and those of the Fig. 6 CNNs at
+   batch 128 (from their block plans), at batches/widths off the 32-row
    tile and at the edges of K1's, K2's and K3's thread-block clusters (D
    below the cluster size, off a multiple of 4, 4096 and above; B from 1
    to 256), identical rows (K1's row sums then exactly B, K2 and K3's
@@ -69,6 +70,25 @@
    (its attention rows through K4, its nHSIC rows through K1-K3 and, in
    ``nhsic_unfused``, K6 and K7; the only path that runs K6 and K7); the
    rows go to ``chiprun_out/bench_kernels.json``.
+7. Main path 5: the paper's VGG11 and SqueezeNet at full width, each as
+   main path 1 runs ResNet18 (32x32x3, 10 classes, batch 32, 4 stages,
+   nHSIC through K1-K3, the same fleet and data): four rounds, one per
+   stage, then an evaluation; K1-K3 twice per local step; then the step
+   check per stage (with the plain path's own sensitivity) and the
+   profile.
+8. The Fig. 6 phase, after every server is freed: the paper's peak-memory
+   claim measured by ``benchmarks/fig6_memory.py``'s ``run``
+   (``analysis.memory.measure_local_training``: the allocator's peak over
+   two local steps on the same two batches, each from an empty cache with
+   nothing else on the card, TF32 off), every stage against the
+   full-model step.  ResNet18/34, VGG11 and SqueezeNet at the paper's
+   batch of 128, 4 stages; ViT-12 at batch 32, 3 stages, K4 on;
+   xlstm-1.3b at batch 16, seq 256, 3 stages, K5 on (an out-of-memory
+   error fails the run).  Each peak is printed beside the analytic
+   estimate (``core.memory``); every stage must peak below its full step,
+   else the run fails.  The table goes to ``chiprun_out/fig6_memory.json``.
+   Every shape nHSIC takes there must be one the kernel phase held.  Then
+   the step check of the four CNNs at batch 128, one step per stage.
 
 Each main path is driven with the launch counts set to 0 just before it
 and read just after.  Prints the card's name and power limit, a JSON line
@@ -77,6 +97,7 @@ the last line ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero.  Details go to ``chiprun_out/chip_smoke.json``.
 """
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -87,6 +108,7 @@ import time
 ROOT = os.path.dirname(os.path.realpath(__file__))
 OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke.json")
 BENCH_OUT = os.path.join(ROOT, "chiprun_out", "bench_kernels.json")
+FIG6_OUT = os.path.join(ROOT, "chiprun_out", "fig6_memory.json")
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 # H100 SXM peak rates (dense): a matrix product in f32 is counted at the
@@ -101,12 +123,15 @@ SEED = 0
 
 # (B, Dx, Dz, linear_x): h_xz at the four ResNet18 stages, then h_yz;
 # then the ViT-12's h_xz (every stage) and h_yz; then xlstm-1.3b's h_xz
-# (every stage) and h_yz (256 label buckets)
+# (every stage) and h_yz (256 label buckets); then the h_xz of VGG11's
+# stages and of SqueezeNet's not above (their h_yz is ResNet18's)
 MAIN_PATH_SHAPES = [(32, 3, 64, False), (32, 64, 128, False),
                     (32, 128, 256, False), (32, 256, 512, False),
                     (32, 10, 64, True), (32, 384, 384, False),
                     (32, 100, 64, True), (16, 2048, 2048, False),
-                    (16, 256, 64, True)]
+                    (16, 256, 64, True), (32, 3, 128, False),
+                    (32, 64, 256, False), (32, 512, 512, False),
+                    (32, 256, 384, False), (32, 384, 512, False)]
 # off the tile: B in {48, 256}, D in {1, 512}; then identical rows
 EXTRA_SHAPES = [(48, 1, 512, False), (48, 512, 1, True), (256, 1, 512, False),
                 (256, 512, 1, True), (256, 512, 512, False)]
@@ -207,6 +232,8 @@ STATE = ("c", "n", "m", "h")
 
 # main path sizes (a CPU rehearsal shrinks them)
 RESNET = dict(arch="resnet18", num_classes=10, image_size=32, width_mult=1.0)
+# main path 5: the paper's other two CNNs, as main path 1 runs ResNet18
+ZOO = [dict(RESNET, arch="vgg11"), dict(RESNET, arch="squeezenet")]
 RESNET_IMAGES = 16000
 VIT = dict(num_classes=100, image_size=64, num_layers=12, d_model=384)
 VIT_IMAGES = 9600
@@ -412,7 +439,7 @@ def rel_each(got, want):
 def kernel_phase(torch, kernel, ops, ref, hsic):
     names = STREAMING
     errs = {}
-    cases = ([(s, False) for s in MAIN_PATH_SHAPES + EXTRA_SHAPES
+    cases = ([(s, False) for s in nhsic_shapes() + EXTRA_SHAPES
               + CLUSTER_EDGE_SHAPES]
              + [(s, True) for s in DEGENERATE_SHAPES])
     for (B, Dx, Dz, lx), degenerate in cases:
@@ -1001,49 +1028,86 @@ def read_all(kernels):
     return {n: c for k in kernels for n, c in k.LAUNCHES.items()}
 
 
-def record_outcomes(server):
-    """Keep each round's ``RoundOutcome`` (its true local step counts)."""
-    outcomes = []
+def record_steps(server):
+    """Keep each round's true local step count (from its
+    ``RoundOutcome``; not the outcome, which holds the round's params)."""
+    steps = []
     run = server.runtime.run_round
 
     def recorded(*a, **kw):
         out = run(*a, **kw)
-        outcomes.append(out)
+        steps.append(sum(out.num_batches))
         return out
 
     server.runtime.run_round = recorded
-    return outcomes
+    return steps
+
+
+def record_eval_peaks(torch, server):
+    """Split a round's peak at the server's evaluation: keep the
+    allocator's peak up to it (local training and aggregation) and its
+    peak during it.  The round has already read its losses, so the
+    synchronize adds no host sync."""
+    peaks = []
+    evaluate = server.evaluate
+
+    def measured(*a, **kw):
+        torch.cuda.synchronize()
+        before = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = evaluate(*a, **kw)
+        torch.cuda.synchronize()
+        peaks.append((before, torch.cuda.max_memory_allocated()))
+        return out
+
+    server.evaluate = measured
+    return peaks
 
 
 def run_rounds(torch, server, kernels, n, quiet=False):
-    """``n`` rounds; per round the seconds, peak allocated bytes, local
-    steps and each kernel's launches."""
-    outcomes = record_outcomes(server)
+    """``n`` rounds; per round the seconds, peak allocated bytes (and,
+    where the round evaluates, the peak before and during the evaluation),
+    local steps and each kernel's launches."""
+    step_counts = record_steps(server)
+    eval_peaks = record_eval_peaks(torch, server)
     rounds = []
     for r in range(n):
         before = read_all(kernels)
-        done = len(outcomes)
+        done, evals = len(step_counts), len(eval_peaks)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         rr = server.run_round(r)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
+        split = {}
+        if len(eval_peaks) > evals:
+            train, during = eval_peaks[-1]
+            peak = max(train, peak)
+            split = dict(train_peak_bytes=train, eval_peak_bytes=during)
         after = read_all(kernels)
         launches = {n_: after[n_] - before[n_] for n_ in after}
-        steps = sum(sum(o.num_batches) for o in outcomes[done:])
-        rounds.append(dict(vars(rr), seconds=sec, peak_bytes=peak,
+        steps = sum(step_counts[done:])
+        rounds.append(dict(vars(rr), seconds=sec, peak_bytes=peak, **split,
                            launches=launches, local_steps=steps))
         if not quiet:
+            where = (f" (before the evaluation "
+                     f"{split['train_peak_bytes'] / 2**20:.1f}, during it "
+                     f"{split['eval_peak_bytes'] / 2**20:.1f})"
+                     if split else "")
             print(f"  round {r}: {rr}", flush=True)
-            print(f"    {sec:.3f} s, peak allocated {peak / 2**20:.1f} MiB, "
-                  f"{steps} local steps, launches {launches}", flush=True)
+            print(f"    {sec:.3f} s, peak allocated {peak / 2**20:.1f} MiB"
+                  f"{where}, {steps} local steps, launches {launches}",
+                  flush=True)
+    # the wrappers close over the server: drop them, so that no reference
+    # cycle keeps its tensors on the card once the caller lets it go
+    del server.runtime.run_round, server.evaluate
     return rounds
 
 
-def resnet_server(np, quiet=False):
-    """Main path 1's server: full-width ResNet18 over a 100-device fleet,
-    built from SEED."""
+def cnn_server(np, spec=RESNET, quiet=False):
+    """Main path 1's server (main path 5's with another ``spec``): a
+    full-width CNN over a 100-device fleet, built from SEED."""
     from repro_torch.core.progressive import make_adapter
     from repro_torch.data.loader import Batcher
     from repro_torch.data.partition import dirichlet_partition
@@ -1051,7 +1115,7 @@ def resnet_server(np, quiet=False):
     from repro_torch.federated.server import FLConfig, NeuLiteServer
     from repro_torch.models.cnn import CNNConfig
 
-    ccfg = CNNConfig(name="resnet18", **RESNET)
+    ccfg = CNNConfig(name=spec["arch"], **spec)
     flc = FLConfig(n_devices=100, clients_per_round=4, local_epochs=1,
                    batch_size=32, num_stages=4, use_hsic_kernel=True,
                    runtime="sequential", seed=SEED)
@@ -1074,10 +1138,10 @@ def resnet_server(np, quiet=False):
     return server
 
 
-def main_path(torch, kernels, np):
+def main_path(torch, kernels, np, spec=RESNET):
     """Main path 1: four rounds of full-width ResNet18, one per stage, with
-    an evaluation each round."""
-    server = resnet_server(np)
+    an evaluation each round (main path 5: VGG11 or SqueezeNet, ``spec``)."""
+    server = cnn_server(np, spec)
     reset_all(kernels)
     rounds = run_rounds(torch, server, kernels,
                         server.adapter.plan.num_stages)
@@ -1093,7 +1157,7 @@ def main_path(torch, kernels, np):
     check(counts["slstm_scan_fwd"] == counts["slstm_scan_bwd"] == 0,
           "an sLSTM scan in a CNN")
     check(counts["gram"] == 0 and counts["gram_stats"] == 0,
-          f"a dense-Gram kernel on the ResNet path: {counts}")
+          f"a dense-Gram kernel on a CNN path: {counts}")
     check(any(r["n_feasible"] > 0 for r in rounds), "no feasible round")
     check(all(math.isfinite(r["mean_loss"]) for r in rounds
               if r["n_selected"] > 0), "non-finite round loss")
@@ -1125,7 +1189,7 @@ def determinism_phase(torch, kernels, np, rounds, params):
     import warnings
 
     def run(default_cudnn):
-        server = resnet_server(np, quiet=True)
+        server = cnn_server(np, quiet=True)
         if default_cudnn:
             torch.backends.cudnn.deterministic = False
         reset_all(kernels)
@@ -1342,12 +1406,12 @@ def _leaves(tree):
     return tree_leaves(tree)
 
 
-def _step(torch, adapter, server, t, params, batch, use_kernel):
+def _step(adapter, t, params, batch, lr, hp, use_kernel):
     from repro_torch.core.progressive import make_stage_step
     from repro_torch.optim.optimizers import sgd
     frozen, trainable = adapter.split_stage(params, t)
-    opt = sgd(server.flc.lr)
-    hp = dataclasses.replace(server.hp, use_hsic_kernel=use_kernel)
+    opt = sgd(lr)
+    hp = dataclasses.replace(hp, use_hsic_kernel=use_kernel)
     step = make_stage_step(adapter, opt, hp, t)
     _, new, m = step(opt.init(trainable), trainable, frozen, batch,
                      trainable)
@@ -1379,15 +1443,20 @@ def step_check(torch, server, plain_adapter=None, sensitivity=False):
     tests/test_torch_vit.py::test_full_width_vit12_is_chaotic_at_init), the
     bar is 10 times it; otherwise it is TOL."""
     from repro_torch.common.device import to_device
-    from repro_torch.common.tree import tree_map
-    plain_adapter = plain_adapter or server.adapter
     batch = to_device(next(server.test_batcher.epoch()), server.device)
+    return stage_step_check(server.adapter, plain_adapter or server.adapter,
+                            server.params, batch, server.flc.lr, server.hp,
+                            sensitivity)
+
+
+def stage_step_check(adapter, plain_adapter, params, batch, lr, hp,
+                     sensitivity):
+    """``step_check`` of ``adapter`` at ``params`` on ``batch``."""
+    from repro_torch.common.tree import tree_map
     out = []
-    for t in range(server.adapter.plan.num_stages):
-        kern = _step(torch, server.adapter, server, t, server.params, batch,
-                     True)
-        plain = _step(torch, plain_adapter, server, t, server.params, batch,
-                      False)
+    for t in range(adapter.plan.num_stages):
+        kern = _step(adapter, t, params, batch, lr, hp, True)
+        plain = _step(plain_adapter, t, params, batch, lr, hp, False)
         loss_rel, params_rel = _step_diff(kern, plain)
         row = {"stage": t, "loss": float(kern[1]["loss"]),
                "plain_loss": float(plain[1]["loss"]), "loss_rel": loss_rel,
@@ -1396,8 +1465,8 @@ def step_check(torch, server, plain_adapter=None, sensitivity=False):
                "nhsic_yz": float(kern[1]["nhsic_yz"])}
         bar_loss = bar_params = TOL
         if sensitivity:
-            eps = tree_map(lambda p: p * (1 + 1e-7), server.params)
-            moved = _step(torch, plain_adapter, server, t, eps, batch, False)
+            eps = tree_map(lambda p: p * (1 + 1e-7), params)
+            moved = _step(plain_adapter, t, eps, batch, lr, hp, False)
             s_loss, s_params = _step_diff(moved, plain)
             bar_loss = max(TOL, 10 * s_loss) if s_loss > TOL / 10 else TOL
             bar_params = (max(TOL, 10 * s_params) if s_params > TOL / 10
@@ -1575,6 +1644,110 @@ def step_profile(torch, server, steps=5):
     return out
 
 
+def fig6_nhsic_shapes():
+    """(B, Dx, Dz, linear_x) of the nHSIC calls of the Fig. 6 CNNs' stage
+    steps at the paper's batch, from their adapters' block plans: h_xz
+    between the frozen prefix's output (the images at stage 0) and the
+    active block's, h_yz between the labels and the 64-wide projection."""
+    from repro_torch.benchmarks import fig6_memory as fig6
+    from repro_torch.models.cnn import unit_meta
+    B, out = fig6.PAPER_BATCH, []
+    for arch, stages in fig6.CNNS:
+        adapter = fig6.cnn_adapter(arch, stages)
+        cfg, metas = adapter.cfg, unit_meta(adapter.cfg)
+        for t in range(stages):
+            (_, f1), _, (_, a1) = adapter.plan.stage_ranges(t)
+            dx = metas[f1 - 1][1]["cout"] if f1 else cfg.in_channels
+            out.append((B, dx, metas[a1 - 1][1]["cout"], False))
+        out.append((B, cfg.num_classes, 64, True))
+    return out
+
+
+def nhsic_shapes():
+    """The training paths' nHSIC shapes, each once: the main paths', then
+    the Fig. 6 CNNs'."""
+    return list(dict.fromkeys(MAIN_PATH_SHAPES + fig6_nhsic_shapes()))
+
+
+def fig6_step_check(torch, device):
+    """One step per stage of each Fig. 6 CNN at the paper's batch, on the
+    phase's first batch, kernel path against plain path (``step_check``,
+    with the plain path's own sensitivity)."""
+    from repro_torch.benchmarks import fig6_memory as fig6
+    from repro_torch.common.device import to_device
+    from repro_torch.core.curriculum import CurriculumHP
+    out = {}
+    for arch, stages in fig6.CNNS:
+        adapter = fig6.cnn_adapter(arch, stages)
+        print(f"  {arch} B={fig6.PAPER_BATCH}:", flush=True)
+        batch = to_device(fig6.image_batches(adapter, fig6.PAPER_BATCH)[0],
+                          device)
+        out[arch] = stage_step_check(
+            adapter, adapter, adapter.init_params(fig6.SEED, device), batch,
+            fig6.LR, CurriculumHP(), sensitivity=True)
+        gc.collect()
+    return out
+
+
+def fig6_phase(torch, kernels):
+    """The paper's Fig. 6 on the card (``fig6_memory.run``), every model's
+    measurements from an empty cache with nothing else resident.  The
+    shapes nHSIC takes in the phase must all have been held against the
+    plain version in the kernel phase; then the step check of the CNNs at
+    the paper's batch.  Returns the rows, the kernels' launches in the
+    measurements and the step checks."""
+    from repro_torch.benchmarks import fig6_memory as fig6
+    from repro_torch.kernels.hsic_gram import ops
+
+    device = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    print(f"  allocated before the phase: {before} bytes", flush=True)
+    seen, nhsic = set(), ops.nhsic
+
+    def recorded(x, z, *, kernel_x="rbf", kernel_z="rbf"):
+        seen.add((x.shape[0], x.shape[1], z.shape[1], kernel_x == "linear",
+                  kernel_z))
+        return nhsic(x, z, kernel_x=kernel_x, kernel_z=kernel_z)
+
+    reset_all(kernels)
+    ops.nhsic = recorded
+    try:
+        rows = fig6.run(device, FIG6_OUT)
+    finally:
+        ops.nhsic = nhsic
+    counts = read_all(kernels)
+    print(f"  launches {counts}", flush=True)
+    for name, r in rows.items():
+        check(all(math.isfinite(e["mean_loss"]) and e["num_batches"] == 2
+                  for e in r["stages"] + [r["full"]]),
+              f"{name}: a step did not take two finite-loss batches")
+    stage_steps = sum(2 * len(r["stages"]) for r in rows.values())
+    check(all(counts[n] == 2 * stage_steps for n in STREAMING),
+          f"expected 2 launches of each nHSIC kernel per stage step "
+          f"({stage_steps} steps): {counts}")
+    check(all(counts[n] > 0 for n in ("flash_attention_fwd",
+                                      "slstm_scan_fwd", "slstm_scan_bwd")),
+          f"a per-layer kernel never ran in the Fig. 6 phase: {counts}")
+    held = set(nhsic_shapes())
+    unheld = {s for s in seen if s[4] != "rbf" or s[:4] not in held}
+    check(not unheld, f"nHSIC shapes of the Fig. 6 phase that the kernel "
+          f"phase did not hold against the plain version: {unheld}")
+    print(f"  nHSIC took {len(seen)} shapes, each held in the kernel phase",
+          flush=True)
+    failures = {name: r["failures"] for name, r in rows.items()
+                if r["failures"]}
+    check(not failures, f"a stage peaks at or above its full step: "
+          f"{failures}")
+    print(f"  every stage peaks below its full step; table written to "
+          f"{os.path.relpath(FIG6_OUT, ROOT)}", flush=True)
+    phase("step check of the Fig. 6 CNNs")
+    steps = fig6_step_check(torch, device)
+    return {"rows": rows, "launches": counts, "allocated_before": before,
+            "step_check": steps}, counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1664,8 +1837,26 @@ def main():
     phase("main path 4: kernel benchmark")
     bench_rows, bcounts = bench_path(torch, kernels)
 
+    zoo = {}
+    for spec in ZOO:
+        arch = spec["arch"]
+        phase(f"main path 5: {arch}")
+        zserver, zrounds, zcounts = main_path(torch, kernels, np, spec)
+        phase("step check")
+        zsteps = step_check(torch, zserver, sensitivity=True)
+        phase("step profile")
+        zprofiles = step_profile(torch, zserver)
+        zoo[arch] = {"rounds": zrounds, "launches": zcounts,
+                     "step_check": zsteps, "step_profile": zprofiles}
+        del zserver
+
+    phase("Fig. 6: peak memory of each stage against the full-model step")
+    fig6_out, fcounts = fig6_phase(torch, kernels)
+
     by_path = {"resnet18": counts, "vit12": vcounts, "xlstm": xcounts,
-               "kernels_bench": bcounts}
+               "kernels_bench": bcounts,
+               **{a: z["launches"] for a, z in zoo.items()},
+               "fig6": fcounts}
     launches = {n: sum(c[n] for c in by_path.values()) for n in xcounts}
     sources = {n: os.path.relpath(k.SOURCE, ROOT) for k in kernels
                for n in k.LAUNCHES}
@@ -1735,6 +1926,7 @@ def main():
                              "step_profile": xprofiles},
                    "kernels_bench": {"rows": bench_rows,
                                      "launches": bcounts},
+                   "zoo": zoo, "fig6": fig6_out,
                    "kernels": out_kernels, "device": device}, f, indent=1)
     phase("done")
     print(smi, flush=True)

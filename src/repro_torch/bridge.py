@@ -3,10 +3,12 @@
 The reference keeps conv weights HWIO, (k, k, Cin, Cout); the port keeps
 them OIHW, (Cout, Cin, k, k), as ``torch.nn.functional.conv2d`` takes them.
 A leaf is such a weight by its place in the tree, not by its rank: it is
-the ``"w"`` of a CNN conv (a dict under one of ``CONV_KEYS``).  Every other
-leaf crosses unchanged, the transformer's stacked 4-D attention weights
-(``wq`` (L, d, H, Dh), ``wo`` (L, H, Dh, d)) included.  Both directions
-copy values exactly.
+the ``"w"`` of a CNN conv (a dict under one of ``CONV_KEYS``: the stem's,
+the surrogates' and VGG's ``"conv"``, a residual block's ``"conv1"``,
+``"conv2"`` and ``"proj"``, a fire module's ``"squeeze"``, ``"e1"`` and
+``"e3"``).  Every other leaf crosses unchanged, the transformer's stacked
+4-D attention weights (``wq`` (L, d, H, Dh), ``wo`` (L, H, Dh, d))
+included.  Both directions copy values exactly.
 """
 from __future__ import annotations
 
@@ -15,9 +17,10 @@ import torch
 
 from repro_torch.common.device import DeviceLike, resolve_device
 
-# keys of the CNN's conv param dicts (``models/cnn.py``: stem and surrogate
-# "conv", residual "conv1"/"conv2", 1x1 shortcut "proj")
-CONV_KEYS = ("conv", "conv1", "conv2", "proj")
+# keys of the CNN's conv param dicts (``models/cnn.py``: stem, surrogate
+# and VGG "conv", residual "conv1"/"conv2", 1x1 shortcut "proj", fire
+# module "squeeze"/"e1"/"e3")
+CONV_KEYS = ("conv", "conv1", "conv2", "proj", "squeeze", "e1", "e3")
 
 
 def _map_with_conv(fn, tree, in_conv: bool = False):

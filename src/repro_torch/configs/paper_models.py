@@ -1,7 +1,6 @@
-"""The paper's evaluation models that the port runs (port of
-``repro.configs.paper_models``): ResNet18/34 (Tables 1-2) and the ViT-12 of
-Fig. 5, 12 encoders divided into 3 blocks of 4 for progressive training.
-VGG11 and SqueezeNet come with a later part of the port."""
+"""The paper's evaluation models (port of ``repro.configs.paper_models``):
+ResNet18/34, VGG11 and SqueezeNet (Tables 1-2, Fig. 6) and the ViT-12 of
+Fig. 5, 12 encoders divided into 3 blocks of 4 for progressive training."""
 from repro_torch.models.cnn import CNNConfig
 from repro_torch.models.config import ModelConfig
 
@@ -16,6 +15,19 @@ def resnet18(num_classes: int = 10, image_size: int = 32,
 def resnet34(num_classes: int = 10, image_size: int = 32,
              width_mult: float = 1.0) -> CNNConfig:
     return CNNConfig(name="resnet34", arch="resnet34",
+                     num_classes=num_classes, image_size=image_size,
+                     width_mult=width_mult)
+
+
+def vgg11(num_classes: int = 10, image_size: int = 32,
+          width_mult: float = 1.0) -> CNNConfig:
+    return CNNConfig(name="vgg11", arch="vgg11", num_classes=num_classes,
+                     image_size=image_size, width_mult=width_mult)
+
+
+def squeezenet(num_classes: int = 10, image_size: int = 32,
+               width_mult: float = 1.0) -> CNNConfig:
+    return CNNConfig(name="squeezenet", arch="squeezenet",
                      num_classes=num_classes, image_size=image_size,
                      width_mult=width_mult)
 

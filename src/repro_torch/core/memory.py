@@ -13,6 +13,7 @@ data: an image model is charged no activation bytes.
 from __future__ import annotations
 
 import dataclasses
+from typing import List
 
 from repro_torch.common import paramdef as PD
 from repro_torch.models import cnn as cnn_mod
@@ -90,3 +91,10 @@ def estimate_full_memory(adapter, batch: int, seq: int = 0,
         act = _cnn_act_bytes(adapter.cfg, batch,
                              range(0, adapter.plan.num_units))
     return MemoryEstimate(params_bytes, params_bytes, opt, act)
+
+
+def stage_memory_table(adapter, batch: int, seq: int = 0,
+                       opt_slots: int = 1) -> List[MemoryEstimate]:
+    """``estimate_stage_memory`` of every stage, in stage order."""
+    return [estimate_stage_memory(adapter, t, batch, seq, opt_slots)
+            for t in range(adapter.plan.num_stages)]

@@ -1,5 +1,6 @@
-"""Progressive-training engine: the transformer and CNN adapters and the
-stage train step (port of ``repro.core.progressive``).
+"""Progressive-training engine: the transformer and CNN adapters, the
+stage train step and the full-model step (port of
+``repro.core.progressive``).
 
 An ``Adapter`` binds a model family (stacked transformer periods or a CNN
 unit list) to the NeuLite engine.  It owns the
@@ -11,7 +12,8 @@ dict trees of tensors with the reference's keys and nesting.
 ``make_stage_step`` takes gradients and optimizer state over the trainable
 subtree only; the frozen prefix is a plain forward input run under
 ``torch.no_grad``, so it keeps no activations, gradients or optimizer state.
-That is the paper's memory claim.
+That is the paper's memory claim.  ``make_full_step`` is what it is held
+against: end-to-end training of the whole model (FedAvg's step).
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ class Adapter:
     split_stage: Callable[[Any, int], tuple]
     merge_stage: Callable[[Any, Any, int], Any]
     stage_apply: Callable[[Any, Any, dict], tuple]
+    full_loss: Callable[[Any, dict], torch.Tensor]
     forward_eval: Callable[[Any, dict], torch.Tensor]
 
     def init_params(self, seed: int, device: DeviceLike = None):
@@ -118,13 +121,16 @@ def make_transformer_adapter(cfg: ModelConfig, num_stages: int,
     def stage_apply(frozen, trainable, inputs):
         return tx.stage_apply(frozen, trainable, cfg, inputs)
 
+    def full_loss(params, batch):
+        return tx.loss_fn(params["model"], cfg, batch)
+
     def forward_eval(params, inputs):
         return tx.forward(params["model"], cfg, inputs)
 
     return Adapter(kind="transformer", cfg=cfg, plan=plan, defs=defs,
                    num_classes=cfg.vocab_size, split_stage=split_stage,
                    merge_stage=merge_stage, stage_apply=stage_apply,
-                   forward_eval=forward_eval)
+                   full_loss=full_loss, forward_eval=forward_eval)
 
 
 # =========================================================================== #
@@ -188,13 +194,16 @@ def make_cnn_adapter(ccfg: cnn_mod.CNNConfig, num_stages: int,
         return cnn_mod.cnn_stage_apply(frozen, trainable, ccfg, msplit,
                                        inputs)
 
+    def full_loss(params, batch):
+        return cnn_mod.cnn_loss(params["model"], ccfg, batch)
+
     def forward_eval(params, inputs):
         return cnn_mod.cnn_forward(params["model"], ccfg, inputs["images"])
 
     return Adapter(kind="cnn", cfg=ccfg, plan=plan, defs=defs,
                    num_classes=ccfg.num_classes, split_stage=split_stage,
                    merge_stage=merge_stage, stage_apply=stage_apply,
-                   forward_eval=forward_eval)
+                   full_loss=full_loss, forward_eval=forward_eval)
 
 
 def make_adapter(cfg, num_stages: int, boundary_units: int = 1) -> Adapter:
@@ -219,6 +228,19 @@ def make_stage_loss(adapter: Adapter, hp: cur.CurriculumHP, t: int):
     return loss_fn
 
 
+def _value_and_grad(loss_fn, params, *args):
+    """(loss, aux, grads) of ``loss_fn(params, *args) -> (loss, aux)`` with
+    respect to every leaf of ``params``.  A leaf the loss does not reach (an
+    empty boundary slice) gets a zero gradient, as under ``jax.grad``."""
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss, aux = loss_fn(live, *args)
+    leaves = tree_leaves(live)
+    grads = tree_unflatten(live, [
+        torch.zeros_like(p) if g is None else g for p, g in zip(
+            leaves, torch.autograd.grad(loss, leaves, allow_unused=True))])
+    return loss, aux, grads
+
+
 def make_stage_step(adapter: Adapter, optimizer, hp: cur.CurriculumHP,
                     t: int):
     """train_step(opt_state, trainable, frozen, batch, global_ref)
@@ -227,20 +249,32 @@ def make_stage_step(adapter: Adapter, optimizer, hp: cur.CurriculumHP,
     loss_fn = make_stage_loss(adapter, hp, t)
 
     def train_step(opt_state, trainable, frozen, batch, global_ref):
-        live = tree_map(lambda p: p.detach().requires_grad_(True), trainable)
-        loss, metrics = loss_fn(live, frozen, batch, global_ref)
-        leaves = tree_leaves(live)
-        # a leaf the loss does not reach (an empty boundary slice) gets a
-        # zero gradient, as under jax.grad
-        grads = tree_unflatten(live, [
-            torch.zeros_like(p) if g is None else g for p, g in zip(
-                leaves, torch.autograd.grad(loss, leaves,
-                                            allow_unused=True))])
+        loss, metrics, grads = _value_and_grad(loss_fn, trainable, frozen,
+                                               batch, global_ref)
         updates, opt_state = optimizer.update(grads, opt_state, trainable)
         trainable = apply_updates(trainable, updates)
         metrics = {k: v.detach() if torch.is_tensor(v) else v
                    for k, v in metrics.items()}
         metrics["loss"] = loss.detach()
         return opt_state, trainable, metrics
+
+    return train_step
+
+
+def make_full_step(adapter: Adapter, optimizer):
+    """End-to-end (FedAvg) step over the whole model:
+    train_step(opt_state, params, batch) -> (opt_state, params, {"loss"}),
+    ``params`` a tree holding ``"model"`` (FedAvg passes ``{"model": ...}``
+    alone; a leaf outside it gets a zero gradient).  Every layer keeps its
+    activations for the backward: this is the step a NeuLite stage's memory
+    is held against.  Returns new tensors; the inputs are not modified."""
+    def loss_fn(params, batch):
+        return adapter.full_loss(params, batch), None
+
+    def train_step(opt_state, params, batch):
+        loss, _, grads = _value_and_grad(loss_fn, params, batch)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        params = apply_updates(params, updates)
+        return opt_state, params, {"loss": loss.detach()}
 
     return train_step

@@ -68,6 +68,29 @@ def run_local_training(step_fn: Callable, optimizer, trainable, frozen,
                 opt_state, trainable, frozen, to_device(batch, device), gref)
             losses.append(metrics["loss"])
             nb += 1
+    return _result(trainable, batcher, losses, nb, device)
+
+
+def run_local_training_full(step_fn: Callable, optimizer, params,
+                            batcher: Batcher, local_epochs: int,
+                            device: DeviceLike = None) -> ClientResult:
+    """Full-model local training (the FedAvg-style baselines): E local
+    epochs of ``step_fn`` (a ``make_full_step`` step) on ``device``, the
+    current CUDA card unless the caller passes ``device="cpu"``."""
+    device = resolve_device(device)
+    opt_state = optimizer.init(params)
+    losses, nb = [], 0
+    for _ in range(local_epochs):
+        for batch in batcher.epoch():
+            opt_state, params, metrics = step_fn(
+                opt_state, params, to_device(batch, device))
+            losses.append(metrics["loss"])
+            nb += 1
+    return _result(params, batcher, losses, nb, device)
+
+
+def _result(trainable, batcher: Batcher, losses, nb,
+            device: torch.device) -> ClientResult:
     mean = (torch.stack(losses).mean() if losses
             else torch.zeros((), device=device))
     return ClientResult(trainable=trainable,

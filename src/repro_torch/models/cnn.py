@@ -1,13 +1,12 @@
-"""The paper's ResNet18/34 as unit lists, in PyTorch (port of
-``repro.models.cnn``).
+"""The paper's CNN zoo, ResNet18/34, VGG11 and SqueezeNet, as unit lists,
+in PyTorch (port of ``repro.models.cnn``).
 
-A model is a flat list of *units* (stem, residual blocks); NeuLite splits
-the list into T blocks and trains them progressively.  Normalization is
-GroupNorm, as in the reference.  Public functions take NHWC images and
-return NHWC features (permuted views), as the reference does; inside,
-activations are NCHW and convs go to cuDNN.  Conv weights are OIHW
-(``bridge`` converts the reference's HWIO).  VGG11 and SqueezeNet units
-come with a later part of the port.
+A model is a flat list of *units* (stem, residual blocks, VGG conv layers,
+fire modules); NeuLite splits the list into T blocks and trains them
+progressively.  Normalization is GroupNorm, as in the reference.  Public
+functions take NHWC images and return NHWC features (permuted views), as
+the reference does; inside, activations are NCHW and convs go to cuDNN.
+Conv weights are OIHW (``bridge`` converts the reference's HWIO).
 """
 from __future__ import annotations
 
@@ -18,14 +17,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.common.paramdef import ParamDef
-
-PORTED_ARCHS = ("resnet18", "resnet34")
+from repro_torch.models.layers import cross_entropy
 
 
 @dataclasses.dataclass(frozen=True)
 class CNNConfig:
     name: str
-    arch: str                      # resnet18 | resnet34
+    arch: str                      # resnet18 | resnet34 | vgg11 | squeezenet
     num_classes: int = 10
     width_mult: float = 1.0
     in_channels: int = 3
@@ -127,6 +125,28 @@ def _basic_unit(cfg, cin, cout, stride):
     return ("basic", {"cin": cin, "cout": cout, "stride": stride}, d)
 
 
+def _vgg_unit(cfg, cin, cout, pool):
+    return ("vgg", {"cin": cin, "cout": cout, "stride": 2 if pool else 1},
+            {"conv": conv_defs(cin, cout), "gn": gn_defs(cout)})
+
+
+def _fire_unit(cfg, cin, squeeze, expand, pool):
+    d = {"squeeze": conv_defs(cin, squeeze, k=1), "gn": gn_defs(squeeze),
+         "e1": conv_defs(squeeze, expand, k=1),
+         "e3": conv_defs(squeeze, expand, k=3)}
+    return ("fire", {"cin": cin, "cout": 2 * expand,
+                     "stride": 2 if pool else 1}, d)
+
+
+def _pool(h, stride):
+    """A pooling unit's 2x2 max pool (floor mode, as the reference's VALID
+    ``reduce_window``), skipped once the map is spatially flat (H < 2;
+    NCHW, so H is axis 2)."""
+    if stride == 2 and h.shape[2] >= 2:
+        return F.max_pool2d(h, 2, 2)
+    return h
+
+
 def _unit_apply(kind, meta, params, x, groups):
     s = meta["stride"]
     if kind == "stem":
@@ -138,24 +158,52 @@ def _unit_apply(kind, meta, params, x, groups):
         h = groupnorm(params["gn2"], conv(params["conv2"], h, 1), groups)
         sc = conv(params["proj"], x, s) if "proj" in params else x
         return F.relu(h + sc)
+    if kind == "vgg":
+        return _pool(F.relu(groupnorm(params["gn"], conv(params["conv"], x),
+                                      groups)), s)
+    if kind == "fire":
+        sq = F.relu(groupnorm(params["gn"], conv(params["squeeze"], x),
+                              groups))
+        h = torch.cat([F.relu(conv(params["e1"], sq)),
+                       F.relu(conv(params["e3"], sq))], dim=1)
+        return _pool(h, s)
     raise ValueError(kind)
 
 
 def build_units(cfg: CNNConfig) -> List[Tuple[str, dict, dict]]:
-    if cfg.arch not in PORTED_ARCHS:
-        raise ValueError(f"arch {cfg.arch!r} is not ported yet; the port has "
-                         f"{PORTED_ARCHS}")
     s = cfg.scaled
-    n = [2, 2, 2, 2] if cfg.arch == "resnet18" else [3, 4, 6, 3]
-    widths = [s(64), s(128), s(256), s(512)]
-    units = [_stem_unit(cfg, widths[0])]
-    cin = widths[0]
-    for stage, (reps, cout) in enumerate(zip(n, widths)):
-        for i in range(reps):
-            stride = 2 if (i == 0 and stage > 0) else 1
-            units.append(_basic_unit(cfg, cin, cout, stride))
+    if cfg.arch in ("resnet18", "resnet34"):
+        n = [2, 2, 2, 2] if cfg.arch == "resnet18" else [3, 4, 6, 3]
+        widths = [s(64), s(128), s(256), s(512)]
+        units = [_stem_unit(cfg, widths[0])]
+        cin = widths[0]
+        for stage, (reps, cout) in enumerate(zip(n, widths)):
+            for i in range(reps):
+                stride = 2 if (i == 0 and stage > 0) else 1
+                units.append(_basic_unit(cfg, cin, cout, stride))
+                cin = cout
+        return units
+    if cfg.arch == "vgg11":
+        plan = [(s(64), True), (s(128), True), (s(256), False),
+                (s(256), True), (s(512), False), (s(512), True),
+                (s(512), False), (s(512), True)]
+        units, cin = [], cfg.in_channels
+        for cout, pool in plan:
+            units.append(_vgg_unit(cfg, cin, cout, pool))
             cin = cout
-    return units
+        return units
+    if cfg.arch == "squeezenet":
+        units = [_stem_unit(cfg, s(64))]
+        plan = [(s(16), s(64), False), (s(16), s(64), True),
+                (s(32), s(128), False), (s(32), s(128), True),
+                (s(48), s(192), False), (s(48), s(192), False),
+                (s(64), s(256), True), (s(64), s(256), False)]
+        cin = s(64)
+        for sq, ex, pool in plan:
+            units.append(_fire_unit(cfg, cin, sq, ex, pool))
+            cin = 2 * ex
+        return units
+    raise ValueError(cfg.arch)
 
 
 def cnn_defs(cfg: CNNConfig) -> dict:
@@ -187,6 +235,12 @@ def nhwc(x):
 def cnn_forward(params, cfg: CNNConfig, images):
     x = cnn_apply_units(cfg, unit_meta(cfg), params["units"], nchw(images))
     return linear(params["head"], x.mean(dim=(2, 3)))
+
+
+def cnn_loss(params, cfg: CNNConfig, batch):
+    """Full-model training loss: mean cross-entropy of the logits."""
+    logits = cnn_forward(params, cfg, batch["inputs"]["images"])
+    return cross_entropy(logits, batch["labels"])
 
 
 # --------------------------------------------------------------------------- #

@@ -1,6 +1,7 @@
 """The CUDA kernels (streaming and dense-Gram nHSIC, flash-attention
 forward, sLSTM scan forward and backward) against their plain versions,
-and the ResNet path's rounds against themselves, on the card.  Marked
+the ResNet path's rounds against themselves, and the paper's memory claim
+(every stage's measured peak below the full-model step's), on the card.  Marked
 ``cuda``: without a card every test here skips (the kernels have no CPU
 mode).  On a machine with one:
 
@@ -51,7 +52,11 @@ CASES = [(32, 3, 64, False, False), (32, 64, 128, False, False),
          (1, 5, 1, True, False), (16, 4096, 100, False, False),
          (33, 10, 4096, True, False), (48, 100, 33, True, False),
          (256, 1, 4096, False, False), (33, 4100, 3, False, False),
-         (48, 8192, 64, False, False), (16, 3, 5, False, False)]
+         (48, 8192, 64, False, False), (16, 3, 5, False, False),
+         # h_xz of VGG11's and SqueezeNet's stages not above (the paper's
+         # widths, batch 32): D = 384 is off a power of two
+         (32, 3, 128, False, False), (32, 512, 512, False, False),
+         (32, 256, 384, False, False), (32, 384, 512, False, False)]
 
 
 @pytest.fixture
@@ -680,6 +685,39 @@ def test_slstm_backward_kernel_splits_a_tie_of_the_stabiliser(cuda):
     torch.autograd.backward([hs_p] + [fin_p[k] for k in STATE], cot)
     for x, y in zip(a, p, strict=True):
         assert _rel(x.grad, y.grad) <= TOL
+
+
+@pytest.mark.parametrize("arch", ["resnet18", "vgg11"])
+def test_every_stage_peaks_below_the_full_step(cuda, arch):
+    """The paper's memory claim on a narrow model (width 0.25, 16x16, 4
+    stages, batch 64): each stage's measured peak over two local steps is
+    below the full-model step's on the same batches."""
+    from repro_torch.analysis.memory import (audit_memory,
+                                             measure_local_training)
+    from repro_torch.benchmarks.fig6_memory import two_batches
+    from repro_torch.core.curriculum import CurriculumHP
+    from repro_torch.core.progressive import make_adapter
+    from repro_torch.data.loader import Batcher
+    from repro_torch.data.synthetic import make_image_dataset
+    from repro_torch.models.cnn import CNNConfig
+    from repro_torch.optim.optimizers import sgd
+
+    adapter = make_adapter(CNNConfig(name=arch, arch=arch, image_size=16,
+                                     width_mult=0.25), 4)
+    params = adapter.init_params(0, "cpu")
+    batches = two_batches(Batcher(make_image_dataset(0, 128, image_size=16),
+                                  64))
+    opt, hp = sgd(0.05), CurriculumHP(use_hsic_kernel=True)
+    stages = [measure_local_training(adapter, params, batches, opt, stage=t,
+                                     hp=hp, device=cuda) for t in range(4)]
+    full = measure_local_training(adapter, params, batches, opt, hp=hp,
+                                  device=cuda)
+    assert all(m.num_batches == 2 for m in stages + [full])
+    assert all(np.isfinite(m.mean_loss) for m in stages + [full])
+    assert all(0 < m.resident_bytes < m.peak_bytes for m in stages + [full])
+    _, failures = audit_memory({t: m.peak_bytes for t, m in
+                                enumerate(stages)}, full.peak_bytes)
+    assert not failures, failures
 
 
 def test_resnet_rounds_repeat_bit_for_bit(cuda):

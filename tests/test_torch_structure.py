@@ -170,8 +170,8 @@ def test_unported_archs_and_runtimes_raise():
     from repro_torch.federated.runtime import make_runtime
     from repro_torch.federated.selection import make_policy
     from repro_torch.models.cnn import CNNConfig, build_units
-    with pytest.raises(ValueError, match="not ported"):
-        build_units(CNNConfig(name="v", arch="vgg11"))
+    with pytest.raises(ValueError, match="alexnet"):
+        build_units(CNNConfig(name="a", arch="alexnet"))
     with pytest.raises(ValueError, match="sequential"):
         make_runtime("vectorized", None, None, None, torch.device("cpu"))
     with pytest.raises(ValueError, match="random"):
