@@ -109,6 +109,7 @@ ROOT = os.path.dirname(os.path.realpath(__file__))
 OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke.json")
 BENCH_OUT = os.path.join(ROOT, "chiprun_out", "bench_kernels.json")
 FIG6_OUT = os.path.join(ROOT, "chiprun_out", "fig6_memory.json")
+BENCH_FL_OUT = os.path.join(ROOT, "chiprun_out", "bench_fl_round.json")
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 # H100 SXM peak rates (dense): a matrix product in f32 is counted at the
@@ -673,18 +674,24 @@ def device_ms(torch, fn, names=None, runs=30):
     return sum(ms) if ms else None
 
 
-def device_ops(torch, fn, runs=10):
+def device_ops(torch, fn, runs=10, tries=3):
     """(device ops per call of ``fn``, the set of their names) from
-    ``torch.profiler``, or None when it records no device activity."""
+    ``torch.profiler``, or None when it records no device activity.  The
+    profiler now and then drops device events (PERF.md, section 7); every
+    call here launches at least one op, so a profile with fewer events
+    than calls lost some, and is taken again, at most ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(names) >= runs:
+            break
     return (len(names) / runs, set(names)) if names else None
 
 
@@ -696,6 +703,25 @@ def device_kernel_ms(torch, prof, runs):
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3 / runs)
     return by_name
+
+
+def device_busy_ms(torch, prof, runs):
+    """Device ms per run during which at least one device op ran: the
+    union of their intervals.  A replayed CUDA graph runs independent
+    nodes at once, so the sum of the ops' times (``device_kernel_ms``) can
+    exceed the wall time; the union cannot."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e3 / runs
 
 
 def gram_timing(torch, kernel, ref, hsic):
@@ -1080,6 +1106,9 @@ def run_rounds(torch, server, kernels, n, quiet=False):
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
+        # a captured step's memory pool is reserved, not allocated, between
+        # its replays: the reserved peak shows what the graphs hold
+        reserved = torch.cuda.max_memory_reserved()
         split = {}
         if len(eval_peaks) > evals:
             train, during = eval_peaks[-1]
@@ -1088,7 +1117,8 @@ def run_rounds(torch, server, kernels, n, quiet=False):
         after = read_all(kernels)
         launches = {n_: after[n_] - before[n_] for n_ in after}
         steps = sum(step_counts[done:])
-        rounds.append(dict(vars(rr), seconds=sec, peak_bytes=peak, **split,
+        rounds.append(dict(vars(rr), seconds=sec, peak_bytes=peak,
+                           peak_reserved_bytes=reserved, **split,
                            launches=launches, local_steps=steps))
         if not quiet:
             where = (f" (before the evaluation "
@@ -1097,7 +1127,8 @@ def run_rounds(torch, server, kernels, n, quiet=False):
                      if split else "")
             print(f"  round {r}: {rr}", flush=True)
             print(f"    {sec:.3f} s, peak allocated {peak / 2**20:.1f} MiB"
-                  f"{where}, {steps} local steps, launches {launches}",
+                  f"{where}, reserved {reserved / 2**20:.1f} MiB, {steps} "
+                  f"local steps, launches {launches}",
                   flush=True)
     # the wrappers close over the server: drop them, so that no reference
     # cycle keeps its tensors on the card once the caller lets it go
@@ -1105,9 +1136,10 @@ def run_rounds(torch, server, kernels, n, quiet=False):
     return rounds
 
 
-def cnn_server(np, spec=RESNET, quiet=False):
-    """Main path 1's server (main path 5's with another ``spec``): a
-    full-width CNN over a 100-device fleet, built from SEED."""
+def cnn_server(np, spec=RESNET, quiet=False, runtime="sequential"):
+    """Main path 1's server (main path 5's with another ``spec``, main path
+    6's with ``runtime="vectorized"``): a full-width CNN over a 100-device
+    fleet, built from SEED."""
     from repro_torch.core.progressive import make_adapter
     from repro_torch.data.loader import Batcher
     from repro_torch.data.partition import dirichlet_partition
@@ -1118,7 +1150,7 @@ def cnn_server(np, spec=RESNET, quiet=False):
     ccfg = CNNConfig(name=spec["arch"], **spec)
     flc = FLConfig(n_devices=100, clients_per_round=4, local_epochs=1,
                    batch_size=32, num_stages=4, use_hsic_kernel=True,
-                   runtime="sequential", seed=SEED)
+                   runtime=runtime, seed=SEED)
     adapter = make_adapter(ccfg, flc.num_stages)
     size, classes = ccfg.image_size, ccfg.num_classes
     ds = make_image_dataset(SEED, RESNET_IMAGES, num_classes=classes,
@@ -1146,6 +1178,7 @@ def main_path(torch, kernels, np, spec=RESNET):
     rounds = run_rounds(torch, server, kernels,
                         server.adapter.plan.num_stages)
     counts = read_all(kernels)
+    server.runtime.release()    # the last stage's graphs
 
     hsic = {n: counts[n] for n in STREAMING}
     n_steps = sum(r["local_steps"] for r in rounds)
@@ -1298,6 +1331,7 @@ def transformer_rounds(torch, kernels, np, server, test_batcher, t0):
 
     reset_all(kernels)
     rounds = run_rounds(torch, server, kernels, adapter.plan.num_stages)
+    server.runtime.release()    # the last stage's graphs
     server.test_batcher = test_batcher
     before = read_all(kernels)
     acc = server.evaluate()
@@ -1343,9 +1377,10 @@ def transformer_rounds(torch, kernels, np, server, test_batcher, t0):
     return rounds, counts, acc
 
 
-def vit_main_path(torch, kernels, np):
-    """Main path 2: three rounds of full-width ViT-12, one per stage,
-    attention through K4, then an evaluation."""
+def vit_server(runtime="sequential"):
+    """Main path 2's server (main path 6's with ``runtime="vectorized"``)
+    and its test batcher: full-width ViT-12 over a 100-device fleet, built
+    from SEED."""
     from repro_torch.configs.paper_models import vit
     from repro_torch.core.progressive import make_adapter
     from repro_torch.data.loader import Batcher
@@ -1356,8 +1391,7 @@ def vit_main_path(torch, kernels, np):
     cfg = dataclasses.replace(vit(**VIT), use_flash_kernel=True)
     flc = FLConfig(n_devices=100, clients_per_round=4, local_epochs=1,
                    batch_size=32, num_stages=3, use_hsic_kernel=True,
-                   runtime="sequential", seed=SEED)
-    t0 = time.perf_counter()
+                   runtime=runtime, seed=SEED)
     ds = make_image_dataset(SEED, VIT_IMAGES, num_classes=cfg.vocab_size,
                             image_size=cfg.image_size)
     parts = dirichlet_partition(SEED, ds.labels, flc.n_devices,
@@ -1368,6 +1402,14 @@ def vit_main_path(torch, kernels, np):
                                       num_classes=cfg.vocab_size,
                                       image_size=cfg.image_size), 32,
                    seed=SEED)
+    return server, test
+
+
+def vit_main_path(torch, kernels, np):
+    """Main path 2: three rounds of full-width ViT-12, one per stage,
+    attention through K4, then an evaluation."""
+    t0 = time.perf_counter()
+    server, test = vit_server()
     return (server, *transformer_rounds(torch, kernels, np, server, test,
                                         t0))
 
@@ -1424,11 +1466,14 @@ def _step_diff(a, b):
     (an, am), (bn, bm) = a, b
     loss_rel = abs(float(am["loss"] - bm["loss"])) / max(
         abs(float(bm["loss"])), 1e-6)
-    scale = max(float(p.abs().max()) for p in _leaves(bn) if p.numel())
-    params_rel = max(float((x - y).abs().max())
-                     for x, y in zip(_leaves(an), _leaves(bn))
-                     if x.numel()) / scale
-    return loss_rel, params_rel
+    return loss_rel, _params_rel(an, bn)
+
+
+def _params_rel(a, b):
+    """max |a - b| over the largest entry of b, leaf by leaf."""
+    scale = max(float(p.abs().max()) for p in _leaves(b) if p.numel())
+    return max(float((x - y).abs().max())
+               for x, y in zip(_leaves(a), _leaves(b)) if x.numel()) / scale
 
 
 def step_check(torch, server, plain_adapter=None, sensitivity=False):
@@ -1527,6 +1572,63 @@ def period_check(torch, server, plain_adapter):
     return out
 
 
+def vmap_period_check(torch, server, stack):
+    """Each period of the full-width transformer under ``torch.func.vmap``
+    over the cohorts of ``stack``, as the vectorized runtime runs it (each
+    cohort its own input, its first batch, and its own params, the
+    server's scaled by 1 + c / 100; K4 folds the cohorts into its batch):
+    output and the gradient to the period's params and input for one
+    cotangent, against the same function run on each cohort alone, at
+    TOL.  Well posed where a whole round of the ViT is not."""
+    from repro_torch.common.device import to_device
+    from repro_torch.common.tree import tree_map
+    from repro_torch.models import model as tx
+    cfg = server.adapter.cfg
+    batches = to_device(stack.batches, server.device)
+    layers = server.params["model"]["layers"]
+    with torch.no_grad():
+        embedded = [tx.embed_inputs(server.params["model"], cfg,
+                                    tree_map(lambda a, c=c: a[c, 0],
+                                             batches["inputs"]))
+                    for c in range(stack.num_cohorts)]
+    x = torch.stack([e[0] for e in embedded])
+    pos = embedded[0][1]
+    scale = torch.arange(stack.num_cohorts, device=x.device) * 1e-2 + 1
+
+    def stacked(a):       # (C, ...): cohort c scaled by 1 + c / 100
+        return a[None] * scale.view(-1, *[1] * a.dim())
+
+    def period(lp, xi, cot):
+        y, vjp = torch.func.vjp(lambda p, h: tx._run_periods(p, cfg, h, pos),
+                                lp, xi)
+        return y, vjp(cot)
+
+    gen = torch.Generator().manual_seed(3)
+    out = []
+    for i in range(tx.num_stacked(layers)):
+        lp = tree_map(lambda a, i=i: stacked(a[i:i + 1].detach()), layers)
+        xs = x
+        cot = torch.randn(xs.shape, generator=gen).to(x.device)
+        y, grads = torch.func.vmap(period)(lp, xs, cot)
+        rel_y = rel_g = 0.0
+        for c in range(stack.num_cohorts):
+            yc, gc = period(tree_map(lambda a, c=c: a[c], lp), xs[c], cot[c])
+            rel_y = max(rel_y, rel_abs(y[c], yc)[0])
+            rel_g = max(rel_g, rel_abs([g[c] for g in _leaves(grads)],
+                                       _leaves(gc))[0])
+        check(rel_y <= TOL and rel_g <= TOL,
+              f"period {i} under vmap: {rel_y}, {rel_g} from the cohorts "
+              f"run alone")
+        out.append({"period": i, "out_rel": rel_y, "grad_rel": rel_g})
+        x = y.detach()
+    print(f"  {len(out)} periods under vmap over {stack.num_cohorts} "
+          f"cohorts against "
+          f"each cohort alone: output rel <= "
+          f"{max(r['out_rel'] for r in out):.2e}, grads rel <= "
+          f"{max(r['grad_rel'] for r in out):.2e}", flush=True)
+    return out
+
+
 def slstm_layer_check(torch, server, plain_adapter):
     """Each sLSTM sub-layer of the full-width xLSTM alone, fed the same
     input (the plain path's residual stream before it): the scan through
@@ -1582,66 +1684,76 @@ KERNEL_NAMES = {"nhsic": ("nhsic_rowsums_kernel", "nhsic_stats_kernel",
 
 
 def step_profile(torch, server, steps=5):
-    """Where a full-width local step's time goes: ``torch.profiler`` over
-    ``steps`` steps of each stage (after two warm-up steps).  Device busy
+    """Where a full-width local step's time goes, captured (the runtime's
+    step on the card: one CUDA graph replayed a step) and eager, side by
+    side: ``torch.profiler`` over ``steps`` steps of each stage (after two
+    warm-up steps; the captured step's first captures it).  Device busy
     time is the sum of the card's kernel and copy times; the rest of the
     host-clock wall time the card sits idle.  Only CUDA activity is
     traced (each row says so): tracing the CPU too lengthens the wall time,
     so rows that traced other activities do not compare with these."""
+    return [row for t in range(server.adapter.plan.num_stages)
+            for row in (_stage_profile(torch, server, t, steps, True),
+                        _stage_profile(torch, server, t, steps, False))]
+
+
+def _stage_profile(torch, server, t, steps, captured):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.common.device import to_device
-    from repro_torch.core.progressive import make_stage_step
+    from repro_torch.core.progressive import jit_stage_step, make_stage_step
     from repro_torch.optim.optimizers import sgd
     batch = to_device(next(server.test_batcher.epoch()), server.device)
-    out = []
-    for t in range(server.adapter.plan.num_stages):
-        frozen, trainable = server.adapter.split_stage(server.params, t)
-        opt = sgd(server.flc.lr)
-        step = make_stage_step(server.adapter, opt, server.hp, t)
-        state = opt.init(trainable)
-        for _ in range(2):
+    frozen, trainable = server.adapter.split_stage(server.params, t)
+    opt = sgd(server.flc.lr)
+    step = (jit_stage_step(server.adapter, opt, server.hp, t,
+                           device=server.device) if captured
+            else make_stage_step(server.adapter, opt, server.hp, t))
+    state = opt.init(trainable)
+    for _ in range(2):
+        state, trainable, _ = step(state, trainable, frozen, batch,
+                                   trainable)
+    torch.cuda.synchronize()
+    activities = [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
             state, trainable, _ = step(state, trainable, frozen, batch,
                                        trainable)
         torch.cuda.synchronize()
-        activities = [ProfilerActivity.CUDA]
-        with profile(activities=activities) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                state, trainable, _ = step(state, trainable, frozen, batch,
-                                           trainable)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-        by_name = device_kernel_ms(torch, prof, steps)
-        busy = sum(by_name.values())
-        ours = {fam: sum(v for k, v in by_name.items()
-                         if any(n in k for n in names))
-                for fam, names in KERNEL_NAMES.items()}
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-        row = {"stage": t, "traced": [a.name for a in activities],
-               "wall_ms_per_step": wall_ms,
-               "device_busy_ms_per_step": busy if by_name else None,
-               "nhsic_kernels_ms_per_step": ours["nhsic"] if by_name else None,
-               "flash_kernel_ms_per_step": ours["flash"] if by_name else None,
-               "slstm_kernel_ms_per_step": ours["slstm"] if by_name else None,
-               "idle_share": 1.0 - busy / wall_ms if by_name else None,
-               "device_kernels_per_step": sum(
-                   1 for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA) / steps,
-               "top": [[k[:90], v] for k, v in top]}
-        out.append(row)
-        if by_name:
-            print(f"  stage {t}: {wall_ms:.2f} ms/step wall, device busy "
-                  f"{busy:.2f} ms (nHSIC kernels {ours['nhsic']:.3f} ms, "
-                  f"flash kernel {ours['flash']:.3f} ms, sLSTM scan kernel "
-                  f"{ours['slstm']:.3f} ms), idle "
-                  f"{row['idle_share']:.1%}, "
-                  f"{row['device_kernels_per_step']:.0f} device ops/step",
-                  flush=True)
-        else:
-            print(f"  stage {t}: {wall_ms:.2f} ms/step wall; the profiler "
-                  f"recorded no device time", flush=True)
-    return out
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    by_name = device_kernel_ms(torch, prof, steps)
+    busy = device_busy_ms(torch, prof, steps)
+    ours = {fam: sum(v for k, v in by_name.items()
+                     if any(n in k for n in names))
+            for fam, names in KERNEL_NAMES.items()}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    row = {"stage": t, "traced": [a.name for a in activities],
+           "wall_ms_per_step": wall_ms,
+           "device_busy_ms_per_step": busy if by_name else None,
+           "device_ops_ms_per_step": (sum(by_name.values()) if by_name
+                                      else None),
+           "nhsic_kernels_ms_per_step": ours["nhsic"] if by_name else None,
+           "flash_kernel_ms_per_step": ours["flash"] if by_name else None,
+           "slstm_kernel_ms_per_step": ours["slstm"] if by_name else None,
+           "idle_share": 1.0 - busy / wall_ms if by_name else None,
+           "device_kernels_per_step": sum(
+               1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / steps,
+           "top": [[k[:90], v] for k, v in top]}
+    mode = row["mode"] = "captured" if captured else "eager"
+    if by_name:
+        print(f"  stage {t} {mode}: {wall_ms:.2f} ms/step wall, device busy "
+              f"{busy:.2f} ms (nHSIC kernels {ours['nhsic']:.3f} ms, "
+              f"flash kernel {ours['flash']:.3f} ms, sLSTM scan kernel "
+              f"{ours['slstm']:.3f} ms), idle "
+              f"{row['idle_share']:.1%}, "
+              f"{row['device_kernels_per_step']:.0f} device ops/step",
+              flush=True)
+    else:
+        print(f"  stage {t} {mode}: {wall_ms:.2f} ms/step wall; the "
+              f"profiler recorded no device time", flush=True)
+    return row
 
 
 def fig6_nhsic_shapes():
@@ -1748,6 +1860,457 @@ def fig6_phase(torch, kernels):
             "step_check": steps}, counts
 
 
+# --------------------------------------------------------------------------- #
+# K1-K3 batched over cohorts and K4 folded (the vectorized runtime's calls)
+# --------------------------------------------------------------------------- #
+BATCHED_COHORTS = (1, 3, 4)
+BATCHED_BATCHES = (16, 32, 128)
+# the main paths' widths (Dx, Dz, linear_x): h_xz, and h_yz on the label
+# features, which the vectorized runtime also batches over its cohorts
+BATCHED_WIDTHS = list(dict.fromkeys((Dx, Dz, lx) for _, Dx, Dz, lx in
+                                    MAIN_PATH_SHAPES))
+BATCHED_TIMED = (4, *TIMED_SHAPE)   # C = 4 at the ResNet path's largest call
+
+
+def batched_args(torch, hsic, ref, x, z, lx):
+    """Each K1-K3's (C, ...) inputs: each cohort's as ``kernel_args``
+    builds them, stacked on a leading cohort axis."""
+    per = [kernel_args(torch, hsic, ref, x[c], z[c], lx)
+           for c in range(x.shape[0])]
+    return {n: (tuple(torch.stack([p[n][0][i] for p in per])
+                      for i in range(len(per[0][n][0]))), per[0][n][1])
+            for n in STREAMING}
+
+
+def _tuple(out):
+    return out if isinstance(out, (tuple, list)) else (out,)
+
+
+def batched_phase(torch, kernel, ref, hsic, fkernel, fref):
+    """K1-K3 on (C, B, D) stacks, C in BATCHED_COHORTS, B in
+    BATCHED_BATCHES, at the main paths' h_xz and h_yz widths (linear x
+    for h_yz, as the label features take it): one launch each, every
+    cohort's result the same bits as a launch of its own and within TOL of
+    the plain version.  Then K4 under ``torch.func.vmap`` over four cohorts
+    at the ViT-12 shape: one launch, the same bits as four."""
+    errs, cases = {}, 0
+    for C in BATCHED_COHORTS:
+        for B in BATCHED_BATCHES:
+            for Dx, Dz, lx in BATCHED_WIDTHS:
+                g = torch.Generator().manual_seed(C * 1000 + B * 10 + Dx + Dz)
+                x = torch.randn(C, B, Dx, generator=g).cuda()
+                z = torch.randn(C, B, Dz, generator=g).cuda()
+                args = batched_args(torch, hsic, ref, x, z, lx)
+                for n in STREAMING:
+                    a, kw = args[n]
+                    before = kernel.LAUNCHES[n]
+                    got = _tuple(getattr(kernel, n)(*a, **kw))
+                    check(kernel.LAUNCHES[n] == before + 1,
+                          f"{n} C={C}: not one launch")
+                    for c in range(C):
+                        own = _tuple(getattr(kernel, n)(
+                            *(t[c] for t in a), **kw))
+                        check(all(torch.equal(o[c], w) for o, w in
+                                  zip(got, own)),
+                              f"{n} C={C} B={B} Dx={Dx} Dz={Dz} lx={lx}: "
+                              f"cohort "
+                              f"{c} is not the bits of its own launch")
+                        rel, ab = rel_abs(
+                            tuple(o[c] for o in got),
+                            getattr(ref, n)(*(t[c] for t in a), **kw))
+                        check(rel <= TOL, f"batched {n} C={C} B={B} "
+                              f"Dx={Dx} Dz={Dz} lx={lx} cohort {c}: rel err "
+                              f"{rel}")
+                        track(errs, n, rel, ab)
+                cases += 1
+    torch.cuda.synchronize()
+    print(f"  batched K1-K3 at {cases} (C, B, Dx, Dz, linear_x): one launch "
+          f"each, "
+          f"every cohort the bits of its own launch, rel err <= "
+          + ", ".join(f"{n} {errs[n][1]:.2e}" for n in STREAMING),
+          flush=True)
+    B, Sq, Skv, H, KV, D = FLASH_VIT[:6]
+    g = torch.Generator().manual_seed(4)
+    q, k, v = (torch.randn(4, B, s, h, D, generator=g).cuda()
+               for s, h in ((Sq, H), (Skv, KV), (Skv, KV)))
+    before = fkernel.LAUNCHES["flash_attention_fwd"]
+    folded = torch.func.vmap(lambda a, b, c: fkernel.flash_attention_fwd(
+        a, b, c, causal=False))(q, k, v)
+    check(fkernel.LAUNCHES["flash_attention_fwd"] == before + 1,
+          "folded K4: not one launch")
+    rel = 0.0
+    for c in range(4):
+        check(torch.equal(folded[c], fkernel.flash_attention_fwd(
+            q[c], k[c], v[c], causal=False)),
+            f"folded K4 cohort {c}: not the bits of its own launch")
+        rel = max(rel, rel_abs(folded[c], fref.attention_ref(
+            q[c], k[c], v[c], causal=False))[0])
+    check(rel <= TOL, f"folded K4: rel err {rel}")
+    print(f"  K4 under vmap over 4 cohorts at {FLASH_VIT[:6]}: one launch "
+          f"of (4 x {B}, ...), the bits of four, rel err {rel:.2e}",
+          flush=True)
+    return errs, {"cases": cases, "flash_folded_rel": rel}
+
+
+def batched_timing(torch, kernel, ref, hsic):
+    """One batched K1, K2, K3 call at C = 4 against four unbatched calls on
+    the same cohorts: event and device time, and the bound of the batched
+    call (C times one call's bytes and operations)."""
+    C, B, Dx, Dz, lx = BATCHED_TIMED
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(C, B, Dx, generator=g).cuda()
+    z = torch.randn(C, B, Dz, generator=g).cuda()
+    args = batched_args(torch, hsic, ref, x, z, lx)
+    rows = []
+    for n in STREAMING:
+        a, kw = args[n]
+        fn = getattr(kernel, n)
+        one = lambda: fn(*a, **kw)
+        four = lambda: [fn(*(t[c] for t in a), **kw) for c in range(C)]
+        ms, ms4 = time_ms(torch, one), time_ms(torch, four)
+        dev = device_ms(torch, one, STREAMING_KERNELS[n])
+        dev4 = device_ms(torch, four, STREAMING_KERNELS[n])
+        plain = time_ms(torch, lambda: getattr(ref, n)(*a, **kw))
+        b_ms, b_by = bound_ms(n, (B, Dx, Dz, lx))
+        row = {"name": n, "cohorts": C, "shape": [B, Dx, Dz, lx], "ms": ms,
+               "device_ms": dev, "four_calls_ms": ms4,
+               "four_calls_device_ms": dev4, "plain_ms": plain,
+               "bound_ms": C * b_ms, "bound_by": b_by}
+        rows.append(row)
+        print(f"  time batched {n} C={C} B={B} Dx={Dx} Dz={Dz}: one call "
+              f"{ms:.4f} ms (device {fmt_ms(dev)}), four calls {ms4:.4f} ms "
+              f"(device {fmt_ms(dev4)}), plain {plain:.4f} ms, bound "
+              f"{C * b_ms:.2e} ms ({b_by})", flush=True)
+    return rows
+
+
+# --------------------------------------------------------------------------- #
+# the captured step against the eager step
+# --------------------------------------------------------------------------- #
+def _kernel_sequence(torch, fn):
+    """The device kernels' names of one call of ``fn``, in start order;
+    copies and fills left out (a captured step's loads of its static
+    buffers and writes of its carried outputs are copies)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    return [e.name for e in events
+            if not e.name.startswith(("Memcpy", "Memset"))]
+
+
+def _kernel_diff(eager, captured):
+    """How two kernel sequences differ: the first position where the
+    names part, and the names each runs more often than the other (a
+    replay may start independent kernels in another order; a kernel that
+    only one of them runs is another algorithm)."""
+    from collections import Counter
+    ce, cc = Counter(eager), Counter(captured)
+    return {"eager_kernels": len(eager), "captured_kernels": len(captured),
+            "first_differing_kernel": next(
+                ((i, a, b) for i, (a, b) in enumerate(zip(eager, captured))
+                 if a != b), None),
+            "only_eager": sorted((ce - cc).items())[:8],
+            "only_captured": sorted((cc - ce).items())[:8]}
+
+
+def capture_check(torch, server):
+    """One stage step per stage from the same state on the test batch,
+    eager (``make_stage_step``) and captured (``jit_stage_step``, one CUDA
+    graph replayed): new params, optimizer state and loss must be the same
+    bits.  Where a stage's are not, the first device kernel whose name
+    differs between the eager step's and the replay's profiles is named,
+    and that stage is held at the step bar (TOL) instead.  Also times what
+    a local step's argument copies cost beside the graph's replay."""
+    from repro_torch.common.device import to_device
+    from repro_torch.core.progressive import (CapturedStep, jit_stage_step,
+                                              make_stage_step)
+    from repro_torch.optim.optimizers import sgd
+    adapter = server.adapter
+    batch = to_device(next(server.test_batcher.epoch()), server.device)
+    out = []
+    for t in range(adapter.plan.num_stages):
+        frozen, trainable = adapter.split_stage(server.params, t)
+        opt = sgd(server.flc.lr)
+        eager = make_stage_step(adapter, opt, server.hp, t)
+        captured = jit_stage_step(adapter, opt, server.hp, t,
+                                  device=server.device)
+        check(isinstance(captured, CapturedStep), "the step was not captured")
+        runs = {}
+        for name, step in (("eager", eager), ("captured", captured)):
+            state, tr, m = step(opt.init(trainable), trainable, frozen,
+                                batch, trainable)
+            runs[name] = ([p.clone() for p in _leaves([state, tr])],
+                          m["loss"].clone())
+        (ea, el), (ca, cl) = runs["eager"], runs["captured"]
+        same = (torch.equal(el, cl)
+                and all(torch.equal(a, b) for a, b in zip(ea, ca)))
+        # what a replay's loads cost: the carried trees are the graph's
+        # own buffers after a client's first step, so a local step copies
+        # frozen, the batch and global_ref; the batch alone (the graph's
+        # own frozen and global_ref buffers passed, which it skips) is what
+        # a load that skipped unchanged arguments would copy
+        (graph,) = captured.graphs.values()
+        own = graph.static
+        row = {"stage": t, "bitwise": same, "loss": float(el),
+               "load_ms": time_ms(torch, lambda: graph.load(
+                   (*own[:graph.carried], frozen, batch, trainable))),
+               "load_batch_ms": time_ms(torch, lambda: graph.load(
+                   (*own[:graph.carried], own[2], batch, own[4]))),
+               "replay_ms": time_ms(torch, graph.graph.replay, runs=3,
+                                    warmup=1)}
+        del graph, own    # the graph's pool goes with ``captured`` below
+        if not same:
+            scale = max(float(a.abs().max()) for a in ea if a.numel())
+            row["params_rel"] = max(float((a - b).abs().max())
+                                    for a, b in zip(ea, ca)
+                                    if a.numel()) / scale
+            row["loss_rel"] = abs(float(el - cl)) / max(abs(float(el)), 1e-6)
+            state0 = opt.init(trainable)
+            seq_e = _kernel_sequence(torch, lambda: eager(
+                state0, trainable, frozen, batch, trainable))
+            seq_c = _kernel_sequence(torch, lambda: captured(
+                state0, trainable, frozen, batch, trainable))
+            row.update(_kernel_diff(seq_e, seq_c))
+            check(row["params_rel"] <= TOL and row["loss_rel"] <= TOL,
+                  f"stage {t}: captured vs eager beyond the step bar: {row}")
+        out.append(row)
+        print(f"  stage {t} step, captured vs eager: "
+              + ("the same bits (params, optimizer state, loss)" if same
+                 else f"DIFFER: {row}")
+              + f"; a replay's loads {row['load_ms']:.4f} ms (the batch "
+              f"alone {row['load_batch_ms']:.4f}) beside its graph's "
+              f"{row['replay_ms']:.4f} ms", flush=True)
+        del captured
+        torch.cuda.empty_cache()    # the dropped graph's pool
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# main path 6: vectorized rounds
+# --------------------------------------------------------------------------- #
+def _record_stacks(server):
+    """Keep each round's (params, stage, stack, new trainable) as the
+    vectorized runtime runs it."""
+    seen = []
+    run = server.runtime.run_stacked
+
+    def recorded(params, t, stack):
+        out = run(params, t, stack)
+        seen.append((params, t, stack, out[0]))
+        return out
+
+    server.runtime.run_stacked = recorded
+    return seen
+
+
+def _round_profile(torch, runtime, params, t, stack):
+    """Wall ms, device busy ms and device ops of one round of ``runtime``
+    on a stack (its programs already built)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        runtime.run_stacked(params, t, stack)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = device_kernel_ms(torch, prof, 1)
+    busy = device_busy_ms(torch, prof, 1)
+    ops = sum(1 for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA)
+    return {"wall_ms": wall, "busy_ms": busy if by_name else None,
+            "ops_ms": sum(by_name.values()) if by_name else None,
+            "idle_share": 1.0 - busy / wall if by_name else None,
+            "device_ops": ops}
+
+
+def _update_rel(new, ref, start):
+    """max |new - ref| over the largest entry of ref's update (ref -
+    start), leaf by leaf."""
+    scale = max(float((a - s).abs().max()) for a, s in
+                zip(_leaves(ref), _leaves(start)) if a.numel())
+    return max(float((a - b).abs().max()) for a, b in
+               zip(_leaves(new), _leaves(ref)) if a.numel()) / scale
+
+
+def cohort_step_check(torch, np, server, params, t, stack):
+    """The first local step of every cohort of ``stack``, well posed where
+    a round is not: the vectorized step (``cohort_stage_step``, eager)
+    against each cohort's sequential stage step from the same state, its
+    loss (relative) and its params (of the largest trained param) each at
+    the step bar: TOL, or 10x the sequential step's own movement at params
+    x (1 + 1e-7) where that exceeds TOL / 10, as ``step_check`` sets it;
+    and the captured vectorized step (what the runtime replays) against
+    the eager one, to the bit."""
+    from repro_torch.common.device import to_device
+    from repro_torch.common.tree import tree_map
+    from repro_torch.core.progressive import CapturedStep, make_stage_step
+    from repro_torch.federated.runtime import cohort_stage_step
+    adapter, opt, hp = server.adapter, server.optimizer, server.hp
+    C = stack.num_cohorts
+    batch = tree_map(lambda x: x[:, 0].contiguous(),   # as the runtime
+                     to_device(stack.batches, server.device))
+    keep = torch.as_tensor(np.asarray(stack.step_mask)[:, 0],
+                           device=server.device)
+    frozen, trainable = adapter.split_stage(params, t)
+    local = tree_map(lambda p: p.expand(C, *p.shape).contiguous(), trainable)
+    state = tree_map(lambda v: v.expand(C).contiguous() if v.dim() == 0
+                     else v, opt.init(local))
+    step = cohort_stage_step(adapter, opt, hp, t)
+    captured = CapturedStep(step)
+    args = (state, local, frozen, batch, trainable, keep)
+    _, eager, em = step(*args)
+    _, again, _ = step(*args)
+    _, cap, cm = captured(*args)
+    cap = [p.clone() for p in _leaves(cap)]
+    bitwise = (torch.equal(em["loss"], cm["loss"])
+               and all(torch.equal(a, b) for a, b in
+                       zip(_leaves(eager), cap)))
+    row = {"captured_bitwise": bitwise,
+           "eager_repeats_bitwise": all(
+               torch.equal(a, b) for a, b in zip(_leaves(eager),
+                                                 _leaves(again)))}
+    if not bitwise:
+        # name the first device kernel where the replay's sequence departs
+        # from the eager step's, and hold the replay at the step bar
+        seq_e = _kernel_sequence(torch, lambda: step(*args))
+        seq_c = _kernel_sequence(torch, lambda: captured(*args))
+        row.update(captured_params_rel=_params_rel(cap, eager),
+                   **_kernel_diff(seq_e, seq_c))
+        check(row["captured_params_rel"] <= TOL,
+              f"stage {t}: the captured cohort step beyond the step bar: "
+              f"{row}")
+    del captured
+    seq = make_stage_step(adapter, opt, hp, t)
+    moved = tree_map(lambda p: p * (1 + 1e-7), params)
+    mfrozen, mtrain = adapter.split_stage(moved, t)
+    worst, sens, loss_rel, sens_loss = 0.0, 0.0, 0.0, 0.0
+    for c in [c for c in range(C) if bool(keep[c])]:
+        b = tree_map(lambda x: x[c], batch)
+        want = seq(opt.init(trainable), trainable, frozen, b, trainable)[1:]
+        got = (tree_map(lambda p: p[c], eager), {"loss": em["loss"][c]})
+        far = seq(opt.init(mtrain), mtrain, mfrozen, b, mtrain)[1:]
+        loss_c, params_c = _step_diff(got, want)
+        far_loss, far_params = _step_diff(far, want)
+        worst, loss_rel = max(worst, params_c), max(loss_rel, loss_c)
+        sens, sens_loss = max(sens, far_params), max(sens_loss, far_loss)
+    bar = max(TOL, 10 * sens) if sens > TOL / 10 else TOL
+    check(worst <= bar, f"stage {t}: a vectorized step is {worst:.2e} from "
+          f"the sequential step (bar {bar:.1e})")
+    # each cohort's loss is a forward pass from the round's start params
+    # on its own batch: it holds every cohort's batch, params and
+    # surrogates, at TOL where the loss is well posed (every ResNet18
+    # stage, the ViT's stage 0); deeper ViT stages pass a rounding change
+    # through 8 or 12 periods, which move it by 1e-3 at params x
+    # (1 + 1e-7), so there ``step_check``'s rule sets the bar
+    bar_loss = (max(TOL, 10 * sens_loss) if sens_loss > TOL / 10 else TOL)
+    check(loss_rel <= bar_loss, f"stage {t}: a cohort's vectorized step "
+          f"loss is {loss_rel:.2e} from its sequential step's (bar "
+          f"{bar_loss:.1e})")
+    row.update(params_rel=worst, plain_eps_params_rel=sens, bar=bar,
+               loss_rel=loss_rel, plain_eps_loss_rel=sens_loss,
+               bar_loss=bar_loss)
+    return row
+
+
+def vectorized_path(torch, kernels, np, make_server, name, periods=False):
+    """Main path 6 on one model: its rounds through ``FLConfig(runtime=
+    "vectorized")``, one per stage.  K1-K3 must launch exactly twice per
+    vectorized local step, whatever the number of cohorts.  Each round's
+    new trainable is held against the sequential runtime's round on the
+    same params and stack at TOL of the largest update (the round bar);
+    where the sequential round itself moves by more than TOL / 10 when
+    its start params are scaled by 1 + 1e-7 (f32 rounding amplified over
+    the round's steps), the bar is 10 times that movement, the rule
+    ``step_check`` applies to a step.  The first step of each round is
+    also held alone (``cohort_step_check``), and the rounds run again from
+    the seed must repeat bit for bit.  With ``periods`` (the ViT, whose
+    rounds and steps amplify f32 rounding past any useful bar) each period
+    is also held under vmap against the cohorts run alone
+    (``vmap_period_check``).  Reports s/round, the peak, and the idle share
+    of one round."""
+    from repro_torch.common.tree import tree_map
+    from repro_torch.federated.runtime import SequentialRuntime
+
+    def run(quiet):
+        server = make_server("vectorized")
+        seen = _record_stacks(server)
+        reset_all(kernels)
+        rounds = run_rounds(torch, server, kernels,
+                            server.adapter.plan.num_stages, quiet=quiet)
+        del server.runtime.run_stacked
+        return server, rounds, seen
+
+    server, rounds, seen = run(False)
+    counts = read_all(kernels)
+    trained = [r for r in rounds if r["n_selected"] > 0]
+    check(len(trained) == len(seen) and seen, "a round trained no cohort")
+    for r, (_, _, stack, _) in zip(trained, seen):
+        r["vectorized_steps"] = stack.max_steps
+        r["cohorts"] = stack.num_cohorts
+        check(all(r["launches"][n] == 2 * stack.max_steps for n in STREAMING),
+              f"round {r['round_idx']}: {r['launches']}, expected 2 per "
+              f"vectorized step ({stack.max_steps} steps of "
+              f"{stack.num_cohorts} cohorts)")
+    check(all(math.isfinite(r["mean_loss"]) for r in trained),
+          "non-finite round loss")
+    profile = _round_profile(torch, server.runtime, *seen[-1][:3])
+    seq = SequentialRuntime(server.adapter, server.optimizer, server.hp,
+                            server.device)
+    agree, failed = [], []
+    for (params, t, stack, vec), r in zip(seen, trained):
+        new, _ = seq.run_stacked(params, t, stack)
+        moved, _ = seq.run_stacked(tree_map(lambda p: p * (1 + 1e-7),
+                                            params), t, stack)
+        _, start = server.adapter.split_stage(params, t)
+        diff = _update_rel(vec, new, start)
+        sens = _update_rel(moved, new, start)
+        bar = max(TOL, 10 * sens) if sens > TOL / 10 else TOL
+        agree.append(diff)
+        r.update(vs_sequential_rel=diff, sequential_eps_rel=sens,
+                 round_bar=bar,
+                 first_step=cohort_step_check(torch, np, server, params,
+                                              t, stack))
+        print(f"  round {r['round_idx']} (stage {t}): vectorized vs "
+              f"sequential {diff:.2e} of the largest update; sequential at "
+              f"params x (1 + 1e-7) {sens:.2e}; bar {bar:.1e}; first step "
+              f"loss {r['first_step']['loss_rel']:.2e} (bar "
+              f"{r['first_step']['bar_loss']:.1e}), "
+              f"params {r['first_step']['params_rel']:.2e} (bar "
+              f"{r['first_step']['bar']:.1e}), captured cohort step "
+              + ("the bits of the eager one" if r["first_step"]
+                 ["captured_bitwise"] else
+                 f"DIFFERS from the eager one: {r['first_step']}"),
+              flush=True)
+        if diff > bar:
+            failed.append(r["round_idx"])
+    check(not failed, f"{name} rounds {failed}: vectorized vs sequential "
+          f"beyond the round bar")
+    seq.release()
+    vperiods = (vmap_period_check(torch, server, seen[0][2]) if periods
+                else None)
+    del seq
+    again, again_rounds, _ = run(True)
+    repeats = _same_run(torch, rounds, server.params, again_rounds,
+                        again.params)
+    check(repeats, f"{name}: the vectorized rounds do not repeat bit for bit")
+    print(f"  {name} vectorized: vs sequential <= {max(agree):.2e} of the "
+          f"largest update; s/round {[round(r['seconds'], 4) for r in rounds]}"
+          f"; one round: wall {profile['wall_ms']:.1f} ms, busy "
+          f"{fmt_ms(profile['busy_ms'])} ms, idle "
+          f"{profile['idle_share'] if profile['idle_share'] is None else round(profile['idle_share'], 4)}"
+          f", {profile['device_ops']} device ops; repeats bit for bit",
+          flush=True)
+    del server, again
+    gc.collect()
+    return {"rounds": rounds, "profile": profile, "repeats": repeats,
+            "vs_sequential_rel": agree, "period_check": vperiods}, counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1792,10 +2355,14 @@ def main():
     errs.update(flash_phase(torch, fkernel, fops, fref))
     errs.update(slstm_phase(torch, skernel, sops, sref))
     errs.update(gram_phase(torch, kernel, ops, ref, hsic))
+    berrs, batched = batched_phase(torch, kernel, ref, hsic, fkernel, fref)
+    for n, (ab, rel) in berrs.items():
+        track(errs, n, rel, ab)
     timing = timing_phase(torch, kernel, ref, hsic)
     timing += flash_timing(torch, fkernel, fref)
     timing += slstm_timing(torch, skernel, sops, sref)
     timing += gram_timing(torch, kernel, ref, hsic)
+    batched["timing"] = batched_timing(torch, kernel, ref, hsic)
 
     phase("main path 1: ResNet18")
     server, rounds, counts = main_path(torch, kernels, np)
@@ -1804,6 +2371,8 @@ def main():
                                     server.params)
     phase("step check")
     steps = step_check(torch, server)
+    phase("captured step against the eager step")
+    captures = {"resnet18": capture_check(torch, server)}
     phase("step profile")
     profiles = step_profile(torch, server)
     del server
@@ -1815,6 +2384,8 @@ def main():
                                              use_flash_kernel=False),
                          vserver.adapter.plan.num_stages)
     vsteps = step_check(torch, vserver, plain, sensitivity=True)
+    phase("captured step against the eager step")
+    captures["vit12"] = capture_check(torch, vserver)
     phase("period check")
     vperiods = period_check(torch, vserver, plain)
     phase("step profile")
@@ -1830,6 +2401,8 @@ def main():
     xsteps = step_check(torch, xserver, plain, sensitivity=True)
     phase("sLSTM layer check")
     xlayers = slstm_layer_check(torch, xserver, plain)
+    phase("captured step against the eager step")
+    captures["xlstm"] = capture_check(torch, xserver)
     phase("step profile")
     xprofiles = step_profile(torch, xserver, steps=2)
     del xserver
@@ -1844,11 +2417,30 @@ def main():
         zserver, zrounds, zcounts = main_path(torch, kernels, np, spec)
         phase("step check")
         zsteps = step_check(torch, zserver, sensitivity=True)
+        phase("captured step against the eager step")
+        captures[arch] = capture_check(torch, zserver)
         phase("step profile")
         zprofiles = step_profile(torch, zserver)
         zoo[arch] = {"rounds": zrounds, "launches": zcounts,
                      "step_check": zsteps, "step_profile": zprofiles}
         del zserver
+
+    vec = {}
+    for name, make in (("resnet18", lambda rt: cnn_server(np, quiet=True,
+                                                           runtime=rt)),
+                       ("vit12", lambda rt: vit_server(rt)[0])):
+        phase(f"main path 6: vectorized rounds of {name}")
+        vec[name], vec_counts = vectorized_path(torch, kernels, np, make,
+                                                name, name == "vit12")
+        vec[name]["launches"] = vec_counts
+
+    phase("round throughput (fl_round_throughput)")
+    from repro_torch.benchmarks import fl_round_throughput
+    reset_all(kernels)
+    throughput = fl_round_throughput.run("cuda", BENCH_FL_OUT)
+    tcounts = read_all(kernels)
+    print(f"  rows written to {os.path.relpath(BENCH_FL_OUT, ROOT)}",
+          flush=True)
 
     phase("Fig. 6: peak memory of each stage against the full-model step")
     fig6_out, fcounts = fig6_phase(torch, kernels)
@@ -1856,7 +2448,8 @@ def main():
     by_path = {"resnet18": counts, "vit12": vcounts, "xlstm": xcounts,
                "kernels_bench": bcounts,
                **{a: z["launches"] for a, z in zoo.items()},
-               "fig6": fcounts}
+               **{f"{a}_vectorized": v["launches"] for a, v in vec.items()},
+               "fl_round_throughput": tcounts, "fig6": fcounts}
     launches = {n: sum(c[n] for c in by_path.values()) for n in xcounts}
     sources = {n: os.path.relpath(k.SOURCE, ROOT) for k in kernels
                for n in k.LAUNCHES}
@@ -1926,7 +2519,9 @@ def main():
                              "step_profile": xprofiles},
                    "kernels_bench": {"rows": bench_rows,
                                      "launches": bcounts},
-                   "zoo": zoo, "fig6": fig6_out,
+                   "zoo": zoo, "batched": batched,
+                   "captured_vs_eager": captures, "vectorized": vec,
+                   "fl_round_throughput": throughput, "fig6": fig6_out,
                    "kernels": out_kernels, "device": device}, f, indent=1)
     phase("done")
     print(smi, flush=True)

@@ -12,7 +12,11 @@ client's local training, from a resident set that mirrors the runtime's.
 A stage holds the whole NeuLite tree (model, surrogates, projectors), as
 the server does; the full step holds ``{"model": ...}`` only, as the
 reference's ``full_reference_spec`` does.  Each step moves its batch to
-the card, so the peak includes it.
+the card, so the peak includes it.  The steps are eager
+(``make_stage_step``, ``make_full_step``), not the captured steps the
+runtimes use on the card: the claim is about a client's training, and a
+captured step's private memory pool and static buffers belong to the
+simulation, not to the client.
 
 A measurement needs a CUDA device.  On any other it raises: it never
 returns the analytic estimate (``core.memory``) in place of a measurement.

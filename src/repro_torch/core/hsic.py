@@ -9,7 +9,6 @@ through the streaming CUDA kernels (``kernels.hsic_gram.ops``).
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 _EPS = 1e-8
 
@@ -70,7 +69,10 @@ def label_features(labels, num_classes: int, max_dim: int = 256):
     agreement (exact one-hot for classification)."""
     labels = labels.reshape(labels.shape[0], -1).long()
     buckets = min(num_classes, max_dim)
-    onehot = F.one_hot(labels % buckets, buckets).float()
+    # one-hot by comparison: F.one_hot reads the labels' range on the host
+    # on the CPU, which neither torch.func.vmap nor a CUDA graph allows
+    onehot = ((labels % buckets)[..., None]
+              == torch.arange(buckets, device=labels.device)).float()
     feats = onehot.mean(1)
     return feats / (torch.linalg.norm(feats, dim=-1, keepdim=True) + _EPS)
 

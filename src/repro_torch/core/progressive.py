@@ -14,6 +14,11 @@ subtree only; the frozen prefix is a plain forward input run under
 ``torch.no_grad``, so it keeps no activations, gradients or optimizer state.
 That is the paper's memory claim.  ``make_full_step`` is what it is held
 against: end-to-end training of the whole model (FedAvg's step).
+
+``jit_stage_step`` and ``jit_full_step`` are the reference's jitted steps
+with opt-state donation; in the port they are the same steps captured as
+CUDA graphs (``CapturedStep``), replayed with no Python per op: the host
+issues one graph launch a step instead of hundreds of ops.
 """
 from __future__ import annotations
 
@@ -278,3 +283,216 @@ def make_full_step(adapter: Adapter, optimizer):
         return opt_state, params, {"loss": loss.detach()}
 
     return train_step
+
+
+# =========================================================================== #
+# the step as one captured program (CUDA graphs)
+# =========================================================================== #
+WARMUP_STEPS = 2    # eager runs on a side stream before a capture
+
+
+def donation_supported(device: DeviceLike = None) -> bool:
+    """Whether ``device`` (the current card by default) can capture a step
+    as a CUDA graph: the port's counterpart of the reference's question,
+    which CPU XLA answers no, as the CPU does here."""
+    dev = torch.device("cuda" if device is None else device)
+    return dev.type == "cuda" and torch.cuda.is_available()
+
+
+def _kernel_launches():
+    """The ``LAUNCHES`` counters of the port's kernel wrappers."""
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.hsic_gram import kernel as hkernel
+    from repro_torch.kernels.slstm_scan import kernel as skernel
+    return (hkernel.LAUNCHES, fkernel.LAUNCHES, skernel.LAUNCHES)
+
+
+def _snapshot():
+    return [dict(c) for c in _kernel_launches()]
+
+
+_STREAMS = {}
+
+
+def _capture_stream(device):
+    """One side stream a device for every warm-up and capture: PyTorch
+    keeps a cuBLAS workspace (64 MiB) for each stream a product ran on, for
+    the process's life, so a new stream per capture would add one each."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _STREAMS:
+        _STREAMS[index] = torch.cuda.Stream(index)
+    return _STREAMS[index]
+
+
+def _static_copy(t):
+    return t.detach().clone(memory_format=torch.contiguous_format)
+
+
+class _Graph:
+    """One capture of a step at one set of argument shapes: the static
+    argument trees the graph reads (the first ``carried`` of them are also
+    what it writes its new values into), its scalar outputs, and the
+    kernel launches it recorded."""
+
+    def __init__(self, fn, args, carried: int, name: str):
+        self.carried = carried
+        self.static = [tree_map(_static_copy, a) for a in args]
+        before = _snapshot()
+        side = _capture_stream(tree_leaves(list(args))[0].device)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_STEPS):
+                fn(*self.static)
+        torch.cuda.current_stream().wait_stream(side)
+        warm = _snapshot()
+        # torch.cuda.graph synchronizes and empties the cache (the
+        # warm-ups' blocks) before it captures
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph, stream=side):
+                metrics = self._body(fn)
+        except Exception as err:
+            raise RuntimeError(
+                f"{name}: capturing the step as a CUDA graph failed at "
+                f"argument shapes {_shapes_of(args)}: {err}") from err
+        self.keys = [k for k, v in metrics.items() if torch.is_tensor(v)]
+        self.dtypes = [metrics[k].dtype for k in self.keys]
+        self.constants = {k: v for k, v in metrics.items()
+                          if not torch.is_tensor(v)}
+        after = _snapshot()
+        # warm-ups and capture are set-up, not steps: their launches do
+        # not count; every replay adds what the capture recorded
+        self.launches = [{n: a[n] - w[n] for n in a if a[n] != w[n]}
+                         for a, w in zip(after, warm)]
+        for counts, b in zip(_kernel_launches(), before):
+            counts.update(b)
+
+    def _body(self, fn):
+        """What the graph records: one step on the static arguments, its
+        carried outputs written into the first ``carried`` of them, its
+        tensor metrics stacked into ``self.vector``.  Returns the metrics."""
+        out = fn(*self.static)
+        for dst, src in zip(self.static[:self.carried],
+                            out[:self.carried]):
+            for d, v in zip(tree_leaves(dst), tree_leaves(src)):
+                d.copy_(v)
+        metrics = out[self.carried]
+        self.vector = torch.stack([v.float() for v in metrics.values()
+                                   if torch.is_tensor(v)])
+        return metrics
+
+    def load(self, args) -> None:
+        """Copy each argument into its static buffers, unless it is those
+        buffers (the carried outputs of the last replay): one multi-tensor
+        copy a tree, not one launch a leaf."""
+        for arg, static in zip(args, self.static):
+            src, dst = tree_leaves(arg), tree_leaves(static)
+            if all(a is b for a, b in zip(src, dst)):
+                continue
+            torch._foreach_copy_(dst, src)
+
+    def replay(self):
+        self.graph.replay()
+        for counts, rec in zip(_kernel_launches(), self.launches):
+            for n, k in rec.items():
+                counts[n] += k
+        values = self.vector.clone().unbind()
+        metrics = dict(self.constants)
+        metrics.update({k: v.to(d) for k, v, d in
+                        zip(self.keys, values, self.dtypes)})
+        return (*self.static[:self.carried], metrics)
+
+
+def _shapes_of(args):
+    return [tuple(t.shape) for t in tree_leaves(list(args))]
+
+
+def _signature(args):
+    return tuple((tuple(t.shape), t.dtype, t.device)
+                 for t in tree_leaves(list(args)))
+
+
+class CapturedStep:
+    """``step(*args) -> (*carried, metrics)`` replayed from CUDA graphs,
+    one per shape of its arguments, captured at the first call with those
+    shapes (after ``WARMUP_STEPS`` eager runs on a side stream, which
+    also make the kernels' one-time ``cudaFuncSetAttribute`` calls).
+
+    The graph reads static copies of every argument, copied in at every
+    call (the frozen prefix and ``global_ref`` too), and writes the first
+    ``carried`` outputs (opt_state and the trained params) into the static
+    copies of the first ``carried`` arguments, in place: the port's form of
+    the reference's donation.  So the returned trees are the graph's
+    buffers, rewritten by the next replay: a caller that keeps one past
+    the next call copies it (``own_outputs``).  Tensor metrics come back as
+    fresh tensors.  A capture that fails raises, naming the shapes: the
+    step never continues eagerly.  ``LAUNCHES`` of the kernel wrappers
+    gain, per replay, the launches recorded at capture."""
+
+    reuses_outputs = True
+
+    def __init__(self, step: Callable, carried: int = 2, name: str = "step"):
+        self.step = step
+        self.carried = carried
+        self.name = name
+        self.graphs = {}
+
+    def __call__(self, *args):
+        key = _signature(args)
+        graph = self.graphs.get(key)
+        if graph is None:
+            graph = self.graphs[key] = _Graph(self.step, args, self.carried,
+                                              self.name)
+        graph.load(args)
+        return graph.replay()
+
+
+def own_outputs(step, tree):
+    """``tree`` (a step's output) as its caller may keep it past the step's
+    next call: a copy where the step reuses its output buffers (a
+    ``CapturedStep``), else ``tree`` itself."""
+    if getattr(step, "reuses_outputs", False):
+        return tree_map(torch.clone, tree)
+    return tree
+
+
+def jit_stage_step(adapter: Adapter, optimizer, hp: cur.CurriculumHP,
+                   t: int, *, donate: bool = True,
+                   donate_trainable: bool = False,
+                   device: DeviceLike = None):
+    """``make_stage_step`` as one captured program: on a CUDA device a
+    ``CapturedStep`` (CUDA-graph capture, not TorchScript), one graph per
+    batch shape, its optimizer updating ``opt_state`` in place (the
+    reference donates it); on the CPU, or with ``donate=False``, the eager
+    step itself.
+
+    ``donate_trainable=False`` is the default for the reference's reason:
+    FL callers alias ``trainable`` with ``global_ref`` on the first local
+    step.  The captured step keeps its own static copy of each (of
+    ``global_ref`` once per client) and writes only its own buffers; it has
+    no counterpart of donating the caller's ``trainable``, so True
+    raises."""
+    step = make_stage_step(adapter, optimizer, hp, t)
+    if not (donate and donation_supported(device)):
+        return step
+    if donate_trainable:
+        raise NotImplementedError(
+            "jit_stage_step: the captured step keeps a static trainable "
+            "buffer of its own; donating the caller's has no counterpart")
+    return CapturedStep(step, name=f"stage {t} step")
+
+
+def jit_full_step(adapter: Adapter, optimizer, *, donate: bool = True,
+                  donate_params: bool = False, device: DeviceLike = None):
+    """``make_full_step`` as one captured program, as ``jit_stage_step``
+    captures the stage step (the same aliasing caveats)."""
+    step = make_full_step(adapter, optimizer)
+    if not (donate and donation_supported(device)):
+        return step
+    if donate_params:
+        raise NotImplementedError(
+            "jit_full_step: the captured step keeps a static params buffer "
+            "of its own; donating the caller's has no counterpart")
+    return CapturedStep(step, name="full-model step")

@@ -2,7 +2,8 @@
 
 Per-step losses stay on the device: the loop enqueues steps without
 blocking, and the round's loss summary is read by the server once, at round
-end.
+end.  A captured step (``core.progressive.CapturedStep``) returns its own
+buffers, so the trained tree a client hands back is a copy of them.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ from typing import Any, Callable, List, Optional, Sequence
 import torch
 
 from repro_torch.common.device import DeviceLike, resolve_device, to_device
+from repro_torch.core.progressive import own_outputs
 from repro_torch.data.loader import Batcher
 
 DROPOUT_SCHEDULES = ("none", "constant", "ramp")
@@ -68,7 +70,8 @@ def run_local_training(step_fn: Callable, optimizer, trainable, frozen,
                 opt_state, trainable, frozen, to_device(batch, device), gref)
             losses.append(metrics["loss"])
             nb += 1
-    return _result(trainable, batcher, losses, nb, device)
+    return _result(own_outputs(step_fn, trainable), batcher, losses, nb,
+                   device)
 
 
 def run_local_training_full(step_fn: Callable, optimizer, params,
@@ -86,7 +89,7 @@ def run_local_training_full(step_fn: Callable, optimizer, params,
                 opt_state, params, to_device(batch, device))
             losses.append(metrics["loss"])
             nb += 1
-    return _result(params, batcher, losses, nb, device)
+    return _result(own_outputs(step_fn, params), batcher, losses, nb, device)
 
 
 def _result(trainable, batcher: Batcher, losses, nb,

@@ -1,12 +1,24 @@
-"""Client runtimes for one NeuLite FL round (port of the sequential part of
-``repro.federated.runtime``).
+"""Client runtimes for one NeuLite FL round (port of the sequential and
+vectorized parts of ``repro.federated.runtime``).
 
 One round (paper Alg. 1, lines 4-10) splits the stage-t params, runs E
 local steps on each selected client with no cross-client communication,
 then takes the Eq. 1 weighted average of the trainable subtree.
-``SequentialRuntime`` runs the clients one after another, one stage step
-per batch; the vectorized, sharded and async runtimes come with later parts
-of the port.
+
+  SequentialRuntime  clients one after another, one stage step per batch:
+                     on the card the step is captured once per batch shape
+                     (``jit_stage_step``) and replayed.
+  VectorizedRuntime  all cohorts at once: one local step of every cohort is
+                     ``torch.func.vmap`` of ``grad_and_value`` of the stage
+                     loss (the kernels launch once for all cohorts), on the
+                     card captured once per (stage, C, batch shape) and
+                     replayed E times; then the Eq. 1 sum over the cohort
+                     axis (``eq1_aggregate``), eager.
+
+The sharded and async runtimes come with later parts of the port.  A
+runtime keeps the programs (and on the card the graphs and their memory)
+of the stage it is running, and drops them when a round of another stage
+starts.
 
 Mid-round faults route through a ``RoundStack`` (``data.loader``): a
 (C, E) step mask whose False steps are skipped, with Eq. 1 weights scaled
@@ -22,13 +34,169 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import to_device
-from repro_torch.common.tree import tree_map
+from repro_torch.common.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.core.curriculum import CurriculumHP
-from repro_torch.core.progressive import Adapter, make_stage_step
+from repro_torch.core.progressive import (Adapter, CapturedStep,
+                                          donation_supported, jit_stage_step,
+                                          make_stage_loss, own_outputs)
 from repro_torch.data.loader import (Batcher, RoundStack, stack_round,
                                      truncate_step_mask)
 from repro_torch.federated import aggregation as agg
 from repro_torch.federated.client import run_local_training
+from repro_torch.optim.optimizers import apply_updates
+
+
+# =========================================================================== #
+# the round program: cohorts at once
+# =========================================================================== #
+def _cohort_step(loss, optimizer, in_dims):
+    """step(opt_state, params, *args, keep) -> (opt_state, params,
+    {"loss": (C,)}): one local step of C cohorts at once.  ``params`` and
+    ``opt_state`` carry a leading (C,) axis; ``loss(params, *args)`` is
+    one cohort's scalar loss and ``in_dims`` says which of ``args`` carry
+    the cohort axis (0) and which all cohorts share (None).  Gradients are
+    ``torch.func.vmap`` of ``grad_and_value``; the SGD update is
+    elementwise, so it runs on the stacked trees as they are.  A cohort
+    whose ``keep`` is False keeps its params and optimizer state exactly
+    (``torch.where`` per leaf) and reports a loss of 0."""
+
+    def step(opt_state, params, *rest):
+        *args, keep = rest
+
+        def flat_loss(leaves, *a):
+            return loss(tree_unflatten(params, leaves), *a)
+
+        grads, value = torch.func.vmap(
+            torch.func.grad_and_value(flat_loss), in_dims=(0, *in_dims))(
+                tree_leaves(params), *args)
+        grads = tree_unflatten(params, grads)
+        updates, new_opt = optimizer.update(grads, opt_state, params)
+        new_params = apply_updates(params, updates)
+
+        def sel(new, old):
+            return torch.where(keep.view(-1, *[1] * (new.dim() - 1)), new,
+                               old)
+
+        return (tree_map(sel, new_opt, opt_state),
+                tree_map(sel, new_params, params),
+                {"loss": torch.where(keep, value, torch.zeros_like(value))})
+
+    return step
+
+
+def cohort_stage_step(adapter: Adapter, optimizer, hp: CurriculumHP, t: int):
+    """step(opt_state, trainable, frozen, batch, global_ref, keep): one
+    stage-t local step of C cohorts (``_cohort_step``); ``trainable``,
+    ``opt_state`` and ``batch`` carry the cohort axis, ``frozen`` and
+    ``global_ref`` (the round's start) are shared, as the reference's
+    ``in_axes=(None, None, 0, 0)``."""
+    loss_fn = make_stage_loss(adapter, hp, t)
+    return _cohort_step(lambda *a: loss_fn(*a)[0], optimizer,
+                        (None, 0, None))
+
+
+def cohort_full_step(adapter: Adapter, optimizer):
+    """step(opt_state, params, batch, keep): one full-model (FedAvg) local
+    step of C cohorts."""
+    return _cohort_step(adapter.full_loss, optimizer, (0,))
+
+
+def _local_training(call, optimizer, params, batches, step_mask):
+    """E masked local steps of C cohorts, all starting from ``params``:
+    ``call(opt_state, local, batch, keep)`` is one step of all cohorts on
+    batch e of the (C, E, ...) stack.  Returns (locals_ (C, ...), losses
+    (C,), the masked mean local loss of each cohort)."""
+    device = tree_leaves(params)[0].device
+    mask = torch.as_tensor(np.asarray(step_mask, bool), device=device)
+    C, E = mask.shape
+    local = tree_map(lambda p: p.expand(C, *p.shape).contiguous(), params)
+    # a 0-d leaf (the step counter) becomes one per cohort
+    opt_state = tree_map(lambda v: v.expand(C).contiguous() if v.dim() == 0
+                         else v, optimizer.init(local))
+    total = torch.zeros(C, device=device)
+    for e in range(E):
+        # contiguous: a strided view can take other conv algorithms than
+        # the copy a captured step reads, and so other bits
+        batch = tree_map(lambda x: x[:, e].contiguous(), batches)
+        opt_state, local, metrics = call(opt_state, local, batch, mask[:, e])
+        total = total + metrics["loss"]
+    return local, total / torch.clamp(mask.sum(1), min=1)
+
+
+def make_local_program(adapter: Adapter, optimizer, hp: CurriculumHP,
+                       t: int):
+    """local_fn(trainable, frozen, batches, step_mask) -> (locals_, losses):
+    the cohort-vmapped local training of a round without the Eq. 1
+    aggregation.  ``locals_`` stacks each cohort's trained subtree on a
+    leading (C,) axis, ``losses`` is the (C,) masked mean local loss.
+    ``batches`` (C, E, ...) tensors on the params' device; a False entry
+    of the (C, E) ``step_mask`` is an exact no-op."""
+    step = cohort_stage_step(adapter, optimizer, hp, t)
+
+    def local_fn(trainable, frozen, batches, step_mask):
+        return _local_training(
+            lambda o, p, b, k: step(o, p, frozen, b, trainable, k),
+            optimizer, trainable, batches, step_mask)
+
+    return local_fn
+
+
+def eq1_aggregate(locals_, weights, losses):
+    """The Eq. 1 aggregation: one weighted sum over the cohort axis per
+    leaf (``aggregation.stacked_weighted_average``; a zero or non-finite
+    weight sum raises).  ``weights`` are the (C,) sample counts (host
+    numbers), ``losses`` the (C,) per-cohort mean local loss.  Returns
+    ``(new_trainable, mean_loss)``."""
+    w = np.asarray(weights, np.float64)
+    new = agg.stacked_weighted_average(locals_, w)
+    wn = torch.from_numpy((w / w.sum()).astype(np.float32))
+    return new, (losses * wn.to(losses.device)).sum()
+
+
+def make_round_program(adapter: Adapter, optimizer, hp: CurriculumHP, t: int):
+    """round_fn(trainable, frozen, batches, weights, step_mask)
+         -> (new_trainable, {"mean_local_loss", "cohort_losses"}):
+    ``make_local_program`` then ``eq1_aggregate``."""
+    local_fn = make_local_program(adapter, optimizer, hp, t)
+
+    def round_fn(trainable, frozen, batches, weights, step_mask):
+        locals_, losses = local_fn(trainable, frozen, batches, step_mask)
+        new_trainable, mean_loss = eq1_aggregate(locals_, weights, losses)
+        return new_trainable, {"mean_local_loss": mean_loss,
+                               "cohort_losses": losses}
+
+    return round_fn
+
+
+def make_full_round_program(adapter: Adapter, optimizer):
+    """Full-model FL round (FedAvg): round_fn(params, batches, weights,
+    step_mask) -> (new_params, metrics), as ``make_round_program`` over
+    every parameter (gradients and optimizer state for the whole model)."""
+    step = cohort_full_step(adapter, optimizer)
+
+    def round_fn(params, batches, weights, step_mask):
+        locals_, losses = _local_training(step, optimizer, params, batches,
+                                          step_mask)
+        new_params, mean_loss = eq1_aggregate(locals_, weights, losses)
+        return new_params, {"mean_local_loss": mean_loss,
+                            "cohort_losses": losses}
+
+    return round_fn
+
+
+def make_fl_round_step(adapter: Adapter, optimizer, hp: CurriculumHP, t: int):
+    """round_fn(trainable, frozen, batches, weights) -> (new_trainable,
+    {"mean_local_loss"}): ``make_round_program`` with every step of the
+    (C, E, ...) stack taken."""
+    program = make_round_program(adapter, optimizer, hp, t)
+
+    def round_fn(trainable, frozen, batches, weights):
+        C, E = tree_leaves(batches)[0].shape[:2]
+        new_trainable, metrics = program(trainable, frozen, batches, weights,
+                                         np.ones((C, E), bool))
+        return new_trainable, {"mean_local_loss": metrics["mean_local_loss"]}
+
+    return round_fn
 
 
 @dataclasses.dataclass
@@ -51,12 +219,32 @@ class ClientRuntime:
     name = "base"
 
     def __init__(self, adapter: Adapter, optimizer, hp: CurriculumHP,
-                 device: torch.device):
+                 device: torch.device, capture: bool = True):
         self.adapter = adapter
         self.optimizer = optimizer
         self.hp = hp
         self.device = device
+        # on the card, steps are captured (CUDA graphs) unless told not to
+        self.capture = capture and donation_supported(device)
         self._programs: Dict[int, Any] = {}
+
+    def release(self) -> None:
+        """Drop the programs kept, and hand their graphs' pools back to the
+        card: the allocator keeps a dropped graph's pool reserved until its
+        cache is emptied, so the next stage's eager warm-ups would otherwise
+        sit beside it (the xLSTM's reserved the whole 80 GB card)."""
+        held = bool(self._programs)
+        self._programs.clear()
+        if held and self.capture:
+            torch.cuda.empty_cache()
+
+    def _stage_program(self, t: int, build):
+        """Stage t's program, built at its first round; a round of another
+        stage drops the programs kept (``release``)."""
+        if t not in self._programs:
+            self.release()
+            self._programs[t] = build()
+        return self._programs[t]
 
     def _run_stack(self, t: int, trainable, frozen, stack: RoundStack):
         raise NotImplementedError
@@ -108,10 +296,9 @@ class SequentialRuntime(ClientRuntime):
     name = "sequential"
 
     def _step(self, t: int):
-        if t not in self._programs:
-            self._programs[t] = make_stage_step(self.adapter, self.optimizer,
-                                                self.hp, t)
-        return self._programs[t]
+        return self._stage_program(t, lambda: jit_stage_step(
+            self.adapter, self.optimizer, self.hp, t, donate=self.capture,
+            device=self.device))
 
     def _weighted_loss(self, losses, weights):
         cohort_losses = torch.stack(losses)
@@ -136,7 +323,7 @@ class SequentialRuntime(ClientRuntime):
                 opt_state, tr_c, metrics = step(opt_state, tr_c, frozen,
                                                 batch, trainable)
                 cohort_losses.append(metrics["loss"])
-            results.append(tr_c)
+            results.append(own_outputs(step, tr_c))
             losses.append(torch.stack(cohort_losses).mean() if cohort_losses
                           else torch.zeros((), device=self.device))
         new_trainable = agg.weighted_average(results, stack.weights)
@@ -174,7 +361,40 @@ class SequentialRuntime(ClientRuntime):
             num_samples=num_samples)
 
 
-RUNTIMES = {"sequential": SequentialRuntime}
+class VectorizedRuntime(ClientRuntime):
+    """All cohorts at once (``cohort_stage_step``): on the card one captured
+    graph per (stage, C, batch shape), replayed E times, each replay
+    copying step e of the (C, E, ...) batch stack into its static batch
+    buffer (the reference donates the stack; the port reuses the buffer).
+    E varies from round to round with the data split, so the graph is one
+    step, not the whole scan.  Eq. 1 runs eagerly after the last step:
+    once a round, a few ops a leaf, against E replays of the step."""
+
+    name = "vectorized"
+
+    def _step(self, t: int):
+        def build():
+            step = cohort_stage_step(self.adapter, self.optimizer, self.hp,
+                                     t)
+            if self.capture:
+                step = CapturedStep(step, name=f"stage {t} cohort step")
+            return step
+        return self._stage_program(t, build)
+
+    def _run_stack(self, t, trainable, frozen, stack: RoundStack):
+        step = self._step(t)
+        batches = to_device(stack.batches, self.device)
+        locals_, losses = _local_training(
+            lambda o, p, b, k: step(o, p, frozen, b, trainable, k),
+            self.optimizer, trainable, batches, stack.step_mask)
+        new_trainable, mean_loss = eq1_aggregate(locals_, stack.weights,
+                                                 losses)
+        return new_trainable, {"mean_local_loss": mean_loss,
+                               "cohort_losses": losses}
+
+
+RUNTIMES = {"sequential": SequentialRuntime,
+            "vectorized": VectorizedRuntime}
 
 
 def make_runtime(spec: str, adapter: Adapter, optimizer, hp: CurriculumHP,

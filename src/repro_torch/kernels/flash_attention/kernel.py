@@ -66,11 +66,15 @@ def _shapes(q, k, v):
     return B, Sq, Skv, H, KV, D
 
 
-def flash_attention_fwd(q, k, v, *, causal: bool, window: int = 0):
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool, window: int = 0) -> torch.Tensor:
     """q: (B, Sq, H, D); k, v: (B, Skv, KV, D) -> (B, Sq, H, D) in q's
-    dtype.  Replaces ``flash_attention_bhsd``."""
-    if q.device.type == "cpu":
-        return ref.attention_ref(q, k, v, causal=causal, window=window)
+    dtype.  Replaces ``flash_attention_bhsd``.  A custom op
+    (``torch.library``): the CUDA implementation is the launch, the CPU one
+    ``ref.attention_ref``; under ``torch.func.vmap`` the cohort axis folds
+    into the batch axis (attention is independent per batch row), one
+    launch for all cohorts."""
     B, Sq, Skv, H, KV, D = _shapes(q, k, v)
     check_kernel_inputs("flash_attention_fwd", q.device, dtypes=DTYPES, q=q,
                         k=k, v=v)
@@ -88,3 +92,26 @@ def flash_attention_fwd(q, k, v, *, causal: bool, window: int = 0):
                            f"CUDA error {err}")
     LAUNCHES["flash_attention_fwd"] += 1
     return o
+
+
+@flash_attention_fwd.register_kernel("cpu")
+def _(q, k, v, *, causal, window=0):
+    return ref.attention_ref(q, k, v, causal=causal,
+                             window=window).contiguous()
+
+
+@flash_attention_fwd.register_fake
+def _(q, k, v, *, causal, window=0):
+    return torch.empty_like(q)
+
+
+@torch.library.register_vmap(flash_attention_fwd)
+def _(info, in_dims, q, k, v, *, causal, window=0):
+    q, k, v = (t.movedim(d, 0) if d is not None
+               else t.expand(info.batch_size, *t.shape)
+               for t, d in zip((q, k, v), in_dims))
+    C, B = q.shape[:2]
+    o = flash_attention_fwd(*(t.reshape(C * B, *t.shape[2:]).contiguous()
+                              for t in (q, k, v)), causal=causal,
+                            window=window)
+    return o.reshape(C, B, *o.shape[1:]), 0

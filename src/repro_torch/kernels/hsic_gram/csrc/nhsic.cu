@@ -208,6 +208,8 @@ __global__ void __launch_bounds__(THREADS)
 sum_partials_kernel(const float* __restrict__ partial, int nblocks,
                     float* __restrict__ out) {
   __shared__ float red[THREADS / 32];
+  partial += (size_t)3 * nblocks * blockIdx.x;   // block x: the cohort
+  out += 3 * blockIdx.x;
   for (int k = 0; k < 3; ++k) {
     float v = 0.f;
     for (int b = threadIdx.x; b < nblocks; b += THREADS) v += partial[3 * b + k];
@@ -800,8 +802,9 @@ __host__ __device__ constexpr int slab_floats(int D, int C, bool two) {
 constexpr int GRAD_BUFS = 2 * TILE * WLD + XCH + 4 * TILE + 2 * TILE;
 constexpr int STATS_BUFS = XCH + 4 * MAX_CLUSTER + THREADS / 32;
 
-// K2.  Grid (C, column tiles, row tiles), clusters of C = gridDim.x blocks
-// along x, one per tile pair; block x is the cluster's rank.  s = [s2x,
+// K2.  Grid (C, column tiles, row tiles x cohorts), clusters of C =
+// gridDim.x blocks along x, one per tile pair of a cohort; block x is the
+// cluster's rank.  s = [s2x,
 // s2z, mean Kx, mean Kz]; rx, rz are the Gram row means.  The ranks'
 // partial dots are added through DSMEM in rank order, each rank taking
 // 1024 / C of the tile's entries; their (sum Kxc Kzc, sum Kxc^2,
@@ -817,8 +820,16 @@ nhsic_stats_kernel(const float* __restrict__ x, const float* __restrict__ z,
   extern __shared__ float4 nhsic_smem4[];
   float* smem = reinterpret_cast<float*>(nhsic_smem4);
   const int C = gridDim.x, rank = blockIdx.x;
-  const int jt = blockIdx.y, it = blockIdx.z, nt = gridDim.y;
+  const int nt = gridDim.y, jt = blockIdx.y, it = blockIdx.z % nt;
   const int i0 = it * TILE, j0 = jt * TILE, t = threadIdx.x;
+  const int coh = blockIdx.z / nt;       // the cohort, folded into z
+  x += (size_t)coh * B * Dx;
+  z += (size_t)coh * B * Dz;
+  rx += (size_t)coh * B;
+  rz += (size_t)coh * B;
+  s += 4 * coh;
+  partial += (size_t)3 * nt * nt * coh;
+  out += 3 * coh;
   Side X = make_side(x, Dx, C, lx, vx), Z = make_side(z, Dz, C, lz, vz);
   float* p = smem;
   X.row = p;
@@ -887,8 +898,8 @@ nhsic_stats_kernel(const float* __restrict__ x, const float* __restrict__ z,
   }
 }
 
-// K3.  Grid (C, row tiles), clusters of C = gridDim.x blocks along x, one
-// per row tile; block x is the cluster's rank.  scal = [s2x, s2z, mean Kx,
+// K3.  Grid (C, row tiles, cohorts), clusters of C = gridDim.x blocks along
+// x, one per row tile of a cohort; block x is the cluster's rank.  scal = [s2x, s2z, mean Kx,
 // mean Kz, cA, cBx, cBz].  With Kc the centred Grams, G_x = cA Kzc - cBx
 // Kxc and G_z = cA Kxc - cBz Kzc.  RBF: W = G o K (-1 / 2 s2), dx_i =
 // 4 (rowsum(W)_i x_i - (W x)_i); linear: dx = 2 G x.  For each column
@@ -906,6 +917,14 @@ nhsic_grad_kernel(const float* __restrict__ x, const float* __restrict__ z,
   const int C = gridDim.x, rank = blockIdx.x;
   const int it = blockIdx.y, nt = gridDim.y, i0 = it * TILE;
   const int t = threadIdx.x, tr = t / 16, tc = t % 16;
+  const size_t coh = blockIdx.z;         // the cohort
+  x += coh * B * Dx;
+  z += coh * B * Dz;
+  dx += coh * B * Dx;
+  dz += coh * B * Dz;
+  rx += coh * B;
+  rz += coh * B;
+  scal += 7 * coh;
   Side X = make_side(x, Dx, C, lx, vx), Z = make_side(z, Dz, C, lz, vz);
   float* p = smem;
   X.row = p;
@@ -1043,8 +1062,8 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-// K1.  Grid (C, row tiles), clusters of C = gridDim.x blocks along x, one
-// per row tile; block x is the cluster's rank.  s2 = [s2x, s2z].  For each
+// K1.  Grid (C, row tiles, cohorts), clusters of C = gridDim.x blocks along
+// x, one per row tile of a cohort; block x is the cluster's rank.  s2 = [s2x, s2z].  For each
 // column tile, rank r adds the ranks' partial dots of its 32 / C rows of
 // the tile in rank order (the same bits as K2's and K3's entries), forms
 // Kx and Kz, and adds each row's 32 entries (a warp a row) to a running
@@ -1059,6 +1078,12 @@ nhsic_rowsums_kernel(const float* __restrict__ x, const float* __restrict__ z,
   const int C = gridDim.x, rank = blockIdx.x;
   const int it = blockIdx.y, nt = gridDim.y, i0 = it * TILE;
   const int t = threadIdx.x;
+  const size_t coh = blockIdx.z;         // the cohort
+  x += coh * B * Dx;
+  z += coh * B * Dz;
+  rx += coh * B;
+  rz += coh * B;
+  s2 += 2 * coh;
   Side X = make_side(x, Dx, C, lx, vx), Z = make_side(z, Dz, C, lz, vz);
   float* p = smem;
   X.row = p;
@@ -1403,10 +1428,19 @@ int tiles(int B) { return (B + TILE - 1) / TILE; }
 // C interface, bound with ctypes.  Pointers are device pointers to
 // contiguous float32; `stream` is a cudaStream_t.  Each entry returns
 // cudaGetLastError() after its launches (0 = launched).
+//
+// K1, K2 and K3 take `cohorts` independent problems of the same (B, Dx, Dz)
+// in one launch, as jax.vmap of a pallas_call adds a grid axis: every
+// array is stacked on a leading cohort axis (x (cohorts, B, Dx), s2
+// (cohorts, 2), s (cohorts, 4), scal (cohorts, 7), rx (cohorts, B), out
+// (cohorts, 3)), so cohort c's arrays start c times one cohort's elements
+// in.  Each cohort's blocks run the code of a one-cohort launch on offset
+// pointers: its results are the same bits.  The cohort is grid axis z (K2:
+// folded into z with the row tiles); the cluster stays along x.
 
 extern "C" int nhsic_rowsums(const void* x, const void* z, const void* s2,
                              void* rx, void* rz, int B, int Dx, int Dz, int lx,
-                             int lz, void* stream) {
+                             int lz, int cohorts, void* stream) {
   static bool ready = false;
   int err = allow_clusters(nhsic_rowsums_kernel, ready,
                            (int)sizeof(float) * (SLABS_MAX + ROWSUM_BUFS));
@@ -1417,7 +1451,7 @@ extern "C" int nhsic_rowsums(const void* x, const void* z, const void* s2,
                                          + ROWSUM_BUFS);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(
-      dim3(C, nb), smem, (cudaStream_t)stream, &attr);
+      dim3(C, nb, cohorts), smem, (cudaStream_t)stream, &attr);
   err = (int)cudaLaunchKernelEx(
       &cfg, nhsic_rowsums_kernel, (const float*)x, (const float*)z,
       (const float*)s2, (float*)rx, (float*)rz, B, Dx, Dz, lx, lz,
@@ -1426,12 +1460,13 @@ extern "C" int nhsic_rowsums(const void* x, const void* z, const void* s2,
   return err != 0 ? err : last;
 }
 
-// `partial` is scratch of 3 * tiles(B)^2 floats (written where tiles(B) >
-// 1, then added by a second launch); `out` receives 3 floats.
+// `partial` is scratch of 3 * tiles(B)^2 floats a cohort (written where
+// tiles(B) > 1, then added by a second launch, one block a cohort); `out`
+// receives 3 floats a cohort.
 extern "C" int nhsic_stats_feats(const void* x, const void* z, const void* rx,
                                  const void* rz, const void* s, void* partial,
                                  void* out, int B, int Dx, int Dz, int lx,
-                                 int lz, void* stream) {
+                                 int lz, int cohorts, void* stream) {
   static bool ready = false;
   int err = allow_clusters(nhsic_stats_kernel, ready,
                            (int)sizeof(float) * (SLABS_MAX + STATS_BUFS));
@@ -1442,7 +1477,7 @@ extern "C" int nhsic_stats_feats(const void* x, const void* z, const void* rx,
                                          + STATS_BUFS);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(
-      dim3(C, nb, nb), smem, (cudaStream_t)stream, &attr);
+      dim3(C, nb, nb * cohorts), smem, (cudaStream_t)stream, &attr);
   err = (int)cudaLaunchKernelEx(
       &cfg, nhsic_stats_kernel, (const float*)x, (const float*)z,
       (const float*)rx, (const float*)rz, (const float*)s, (float*)partial,
@@ -1451,14 +1486,15 @@ extern "C" int nhsic_stats_feats(const void* x, const void* z, const void* rx,
   const int last = (int)cudaGetLastError();   // also clears a launch error
   if (err == 0) err = last;
   if (err != 0 || nb == 1) return err;
-  sum_partials_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(
+  sum_partials_kernel<<<cohorts, THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)partial, nb * nb, (float*)out);
   return (int)cudaGetLastError();
 }
 
 extern "C" int nhsic_grad(const void* x, const void* z, const void* rx,
                           const void* rz, const void* scal, void* dx, void* dz,
-                          int B, int Dx, int Dz, int lx, int lz, void* stream) {
+                          int B, int Dx, int Dz, int lx, int lz, int cohorts,
+                          void* stream) {
   static bool ready = false;
   int err = allow_clusters(nhsic_grad_kernel, ready,
                            (int)sizeof(float) * (SLABS_MAX + GRAD_BUFS));
@@ -1469,7 +1505,7 @@ extern "C" int nhsic_grad(const void* x, const void* z, const void* rx,
                                          + GRAD_BUFS);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = cluster_config(
-      dim3(C, nb), smem, (cudaStream_t)stream, &attr);
+      dim3(C, nb, cohorts), smem, (cudaStream_t)stream, &attr);
   err = (int)cudaLaunchKernelEx(
       &cfg, nhsic_grad_kernel, (const float*)x, (const float*)z,
       (const float*)rx, (const float*)rz, (const float*)scal, (float*)dx,

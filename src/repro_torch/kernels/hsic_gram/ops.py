@@ -50,17 +50,31 @@ def _forward(x, z, lx: bool, lz: bool):
 
 
 class NHSIC(torch.autograd.Function):
-    """nHSIC(x, z) with the streaming kernels forward and backward."""
+    """nHSIC(x, z) with the streaming kernels forward and backward.
+
+    In the ``setup_context`` form with a generated vmap rule, so that it
+    composes with ``torch.func`` (``vmap(grad(...))``: the vectorized
+    runtime): under vmap the three kernels each launch once for all
+    cohorts.  The forward returns its residuals beside the value, as
+    outputs that carry no gradient."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, x, z, linear_x: bool, linear_z: bool):
-        out, res = _forward(x, z, linear_x, linear_z)
-        ctx.save_for_backward(*res)
+    def forward(x, z, linear_x: bool, linear_z: bool):
+        out, (_, _, *res) = _forward(x, z, linear_x, linear_z)
+        return (out, *res)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, z, linear_x, linear_z = inputs
+        _, *res = output
+        ctx.mark_non_differentiable(*res)
+        ctx.save_for_backward(x, z, *res)
         ctx.linear = (linear_x, linear_z)
-        return out
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, *_):
         x, z, rx, rz, s, t, nx, nz = ctx.saved_tensors
         denom = nx * nz + _EPS
         f = t / denom
@@ -70,8 +84,9 @@ class NHSIC(torch.autograd.Function):
         c_bz = g * f * nx / (torch.clamp(nz, min=_TINY) * denom)
         scal = torch.cat([s, torch.stack([c_a, c_bx, c_bz])])
         lx, lz = ctx.linear
-        dx, dz = kernel.nhsic_grad(x, z, rx, rz, scal, linear_x=lx,
-                                   linear_z=lz)
+        with torch.no_grad():   # first order only; under torch.func.grad
+            dx, dz = kernel.nhsic_grad(x, z, rx, rz, scal, linear_x=lx,
+                                       linear_z=lz)
         return dx.to(x.dtype), dz.to(z.dtype), None, None
 
 
@@ -79,7 +94,7 @@ def nhsic(x, z, *, kernel_x: str = "rbf", kernel_z: str = "rbf"):
     """Differentiable nHSIC(x, z); x: (B, Dx), z: (B, Dz).  The kernels run
     for CUDA tensors, their plain versions for CPU tensors."""
     return NHSIC.apply(x.float().contiguous(), z.float().contiguous(),
-                       kernel_x == "linear", kernel_z == "linear")
+                       kernel_x == "linear", kernel_z == "linear")[0]
 
 
 def nhsic_residuals(x, z, *, kernel_x: str = "rbf", kernel_z: str = "rbf"):

@@ -18,32 +18,48 @@ from repro_torch.kernels.slstm_scan.kernel import STATE
 
 
 class SLSTMScan(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, g_in, r, b, c0, n0, m0, h0):
-        if not any(ctx.needs_input_grad):
-            return kernel.slstm_scan_fwd(g_in, r, b, c0, n0, m0, h0)
-        hs, *fin, g, cs, ns, ms = kernel.slstm_scan_fwd(
-            g_in, r, b, c0, n0, m0, h0, save=True)
-        ctx.save_for_backward(r, c0, n0, m0, h0, hs, g, cs, ns, ms)
-        return (hs, *fin)
+    """In the ``setup_context`` form, so that ``torch.func.vmap`` reaches
+    its ``vmap`` rule, which raises: K5 under vmap (the xLSTM's vectorized
+    round) is not ported yet.  ``save`` (the caller's: whether a gradient
+    is needed) makes the forward also return the per-step pre-activations
+    and states, as outputs that carry no gradient."""
 
     @staticmethod
-    def backward(ctx, dhs, dc, dn, dm, dh):
+    def forward(g_in, r, b, c0, n0, m0, h0, save: bool):
+        return kernel.slstm_scan_fwd(g_in, r, b, c0, n0, m0, h0, save=save)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        if inputs[-1]:
+            r, c0, n0, m0, h0 = inputs[1], *inputs[3:7]
+            hs, *_, g, cs, ns, ms = output
+            ctx.mark_non_differentiable(g, cs, ns, ms)
+            ctx.save_for_backward(r, c0, n0, m0, h0, hs, g, cs, ns, ms)
+
+    @staticmethod
+    def backward(ctx, dhs, dc, dn, dm, dh, *_):
         r, c0, n0, m0, h0, hs, g, cs, ns, ms = ctx.saved_tensors
         dg, dc0, dn0, dm0, dh0 = kernel.slstm_scan_bwd(
             g, cs, ns, ms, r, c0, n0, m0,
             *(t.contiguous() for t in (dhs, dc, dn, dm, dh)))
         h_prev = torch.cat([h0[:, None], hs[:, :-1]], dim=1)
         dr = torch.einsum("bshe,bsghj->ghej", h_prev, dg)
-        return dg, dr, dg.sum(dim=(0, 1)), dc0, dn0, dm0, dh0
+        return dg, dr, dg.sum(dim=(0, 1)), dc0, dn0, dm0, dh0, None
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        raise NotImplementedError(
+            "the sLSTM scan (K5) has no vmap rule yet, so the xLSTM has no "
+            "vectorized round: see ROADMAP.md, Queue 1 (at full width four "
+            "cohorts' stage steps of 30-37 GB each would not fit one card)")
 
 
 def slstm_scan(g_in, r, b, state0: dict):
     """g_in: (B, S, 4, H, Dh); r: (4, H, Dh, Dh); b: (4, H, Dh); state0:
     dict(c, n, m, h) each (B, H, Dh).  Returns (hs (B, S, H, Dh), final
     state dict).  Differentiable in all four inputs (backward: the
-    reverse-scan kernel)."""
-    hs, *fin = SLSTMScan.apply(g_in.contiguous(), r.contiguous(),
-                               b.contiguous(),
-                               *(state0[k].contiguous() for k in STATE))
+    reverse-scan kernel); without grad nothing is saved."""
+    inputs = (g_in, r, b, *(state0[k] for k in STATE))
+    save = torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
+    hs, *fin = SLSTMScan.apply(*(t.contiguous() for t in inputs), save)[:5]
     return hs, dict(zip(STATE, fin))

@@ -5,12 +5,14 @@ A model is a flat list of *units* (stem, residual blocks, VGG conv layers,
 fire modules); NeuLite splits the list into T blocks and trains them
 progressively.  Normalization is GroupNorm, as in the reference.  Public
 functions take NHWC images and return NHWC features (permuted views), as
-the reference does; inside, activations are NCHW and convs go to cuDNN.
+the reference does; inside, activations are NCHW.  Every conv goes through
+``CNNConfig.conv_impl``: by default cuDNN on the card, im2col on the CPU.
 Conv weights are OIHW (``bridge`` converts the reference's HWIO).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Tuple
 
 import torch
@@ -29,6 +31,7 @@ class CNNConfig:
     in_channels: int = 3
     image_size: int = 32
     groups: int = 8                # GroupNorm groups
+    conv_impl: str = "auto"        # native | im2col | auto (resolve_conv_impl)
 
     def scaled(self, c: int) -> int:
         return max(self.groups, int(c * self.width_mult) // self.groups
@@ -40,6 +43,17 @@ class CNNConfig:
 # --------------------------------------------------------------------------- #
 def conv_defs(cin: int, cout: int, k: int = 3) -> dict:
     return {"w": ParamDef((cout, cin, k, k), scale=(2.0 / (k * k * cin)) ** 0.5)}
+
+
+def resolve_conv_impl(impl: str, device) -> str:
+    """``conv_impl="auto"`` -> a concrete implementation for ``device``
+    (the reference's rule, with the port's names: its ``"lax"`` is
+    ``"native"`` here): im2col on the CPU, where patches and one einsum
+    (one batched matmul under ``torch.func.vmap`` over per-cohort weights)
+    beat a grouped convolution, and cuDNN on the card."""
+    if impl == "auto":
+        return "im2col" if torch.device(device).type == "cpu" else "native"
+    return impl
 
 
 def _same_pads(H, W, k, stride):
@@ -147,25 +161,26 @@ def _pool(h, stride):
     return h
 
 
-def _unit_apply(kind, meta, params, x, groups):
+def _unit_apply(kind, meta, params, x, groups, impl: str = "native"):
     s = meta["stride"]
+    cv = functools.partial(conv, impl=impl)
     if kind == "stem":
-        return F.relu(groupnorm(params["gn"], conv(params["conv"], x, s),
+        return F.relu(groupnorm(params["gn"], cv(params["conv"], x, s),
                                 groups))
     if kind == "basic":
-        h = F.relu(groupnorm(params["gn1"], conv(params["conv1"], x, s),
+        h = F.relu(groupnorm(params["gn1"], cv(params["conv1"], x, s),
                              groups))
-        h = groupnorm(params["gn2"], conv(params["conv2"], h, 1), groups)
-        sc = conv(params["proj"], x, s) if "proj" in params else x
+        h = groupnorm(params["gn2"], cv(params["conv2"], h, 1), groups)
+        sc = cv(params["proj"], x, s) if "proj" in params else x
         return F.relu(h + sc)
     if kind == "vgg":
-        return _pool(F.relu(groupnorm(params["gn"], conv(params["conv"], x),
+        return _pool(F.relu(groupnorm(params["gn"], cv(params["conv"], x),
                                       groups)), s)
     if kind == "fire":
-        sq = F.relu(groupnorm(params["gn"], conv(params["squeeze"], x),
+        sq = F.relu(groupnorm(params["gn"], cv(params["squeeze"], x),
                               groups))
-        h = torch.cat([F.relu(conv(params["e1"], sq)),
-                       F.relu(conv(params["e3"], sq))], dim=1)
+        h = torch.cat([F.relu(cv(params["e1"], sq)),
+                       F.relu(cv(params["e3"], sq))], dim=1)
         return _pool(h, s)
     raise ValueError(kind)
 
@@ -218,8 +233,9 @@ def unit_meta(cfg: CNNConfig) -> List[Tuple[str, dict]]:
 
 
 def cnn_apply_units(cfg: CNNConfig, metas, params_list, x):
+    impl = resolve_conv_impl(cfg.conv_impl, x.device)
     for (kind, meta), p in zip(metas, params_list):
-        x = _unit_apply(kind, meta, p, x, cfg.groups)
+        x = _unit_apply(kind, meta, p, x, cfg.groups, impl)
     return x
 
 
@@ -259,8 +275,10 @@ def cnn_surrogate_defs(cfg: CNNConfig, block_bounds: List[Tuple[int, int]]):
 
 
 def cnn_apply_surrogates(cfg: CNNConfig, sur_params, x):
+    impl = resolve_conv_impl(cfg.conv_impl, x.device)
     for p in sur_params:
-        x = F.relu(groupnorm(p["gn"], conv(p["conv"], x, 2), cfg.groups))
+        x = F.relu(groupnorm(p["gn"], conv(p["conv"], x, 2, impl),
+                             cfg.groups))
     return x
 
 

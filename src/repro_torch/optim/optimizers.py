@@ -10,7 +10,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.common.tree import tree_map
+from repro_torch.common.tree import tree_leaves, tree_map
 
 
 class Optimizer(NamedTuple):
@@ -19,13 +19,18 @@ class Optimizer(NamedTuple):
 
 
 def sgd(lr, momentum: float = 0.9, weight_decay: float = 5e-4) -> Optimizer:
-    """lr: float or schedule fn(step) -> float."""
+    """lr: float or schedule fn(step) -> float, ``step`` a 0-d int32
+    tensor (the update's count, from 1)."""
     sched = lr if callable(lr) else (lambda _: lr)
 
     def init(params):
         mu = (tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
                        params) if momentum else None)
-        return {"mu": mu, "step": 0}
+        # a device counter, as the reference's: a captured step (CUDA graph)
+        # counts on the card, and a vmapped one per cohort
+        step = torch.zeros((), dtype=torch.int32,
+                           device=tree_leaves(params)[0].device)
+        return {"mu": mu, "step": step}
 
     @torch.no_grad()
     def update(grads, state, params):

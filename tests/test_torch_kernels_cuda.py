@@ -786,3 +786,277 @@ def test_slstm_wrapper_raises_on_bad_inputs(cuda):
                                  torch.zeros(4, 1, big, big, device=cuda),
                                  torch.zeros(4, 1, big, device=cuda),
                                  z, z, z, z)
+
+
+# (B, Dx, Dz, linear_x) of the batched K1-K3 checks: the training batches
+# (16, 32, 128) at the main paths' h_xz and h_yz widths
+BATCHED_CASES = [(32, 3, 64, False), (32, 256, 512, False),
+                 (16, 2048, 2048, False), (16, 256, 64, True),
+                 (128, 64, 128, False), (32, 384, 384, False),
+                 (32, 10, 64, True), (32, 100, 64, True)]
+
+
+def _batched_inputs(C, case, device):
+    B, Dx, Dz, lx = case
+    rng = np.random.default_rng(C * 7 + B)
+    x = torch.from_numpy(rng.standard_normal((C, B, Dx)).astype(
+        np.float32)).to(device)
+    z = torch.from_numpy(rng.standard_normal((C, B, Dz)).astype(
+        np.float32)).to(device)
+    return x, z
+
+
+@pytest.mark.parametrize("C", [1, 3, 4])
+@pytest.mark.parametrize("case", BATCHED_CASES,
+                         ids=[str(c) for c in BATCHED_CASES])
+def test_batched_kernels_equal_per_cohort_launches(cuda, case, C):
+    """K1-K3 on a (C, B, D) stack: one launch each, every cohort's result
+    the same bits as a launch of its own, and within the bar of the plain
+    version."""
+    lx = case[3]
+    x, z = _batched_inputs(C, case, cuda)
+    per = [_kernel_args(x[c], z[c], lx) for c in range(C)]
+    rx, rz, s = (torch.stack([p[i] for p in per]) for i in (0, 1, 2))
+    s2 = s[:, :2].contiguous()
+    kernel.reset_launches()
+    rxs, rzs = kernel.nhsic_rowsums(x, z, s2, linear_x=lx)
+    stats = kernel.nhsic_stats_feats(x, z, rx, rz, s, linear_x=lx)
+    scal = torch.cat([s, torch.rand(C, 3, device=cuda) + 0.5], dim=1)
+    dx, dz = kernel.nhsic_grad(x, z, rx, rz, scal, linear_x=lx)
+    assert kernel.LAUNCHES["nhsic_rowsums"] == 1
+    assert kernel.LAUNCHES["nhsic_stats_feats"] == 1
+    assert kernel.LAUNCHES["nhsic_grad"] == 1
+    for c in range(C):
+        one = kernel.nhsic_rowsums(x[c], z[c], s2[c], linear_x=lx)
+        assert torch.equal(rxs[c], one[0]) and torch.equal(rzs[c], one[1])
+        assert torch.equal(stats[c], kernel.nhsic_stats_feats(
+            x[c], z[c], rx[c], rz[c], s[c], linear_x=lx))
+        g = kernel.nhsic_grad(x[c], z[c], rx[c], rz[c], scal[c],
+                              linear_x=lx)
+        assert torch.equal(dx[c], g[0]) and torch.equal(dz[c], g[1])
+        want = ref.nhsic_grad(x[c], z[c], rx[c], rz[c], scal[c],
+                              linear_x=lx)
+        assert _rel(dx[c], want[0]) <= TOL and _rel(dz[c], want[1]) <= TOL
+        want = ref.nhsic_stats_feats(x[c], z[c], rx[c], rz[c], s[c],
+                                     linear_x=lx)
+        assert _rel(stats[c], want) <= TOL
+
+
+def test_vmapped_nhsic_launches_once_per_kernel(cuda):
+    """vmap(grad(nhsic)) over 4 cohorts: K1, K2 and K3 once each, the
+    gradients those of a loop over the cohorts."""
+    x = torch.randn(4, 32, 256, device=cuda)
+    z = torch.randn(4, 32, 512, device=cuda)
+    grad = torch.func.grad(lambda a, b: ops.nhsic(a, b), argnums=(0, 1))
+    kernel.reset_launches()
+    gx, gz = torch.func.vmap(grad)(x, z)
+    assert {n: kernel.LAUNCHES[n] for n in ("nhsic_rowsums",
+                                            "nhsic_stats_feats",
+                                            "nhsic_grad")} == {
+        "nhsic_rowsums": 1, "nhsic_stats_feats": 1, "nhsic_grad": 1}
+    for c in range(4):
+        a, b = grad(x[c], z[c])
+        assert torch.equal(gx[c], a) and torch.equal(gz[c], b)
+
+
+def test_folded_flash_equals_separate_launches(cuda):
+    """K4 under vmap over 4 cohorts folds them into its batch axis: one
+    launch, the same bits as four."""
+    q, k, v = (torch.randn(4, 32, 64, 6, 64, device=cuda) for _ in range(3))
+    fa_kernel.reset_launches()
+    out = torch.func.vmap(lambda a, b, c: fa_kernel.flash_attention_fwd(
+        a, b, c, causal=False))(q, k, v)
+    assert fa_kernel.LAUNCHES["flash_attention_fwd"] == 1
+    for c in range(4):
+        assert torch.equal(out[c], fa_kernel.flash_attention_fwd(
+            q[c], k[c], v[c], causal=False))
+
+
+def _small_cnn(device, stages=2):
+    from repro_torch.core.progressive import make_adapter
+    from repro_torch.models.cnn import CNNConfig
+    adapter = make_adapter(CNNConfig(name="resnet18", arch="resnet18",
+                                     image_size=16, width_mult=0.25), stages)
+    return adapter, adapter.init_params(0, device)
+
+
+def _image_batches(n, device, B=16, seed=0):
+    rng = np.random.default_rng(seed)
+    return [{"inputs": {"images": torch.from_numpy(rng.standard_normal(
+        (B, 16, 16, 3)).astype(np.float32)).to(device)},
+        "labels": torch.from_numpy(rng.integers(0, 10, B).astype(
+            np.int32)).to(device)} for _ in range(n)]
+
+
+def test_replayed_step_equals_the_eager_step(cuda):
+    """Three replays of the captured stage step against three eager steps
+    from the same state: params, optimizer state and losses to the bit;
+    K1-K3 counted twice a replayed step."""
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.core.curriculum import CurriculumHP
+    from repro_torch.core.progressive import (CapturedStep, jit_stage_step,
+                                              make_stage_step)
+    from repro_torch.optim.optimizers import sgd
+    torch.backends.cudnn.deterministic = True
+    adapter, params = _small_cnn(cuda)
+    batches = _image_batches(3, cuda)
+    opt, hp = sgd(0.05), CurriculumHP(use_hsic_kernel=True)
+    for t in range(2):
+        frozen, trainable = adapter.split_stage(params, t)
+        runs = []
+        for step in (make_stage_step(adapter, opt, hp, t),
+                     jit_stage_step(adapter, opt, hp, t, device=cuda)):
+            kernel.reset_launches()
+            state, tr, losses = opt.init(trainable), trainable, []
+            for b in batches:
+                state, tr, m = step(state, tr, frozen, b, trainable)
+                losses.append(m["loss"])
+            runs.append((tree_leaves([state, tr]), losses,
+                         dict(kernel.LAUNCHES)))
+        assert isinstance(step, CapturedStep)
+        (ea, el, ec), (ca, cl, cc) = runs
+        assert all(torch.equal(a, b) for a, b in zip(ea, ca, strict=True))
+        assert all(torch.equal(a, b) for a, b in zip(el, cl, strict=True))
+        assert ec == cc and cc["nhsic_grad"] == 2 * len(batches)
+
+
+def test_four_clients_give_four_uploads(cuda):
+    """The captured step reuses its buffers: four clients with different
+    data, one after another through one step, upload four different
+    trees, each the same bits as the client's eager training."""
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.core.curriculum import CurriculumHP
+    from repro_torch.core.progressive import jit_stage_step, make_stage_step
+    from repro_torch.data.loader import Batcher
+    from repro_torch.data.synthetic import make_image_dataset
+    from repro_torch.federated.client import run_local_training
+    from repro_torch.optim.optimizers import sgd
+    torch.backends.cudnn.deterministic = True
+    adapter, params = _small_cnn(cuda)
+    frozen, trainable = adapter.split_stage(params, 0)
+    opt, hp = sgd(0.05), CurriculumHP(use_hsic_kernel=True)
+    data = [make_image_dataset(s, 48, image_size=16) for s in range(4)]
+    uploads = {}
+    for name, step in (("captured", jit_stage_step(adapter, opt, hp, 0,
+                                                   device=cuda)),
+                       ("eager", make_stage_step(adapter, opt, hp, 0))):
+        # fresh batchers: a batcher's order advances with every epoch drawn
+        uploads[name] = [tree_leaves(run_local_training(
+            step, opt, trainable, frozen, Batcher(ds, 16, seed=s), 1,
+            global_ref=trainable, device=cuda).trainable)
+            for s, ds in enumerate(data)]
+    cap = uploads["captured"]
+    for i in range(4):
+        assert all(torch.equal(a, b) for a, b in zip(cap[i],
+                                                     uploads["eager"][i]))
+        for j in range(i):
+            assert not all(torch.equal(a, b) for a, b in zip(cap[i], cap[j]))
+
+
+def test_graphs_of_an_old_stage_are_released(cuda):
+    """A round of another stage drops the graphs kept: the memory the
+    captured stage held is allocated no more, and its graph's pool is no
+    longer reserved.  A first round and release come before the
+    measurement: a process's first capture also leaves cuBLAS a workspace
+    for the capture stream, which PyTorch keeps for the process's life."""
+    import gc
+
+    from repro_torch.core.curriculum import CurriculumHP
+    from repro_torch.data.loader import Batcher
+    from repro_torch.data.synthetic import make_image_dataset
+    from repro_torch.federated.runtime import SequentialRuntime
+    from repro_torch.optim.optimizers import sgd
+    adapter, params = _small_cnn(cuda)
+    runtime = SequentialRuntime(adapter, sgd(0.05),
+                                CurriculumHP(use_hsic_kernel=True), cuda)
+    batchers = [Batcher(make_image_dataset(s, 32, image_size=16), 16,
+                        seed=s) for s in range(2)]
+    runtime.run_round(params, 0, batchers, [0, 1], 1)
+    runtime.release()
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    out = runtime.run_round(params, 0, batchers, [0, 1], 1)
+    del out
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    assert held > before      # the stage's static buffers
+    assert torch.cuda.memory_reserved() > reserved   # and the graph's pool
+    runtime._stage_program(1, lambda: None)   # what a stage-1 round does
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() <= before
+    assert torch.cuda.memory_reserved() <= reserved
+
+
+def test_replay_reads_a_frozen_leaf_changed_in_place(cuda):
+    """Every call copies its arguments into the graph: a frozen leaf
+    changed in place between two calls, through ``.data`` (which leaves
+    the tensor's version counter as it was), reaches the replay, whose
+    step is then the same bits as the eager step on the changed leaf."""
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.core.curriculum import CurriculumHP
+    from repro_torch.core.progressive import jit_stage_step, make_stage_step
+    from repro_torch.optim.optimizers import sgd
+    torch.backends.cudnn.deterministic = True
+    adapter, params = _small_cnn(cuda)
+    (batch,) = _image_batches(1, cuda)
+    opt, hp = sgd(0.05), CurriculumHP(use_hsic_kernel=True)
+    frozen, trainable = adapter.split_stage(params, 1)
+    captured = jit_stage_step(adapter, opt, hp, 1, device=cuda)
+    first = tree_leaves(captured(opt.init(trainable), trainable, frozen,
+                                 batch, trainable)[1])
+    first = [p.clone() for p in first]
+    for leaf in tree_leaves(frozen):
+        leaf.data.mul_(1.5)
+    _, got, gm = captured(opt.init(trainable), trainable, frozen, batch,
+                          trainable)
+    _, want, wm = make_stage_step(adapter, opt, hp, 1)(
+        opt.init(trainable), trainable, frozen, batch, trainable)
+    assert torch.equal(gm["loss"], wm["loss"])
+    assert all(torch.equal(a, b) for a, b in
+               zip(tree_leaves(got), tree_leaves(want), strict=True))
+    assert not all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(got), first))
+
+
+def test_launches_after_replays_and_vectorized_rounds(cuda):
+    """A captured sequential round and a vectorized round of 3 cohorts:
+    K1-K3 counted exactly twice per local step (per vectorized step,
+    whatever the number of cohorts); the two rounds agree at the round
+    bar (1e-3 of the largest update)."""
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.core.curriculum import CurriculumHP
+    from repro_torch.data.loader import Batcher, stack_round
+    from repro_torch.data.synthetic import make_image_dataset
+    from repro_torch.federated.runtime import (SequentialRuntime,
+                                               VectorizedRuntime)
+    from repro_torch.optim.optimizers import sgd
+    torch.backends.cudnn.deterministic = True
+    adapter, params = _small_cnn(cuda)
+    hp = CurriculumHP(use_hsic_kernel=True)
+    stack = stack_round([Batcher(make_image_dataset(s, 16 * (s + 2),
+                                                    image_size=16), 16,
+                                 seed=s) for s in range(3)], [0, 1, 2],
+                        local_epochs=1)
+    _, start = adapter.split_stage(params, 1)
+    out = {}
+    for name, cls in (("sequential", SequentialRuntime),
+                      ("vectorized", VectorizedRuntime)):
+        kernel.reset_launches()
+        new, _ = cls(adapter, sgd(0.05), hp, cuda).run_stacked(params, 1,
+                                                                stack)
+        out[name] = (tree_leaves(new), dict(kernel.LAUNCHES))
+    steps = int(stack.step_mask.sum())
+    assert out["sequential"][1]["nhsic_grad"] == 2 * steps
+    assert out["vectorized"][1]["nhsic_grad"] == 2 * stack.max_steps
+    for n in ("nhsic_rowsums", "nhsic_stats_feats"):
+        assert out["sequential"][1][n] == 2 * steps
+        assert out["vectorized"][1][n] == 2 * stack.max_steps
+    upd = [a - s for a, s in zip(out["sequential"][0], tree_leaves(start))]
+    scale = max(float(u.abs().max()) for u in upd if u.numel())
+    diff = max(float((a - b).abs().max()) for a, b in
+               zip(out["sequential"][0], out["vectorized"][0]) if a.numel())
+    assert diff <= 1e-3 * scale

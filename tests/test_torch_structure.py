@@ -173,6 +173,6 @@ def test_unported_archs_and_runtimes_raise():
     with pytest.raises(ValueError, match="alexnet"):
         build_units(CNNConfig(name="a", arch="alexnet"))
     with pytest.raises(ValueError, match="sequential"):
-        make_runtime("vectorized", None, None, None, torch.device("cpu"))
+        make_runtime("sharded", None, None, None, torch.device("cpu"))
     with pytest.raises(ValueError, match="random"):
         make_policy("oort")
