@@ -65,7 +65,11 @@
    K4 never.  Then the step check against ``use_slstm_kernel=False`` with
    plain nHSIC (with the plain path's own sensitivity), each of the 6
    sLSTM sub-layers alone, kernel path against plain path
-   (``slstm_layer_check``), and the profile.
+   (``slstm_layer_check``), and the profile.  Its rounds each start from
+   an emptied cache; then the same server's rounds with eager steps
+   (``f2_phase``): each default (captured) round must reserve at most 1.1x
+   what the eager round of its stage reserves, with the same loss to the
+   bit.
 6. Main path 4, the kernel benchmark: ``kernels_bench.run()`` on the card
    (its attention rows through K4, its nHSIC rows through K1-K3 and, in
    ``nhsic_unfused``, K6 and K7; the only path that runs K6 and K7); the
@@ -76,7 +80,21 @@
    stage, then an evaluation; K1-K3 twice per local step; then the step
    check per stage (with the plain path's own sensitivity) and the
    profile.
-8. The Fig. 6 phase, after every server is freed: the paper's peak-memory
+8. Main path 6: rounds through ``FLConfig(runtime="vectorized")`` (every
+   cohort in one ``torch.func.vmap``ped step) of ResNet18, ViT-12 and a
+   24-layer xLSTM at the smoke config's width and at xlstm-1.3b's, each
+   held against the sequential round on the same stack (``TOL`` of the
+   largest update, or 10x the sequential round's own movement under a
+   1e-7 change where that exceeds TOL / 10), each round's first step
+   alone, the captured cohort step against the eager one to the bit, and
+   the rounds again from the seed to the bit; K1-K3 launch twice per
+   vectorized step, K5 once per frozen sLSTM layer (its cohorts folded
+   into the rows) and once per cohort group per trainable one.  The
+   batched phase holds K1-K3, K4 and K5 (forward and backward, r per
+   cohort and shared) under vmap against per-cohort launches to the bit.
+   Then round throughput at the reference's sizes
+   (``benchmarks/fl_round_throughput.py``).
+9. The Fig. 6 phase, after every server is freed: the paper's peak-memory
    claim measured by ``benchmarks/fig6_memory.py``'s ``run``
    (``analysis.memory.measure_local_training``: the allocator's peak over
    two local steps on the same two batches, each from an empty cache with
@@ -244,7 +262,7 @@ XLSTM = dict(use_slstm_kernel=True, dtype="float32")
 # reference's init, in the reference too (tests/test_torch_xlstm.py::
 # test_full_width_step_is_sensitive_and_lr_0_05_diverges)
 XLSTM_LR = 1e-4
-LM_SEQS, LM_SEQ_LEN = 3200, 256
+LM_SEQ_LEN = 256
 TEST_SEQS = 128
 
 
@@ -1080,26 +1098,32 @@ def record_eval_peaks(torch, server):
     def measured(*a, **kw):
         torch.cuda.synchronize()
         before = torch.cuda.max_memory_allocated()
+        reserved = torch.cuda.max_memory_reserved()
         torch.cuda.reset_peak_memory_stats()
         out = evaluate(*a, **kw)
         torch.cuda.synchronize()
-        peaks.append((before, torch.cuda.max_memory_allocated()))
+        peaks.append((before, torch.cuda.max_memory_allocated(), reserved))
         return out
 
     server.evaluate = measured
     return peaks
 
 
-def run_rounds(torch, server, kernels, n, quiet=False):
+def run_rounds(torch, server, kernels, n, quiet=False, fresh=False):
     """``n`` rounds; per round the seconds, peak allocated bytes (and,
     where the round evaluates, the peak before and during the evaluation),
-    local steps and each kernel's launches."""
+    local steps and each kernel's launches.  With ``fresh`` each round
+    starts from an emptied cache, so that its reserved peak is its own."""
     step_counts = record_steps(server)
     eval_peaks = record_eval_peaks(torch, server)
     rounds = []
     for r in range(n):
         before = read_all(kernels)
         done, evals = len(step_counts), len(eval_peaks)
+        if fresh:
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         rr = server.run_round(r)
@@ -1111,8 +1135,9 @@ def run_rounds(torch, server, kernels, n, quiet=False):
         reserved = torch.cuda.max_memory_reserved()
         split = {}
         if len(eval_peaks) > evals:
-            train, during = eval_peaks[-1]
+            train, during, train_reserved = eval_peaks[-1]
             peak = max(train, peak)
+            reserved = max(train_reserved, reserved)
             split = dict(train_peak_bytes=train, eval_peak_bytes=during)
         after = read_all(kernels)
         launches = {n_: after[n_] - before[n_] for n_ in after}
@@ -1178,7 +1203,6 @@ def main_path(torch, kernels, np, spec=RESNET):
     rounds = run_rounds(torch, server, kernels,
                         server.adapter.plan.num_stages)
     counts = read_all(kernels)
-    server.runtime.release()    # the last stage's graphs
 
     hsic = {n: counts[n] for n in STREAMING}
     n_steps = sum(r["local_steps"] for r in rounds)
@@ -1312,12 +1336,14 @@ LAYER_KERNELS = {"attn": "flash_attention_fwd", "slstm": "slstm_scan_fwd"}
 BACKWARD_KERNELS = {"slstm": "slstm_scan_bwd"}
 
 
-def transformer_rounds(torch, kernels, np, server, test_batcher, t0):
-    """One round per stage on ``server``, then an evaluation on
-    ``test_batcher``.  Each per-layer kernel must launch once per layer of
-    its kind run per local step (the frozen prefix included: a stage runs
-    periods [0, end of its active block)) and once per such layer per
-    evaluation batch, K1-K3 twice per local step."""
+def transformer_rounds(torch, kernels, np, server, test_batcher, t0,
+                       fresh=False):
+    """One round per stage on ``server`` (``fresh``: each from an emptied
+    cache), then an evaluation on ``test_batcher``.  Each per-layer kernel
+    must launch once per layer of its kind run per local step (the frozen
+    prefix included: a stage runs periods [0, end of its active block))
+    and once per such layer per evaluation batch, K1-K3 twice per local
+    step."""
     adapter, cfg = server.adapter, server.adapter.cfg
     steps = [b.steps_per_epoch for b in server.batchers]
     print(f"  data, params and server {time.perf_counter() - t0:.2f} s; "
@@ -1330,8 +1356,8 @@ def transformer_rounds(torch, kernels, np, server, test_batcher, t0):
                       for kind, name in BACKWARD_KERNELS.items()}
 
     reset_all(kernels)
-    rounds = run_rounds(torch, server, kernels, adapter.plan.num_stages)
-    server.runtime.release()    # the last stage's graphs
+    rounds = run_rounds(torch, server, kernels, adapter.plan.num_stages,
+                        fresh=fresh)
     server.test_batcher = test_batcher
     before = read_all(kernels)
     acc = server.evaluate()
@@ -1414,33 +1440,117 @@ def vit_main_path(torch, kernels, np):
                                         t0))
 
 
+def xlstm_server(capture=True, params=None):
+    """Main path 3's server: full-width xlstm-1.3b over a 100-device
+    fleet on synthetic text, built from SEED (``benchmarks/round_memory.py``
+    builds it); ``capture=False`` keeps its steps eager, ``params`` stand
+    for the init from SEED."""
+    from repro_torch.benchmarks.round_memory import xlstm_server as build
+    return build(capture, params=params)
+
+
 def xlstm_main_path(torch, kernels, np):
     """Main path 3: three rounds of full-width xlstm-1.3b on synthetic
-    text, one per stage, the sLSTM scan through K5, then an evaluation."""
+    text, one per stage, the sLSTM scan through K5, each from an emptied
+    cache (``f2_phase`` holds their reserved peaks against eager rounds'),
+    then an evaluation.  Returns the server's start params too, on the
+    host (the F2 phase's eager server starts from them: drawing them from
+    the seed again takes seconds of host time)."""
+    from repro_torch.data.loader import Batcher
+    from repro_torch.data.synthetic import make_lm_dataset
+
+    t0 = time.perf_counter()
+    server = xlstm_server()
+    start = _on("cpu", server.params)
+    test = Batcher(make_lm_dataset(SEED + 1, TEST_SEQS, LM_SEQ_LEN,
+                                   server.adapter.cfg.vocab_size),
+                   server.flc.batch_size, seed=SEED, kind="lm")
+    return (server, start, *transformer_rounds(torch, kernels, np, server,
+                                               test, t0, fresh=True))
+
+
+F2_BAR = 1.1    # a default round may reserve 10% more than an eager one
+
+
+def f2_phase(torch, kernels, rounds, start):
+    """ROADMAP F2: main path 3's default rounds (captured steps) against
+    eager rounds (``capture=False``) of the same server, seed, start
+    params (``start``) and stages, each round from an emptied cache.  A
+    default round's reserved peak must stay within F2_BAR of the eager
+    round's, and its loss must be the eager round's to the bit (a replay
+    gives the eager step's bits)."""
+    server = xlstm_server(capture=False, params=_on("cuda", start))
+    del start
+    check(not server.runtime.capture, "the eager server captures")
+    eager = run_rounds(torch, server, kernels, len(rounds), quiet=True,
+                       fresh=True)
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = []
+    for d, e in zip(rounds, eager):
+        row = {"stage": d["stage"], "default_seconds": d["seconds"],
+               "eager_seconds": e["seconds"],
+               "default_allocated_mib": d["peak_bytes"] / 2**20,
+               "eager_allocated_mib": e["peak_bytes"] / 2**20,
+               "default_reserved_mib": d["peak_reserved_bytes"] / 2**20,
+               "eager_reserved_mib": e["peak_reserved_bytes"] / 2**20,
+               "same_loss": repr(d["mean_loss"]) == repr(e["mean_loss"])}
+        row["reserved_ratio"] = (row["default_reserved_mib"]
+                                 / row["eager_reserved_mib"])
+        out.append(row)
+        print(f"  stage {row['stage']}: default {row['default_seconds']:.3f}"
+              f" s, allocated {row['default_allocated_mib']:.1f} MiB, "
+              f"reserved {row['default_reserved_mib']:.1f}; eager "
+              f"{row['eager_seconds']:.3f} s, allocated "
+              f"{row['eager_allocated_mib']:.1f}, reserved "
+              f"{row['eager_reserved_mib']:.1f}; reserved ratio "
+              f"{row['reserved_ratio']:.4f}; the same loss: "
+              f"{row['same_loss']}", flush=True)
+    check(all(r["reserved_ratio"] <= F2_BAR for r in out),
+          f"F2: a default round reserves more than {F2_BAR} x the eager "
+          f"round's: {out}")
+    check(all(r["same_loss"] for r in out),
+          f"F2: default and eager rounds differ in loss: {out}")
+    return out
+
+
+# main path 6's xLSTM: the smoke config's width (``smoke_config``: d_model
+# 256, 4 heads of 64, vocab 512) and xlstm-1.3b's (d_model 2048, 4 heads of
+# 512, vocab 50304), each cut to 3 periods (24 layers) in 3 stages: stage 2
+# then freezes a period, whose sLSTM layer the cohorts share, beside two
+# trainable ones (in 2 stages of 2 periods nothing is frozen; 2 stages of 3
+# periods train the embedding and two periods at stage 0, 10.3 GB of
+# params for four cohorts, which ran out of the card's 80 GB in the
+# vectorized step's backward at batch 8 and at 4).  4 cohorts, f32, lr
+# 1e-4, one round a stage.  (B, S, sequences): the full width at batch 4,
+# with few sequences a client, so that a round has few vectorized steps.
+XLSTM_VEC_LAYERS, XLSTM_VEC_STAGES = 24, 3
+XLSTM_VEC = {"smoke": (8, 64, 800), "full": (4, 256, 400)}
+
+
+def xlstm_vec_server(width, runtime="sequential"):
+    """Main path 6's xLSTM server at ``width`` ("smoke" or "full") over a
+    100-device fleet on synthetic text, built from SEED."""
     from repro_torch.configs import xlstm_1_3b
     from repro_torch.core.progressive import make_adapter
-    from repro_torch.data.loader import Batcher
     from repro_torch.data.partition import dirichlet_partition
     from repro_torch.data.synthetic import make_lm_dataset
     from repro_torch.federated.server import FLConfig, NeuLiteServer
 
-    cfg = dataclasses.replace(xlstm_1_3b.config(), **XLSTM)
+    cfg = xlstm_1_3b.config()
+    cfg = (cfg.reduced(num_layers=XLSTM_VEC_LAYERS) if width == "smoke"
+           else dataclasses.replace(cfg, num_layers=XLSTM_VEC_LAYERS))
+    cfg = dataclasses.replace(cfg, **XLSTM)
+    B, S, seqs = XLSTM_VEC[width]
     flc = FLConfig(n_devices=100, clients_per_round=4, local_epochs=1,
-                   batch_size=16, lr=XLSTM_LR, num_stages=3,
-                   use_hsic_kernel=True, runtime="sequential", seed=SEED)
-    t0 = time.perf_counter()
-    ds = make_lm_dataset(SEED, LM_SEQS, LM_SEQ_LEN, cfg.vocab_size)
+                   batch_size=B, lr=XLSTM_LR, num_stages=XLSTM_VEC_STAGES,
+                   use_hsic_kernel=True, runtime=runtime, seed=SEED)
+    ds = make_lm_dataset(SEED, seqs, S, cfg.vocab_size)
     parts = dirichlet_partition(SEED, ds.topics, flc.n_devices,
                                 alpha=flc.alpha)
-    server = NeuLiteServer(make_adapter(cfg, flc.num_stages),
-                           [ds.subset(p) for p in parts], flc,
-                           data_kind="lm")
-    torch.cuda.synchronize()
-    test = Batcher(make_lm_dataset(SEED + 1, TEST_SEQS, LM_SEQ_LEN,
-                                   cfg.vocab_size), flc.batch_size,
-                   seed=SEED, kind="lm")
-    return (server, *transformer_rounds(torch, kernels, np, server, test,
-                                        t0))
+    return NeuLiteServer(make_adapter(cfg, flc.num_stages),
+                         [ds.subset(p) for p in parts], flc, data_kind="lm")
 
 
 def _leaves(tree):
@@ -1686,8 +1796,8 @@ KERNEL_NAMES = {"nhsic": ("nhsic_rowsums_kernel", "nhsic_stats_kernel",
 def step_profile(torch, server, steps=5):
     """Where a full-width local step's time goes, captured (the runtime's
     step on the card: one CUDA graph replayed a step) and eager, side by
-    side: ``torch.profiler`` over ``steps`` steps of each stage (after two
-    warm-up steps; the captured step's first captures it).  Device busy
+    side: ``torch.profiler`` over ``steps`` steps of each stage (after a
+    warm-up step; the captured step's captures it).  Device busy
     time is the sum of the card's kernel and copy times; the rest of the
     host-clock wall time the card sits idle.  Only CUDA activity is
     traced (each row says so): tracing the CPU too lengthens the wall time,
@@ -1709,17 +1819,17 @@ def _stage_profile(torch, server, t, steps, captured):
     step = (jit_stage_step(server.adapter, opt, server.hp, t,
                            device=server.device) if captured
             else make_stage_step(server.adapter, opt, server.hp, t))
-    state = opt.init(trainable)
-    for _ in range(2):
-        state, trainable, _ = step(state, trainable, frozen, batch,
-                                   trainable)
+    state, tr = opt.init(trainable), trainable
+    # global_ref is the round's start, as a client's local training holds
+    # it (a captured step reads it in place: another tensor there would
+    # capture anew)
+    state, tr, _ = step(state, tr, frozen, batch, trainable)
     torch.cuda.synchronize()
     activities = [ProfilerActivity.CUDA]
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            state, trainable, _ = step(state, trainable, frozen, batch,
-                                       trainable)
+            state, tr, _ = step(state, tr, frozen, batch, trainable)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     by_name = device_kernel_ms(torch, prof, steps)
@@ -1984,6 +2094,214 @@ def batched_timing(torch, kernel, ref, hsic):
     return rows
 
 
+# K5 over cohorts under torch.func.vmap, (B, S, H, Dh): the reference's audit
+# shapes (kernels/slstm_scan/ops.py), the xLSTM smoke width (16 blocks a
+# cohort) and xlstm-1.3b's (128 blocks a cohort, one an SM); main path 6
+# runs the last two
+SLSTM_BATCHED = [(2, 256, 2, 512), (2, 128, 4, 64), (8, 64, 4, 64),
+                 (8, 256, 4, 512)]
+SLSTM_SMOKE, SLSTM_FULL = SLSTM_BATCHED[2], SLSTM_BATCHED[3]
+
+
+def slstm_stack(torch, case, C, shared):
+    """C cohorts' (g_in, r, b, c0, n0, m0, h0) with a leading cohort axis,
+    each cohort drawn as ``slstm_inputs`` draws them (random initial
+    states) from a seed of its own; r and b cohort 0's where ``shared``."""
+    B, S, H, Dh = case
+    per = []
+    for c in range(C):
+        g = torch.Generator().manual_seed(1000 * C + c)
+        per.append([torch.randn((B, S, 4, H, Dh), generator=g),
+                    torch.randn((4, H, Dh, Dh), generator=g)
+                    * (0.5 / math.sqrt(Dh)),
+                    torch.randn((4, H, Dh), generator=g) * 0.1,
+                    torch.randn((B, H, Dh), generator=g),
+                    torch.randn((B, H, Dh), generator=g).abs() + 0.1,
+                    torch.randn((B, H, Dh), generator=g),
+                    torch.randn((B, H, Dh), generator=g) * 0.5])
+    stack = [torch.stack(ts).cuda() for ts in zip(*per)]
+    if shared:
+        stack[1], stack[2] = stack[1][0].contiguous(), stack[2][0].contiguous()
+    return stack
+
+
+def slstm_batched_calls(torch, skernel, case, C, shared):
+    """K5's forward (saving the states) and backward under
+    ``torch.func.vmap`` over C cohorts: (inputs, cotangents, forward
+    outputs, backward outputs, forward launches, backward launches)."""
+    g_in, r, b, *st = slstm_stack(torch, case, C, shared)
+    rd = None if shared else 0
+    fwd = torch.func.vmap(
+        lambda g, r_, b_, *s: skernel.slstm_scan_fwd(g, r_, b_, *s,
+                                                     save=True),
+        in_dims=(0, rd, rd, 0, 0, 0, 0))
+    bwd = torch.func.vmap(skernel.slstm_scan_bwd,
+                          in_dims=(0, 0, 0, 0, rd) + (0,) * 8)
+    before = dict(skernel.LAUNCHES)
+    out = fwd(g_in, r, b, *st)
+    gen = torch.Generator().manual_seed(C)
+    cot = [torch.randn(tuple(t.shape), generator=gen).cuda()
+           for t in out[:5]]
+    back = bwd(*out[5:], r, *st[:3], *cot)
+    torch.cuda.synchronize()
+    n = {k: skernel.LAUNCHES[k] - before[k] for k in before}
+    return ((g_in, r, b, *st), cot, out, back, n["slstm_scan_fwd"],
+            n["slstm_scan_bwd"])
+
+
+def predicted_slstm_launches(torch, case, C, shared):
+    """K5's launches per batched call, as ``slstm_scan.cu`` groups whole
+    heads: shared r folds the cohorts into the rows (one cohort's H
+    heads), per-cohort r makes C H heads of ceil(Dh / 16) blocks.  At
+    Dh <= 64 a block takes ~52 KiB, and every case here fits the card at
+    once: one launch; at Dh = 512 it takes ~165 KiB, one block an SM, so a
+    launch takes SMs // 32 whole heads (4 on 132 SMs)."""
+    B, S, H, Dh = case
+    heads = H if shared else C * H
+    if Dh <= 64:
+        return 1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return -(-heads // (sms // -(-Dh // 16)))
+
+
+def batched_slstm_phase(torch, skernel, sref):
+    """K5 forward and backward under vmap over C in BATCHED_COHORTS cohorts
+    at every SLSTM_BATCHED shape, with r and b per cohort (a trainable
+    layer: the cohorts' heads on the kernels) and shared (a frozen layer:
+    the cohorts folded into the rows): each cohort's outputs the bits of a
+    launch of its own and within TOL (scale-relative) of ``ref.py``
+    (vmapped over the cohorts);
+    launches as predicted (``predicted_slstm_launches``)."""
+    errs, cases = {}, 0
+    launches = {}
+    for case in SLSTM_BATCHED:
+        for C in BATCHED_COHORTS:
+            for shared in (False, True):
+                ins, cot, out, back, nf, nb = slstm_batched_calls(
+                    torch, skernel, case, C, shared)
+                g_in, r, b, *st = ins
+                # ``ref.py`` for every cohort at once: the plain loops
+                # under vmap (the backward on the kernel's saved states)
+                rd = None if shared else 0
+                hs, fin, saved = torch.func.vmap(
+                    lambda g, r_, b_, *s: sref.slstm_scan_ref(
+                        g, r_, b_, dict(zip(STATE, s)), save=True),
+                    in_dims=(0, rd, rd, 0, 0, 0, 0))(g_in, r, b, *st)
+                ref_f = ([hs] + [fin[k] for k in STATE]
+                         + [saved[k] for k in "gcnm"])
+                ref_b = torch.func.vmap(
+                    sref.slstm_scan_bwd_ref,
+                    in_dims=(0, 0, 0, 0, rd) + (0,) * 8)(*out[5:], r,
+                                                         *st[:3], *cot)
+                want = predicted_slstm_launches(torch, case, C, shared)
+                launches[str((*case, C, shared))] = (nf, nb)
+                check(nf == nb == want,
+                      f"batched K5 {case} C={C} shared={shared}: {nf} "
+                      f"forward and {nb} backward launches, expected "
+                      f"{want}")
+                for c in range(C):
+                    rc, bc = (r, b) if shared else (r[c], b[c])
+                    stc = [t[c] for t in st]
+                    own = skernel.slstm_scan_fwd(g_in[c], rc, bc, *stc,
+                                                 save=True)
+                    own_b = skernel.slstm_scan_bwd(
+                        *own[5:], rc, *stc[:3], *(t[c] for t in cot))
+                    check(all(torch.equal(o[c], w) for o, w in
+                              zip(out, own)) and
+                          all(torch.equal(o[c], w) for o, w in
+                              zip(back, own_b)),
+                          f"batched K5 {case} C={C} shared={shared}: cohort "
+                          f"{c} is not the bits of its own launch")
+                    rel, ab = rel_abs([o[c] for o in out],
+                                      [w[c] for w in ref_f])
+                    rel_b, ab_b = rel_abs([o[c] for o in back],
+                                          [w[c] for w in ref_b])
+                    check(rel <= TOL and rel_b <= TOL,
+                          f"batched K5 {case} C={C} shared={shared} cohort "
+                          f"{c}: rel err {rel} forward, {rel_b} backward")
+                    track(errs, "slstm_scan_fwd", rel, ab)
+                    track(errs, "slstm_scan_bwd", rel_b, ab_b)
+                cases += 1
+                del ins, cot, out, back, ref_f, ref_b, hs, fin, saved
+    print(f"  batched K5 at {cases} (shape, C, shared r): every cohort the "
+          f"bits of its own launch, rel err <= forward "
+          f"{errs['slstm_scan_fwd'][1]:.2e}, backward "
+          f"{errs['slstm_scan_bwd'][1]:.2e}; launches (forward, backward) "
+          f"{launches}", flush=True)
+    return errs, {"slstm_cases": cases, "slstm_launches": launches}
+
+
+def batched_slstm_timing(torch, skernel, sref):
+    """K5's forward and backward over C = 4 cohorts, one vmapped call
+    against four unbatched calls: event and device time, launches.  At
+    xlstm-1.3b's width with each cohort's own r (main path 6's trainable
+    layers) also the plain versions on the same cohorts (``ref.py``'s
+    loops, one cohort after another) and the bound, C times one cohort's:
+    the kernel line's rows.  Then device time alone at the smoke width
+    and, r shared (folded into the rows), at full width."""
+    C = 4
+    kname = {"slstm_scan_fwd": "slstm_fwd_kernel",
+             "slstm_scan_bwd": "slstm_bwd_kernel"}
+    rows = []
+    for case, shared in ((SLSTM_FULL, False), (SLSTM_SMOKE, False),
+                         (SLSTM_FULL, True)):
+        ins, cot, out, _, nf, nb = slstm_batched_calls(torch, skernel, case,
+                                                       C, shared)
+        g_in, r, b, *st = ins
+        rd = None if shared else 0
+        fwd = torch.func.vmap(
+            lambda *a: skernel.slstm_scan_fwd(*a, save=True),
+            in_dims=(0, rd, rd, 0, 0, 0, 0))
+        bwd = torch.func.vmap(skernel.slstm_scan_bwd,
+                              in_dims=(0, 0, 0, 0, rd) + (0,) * 8)
+        bargs = (*out[5:], r, *st[:3], *cot)
+        rc = (lambda c: r) if shared else (lambda c: r[c])
+        bc = (lambda c: b) if shared else (lambda c: b[c])
+        calls = {
+            "slstm_scan_fwd": (lambda: fwd(*ins), lambda: [
+                skernel.slstm_scan_fwd(g_in[c], rc(c), bc(c),
+                                       *(t[c] for t in st), save=True)
+                for c in range(C)]),
+            "slstm_scan_bwd": (lambda: bwd(*bargs), lambda: [
+                skernel.slstm_scan_bwd(*(t[c] for t in out[5:]), rc(c),
+                                       *(t[c] for t in st[:3]),
+                                       *(t[c] for t in cot))
+                for c in range(C)])}
+        main = case == SLSTM_FULL and not shared
+        for n, (one, four) in calls.items():
+            row = {"name": n, "cohorts": C, "shape": list(case),
+                   "shared_r": shared,
+                   "launches_per_call": nf if n == "slstm_scan_fwd" else nb,
+                   "device_ms": device_ms(torch, one, (kname[n],)),
+                   "four_calls_device_ms": device_ms(torch, four,
+                                                     (kname[n],))}
+            if main:
+                b_ms, b_by = bound_ms(n, case)
+                plain = {"slstm_scan_fwd": lambda: [sref.slstm_scan_ref(
+                             g_in[c], r[c], b[c],
+                             dict(zip(STATE, (t[c] for t in st))),
+                             save=True) for c in range(C)],
+                         "slstm_scan_bwd": lambda: [sref.slstm_scan_bwd_ref(
+                             *(t[c] for t in bargs)) for c in range(C)]}[n]
+                row.update(ms=time_ms(torch, one),
+                           four_calls_ms=time_ms(torch, four),
+                           plain_ms=time_ms(torch, plain, runs=3, warmup=1),
+                           bound_ms=C * b_ms, bound_by=b_by)
+            rows.append(row)
+            print(f"  time batched {n} C={C} {case} "
+                  f"{'shared' if shared else 'own'} r: "
+                  + (f"one call {row['ms']:.4f} ms, " if main else "")
+                  + f"device {fmt_ms(row['device_ms'])} in "
+                  f"{row['launches_per_call']} launches; four calls "
+                  + (f"{row['four_calls_ms']:.4f} ms, " if main else "")
+                  + f"device {fmt_ms(row['four_calls_device_ms'])}"
+                  + (f"; plain {row['plain_ms']:.4f} ms, bound "
+                     f"{row['bound_ms']:.3f} ms ({row['bound_by']})"
+                     if main else ""), flush=True)
+        del ins, cot, out
+    return rows
+
+
 # --------------------------------------------------------------------------- #
 # the captured step against the eager step
 # --------------------------------------------------------------------------- #
@@ -2093,39 +2411,52 @@ def capture_check(torch, server):
 # --------------------------------------------------------------------------- #
 # main path 6: vectorized rounds
 # --------------------------------------------------------------------------- #
-def _record_stacks(server):
+def _on(device, tree):
+    from repro_torch.common.tree import tree_map
+    return tree_map(lambda p: p.to(device), tree)
+
+
+def _record_stacks(torch, server, profile_at=None, profile=None):
     """Keep each round's (params, stage, stack, new trainable) as the
-    vectorized runtime runs it."""
+    vectorized runtime runs it, the params and the new trainable on the
+    host (at xlstm-1.3b's width they are GBs a round).  The round of index
+    ``profile_at`` among them runs under the profiler (``_profiled``, into
+    the dict ``profile``)."""
     seen = []
     run = server.runtime.run_stacked
 
     def recorded(params, t, stack):
-        out = run(params, t, stack)
-        seen.append((params, t, stack, out[0]))
+        if len(seen) == profile_at:
+            out = _profiled(torch, profile, lambda: run(params, t, stack))
+        else:
+            out = run(params, t, stack)
+        seen.append((_on("cpu", params), t, stack, _on("cpu", out[0])))
         return out
 
     server.runtime.run_stacked = recorded
     return seen
 
 
-def _round_profile(torch, runtime, params, t, stack):
-    """Wall ms, device busy ms and device ops of one round of ``runtime``
-    on a stack (its programs already built)."""
+def _profiled(torch, into, fn):
+    """``fn()`` (a round's local steps and Eq. 1, its captures included,
+    as every round captures) under the profiler: its wall ms, device busy
+    ms and device ops go into the dict ``into``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        runtime.run_stacked(params, t, stack)
+        out = fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     by_name = device_kernel_ms(torch, prof, 1)
     busy = device_busy_ms(torch, prof, 1)
     ops = sum(1 for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA)
-    return {"wall_ms": wall, "busy_ms": busy if by_name else None,
-            "ops_ms": sum(by_name.values()) if by_name else None,
-            "idle_share": 1.0 - busy / wall if by_name else None,
-            "device_ops": ops}
+    into.update(wall_ms=wall, busy_ms=busy if by_name else None,
+                ops_ms=sum(by_name.values()) if by_name else None,
+                idle_share=1.0 - busy / wall if by_name else None,
+                device_ops=ops)
+    return out
 
 
 def _update_rel(new, ref, start):
@@ -2157,23 +2488,28 @@ def cohort_step_check(torch, np, server, params, t, stack):
     keep = torch.as_tensor(np.asarray(stack.step_mask)[:, 0],
                            device=server.device)
     frozen, trainable = adapter.split_stage(params, t)
-    local = tree_map(lambda p: p.expand(C, *p.shape).contiguous(), trainable)
-    state = tree_map(lambda v: v.expand(C).contiguous() if v.dim() == 0
-                     else v, opt.init(local))
+    # as the runtime's first step takes them: views of one copy
+    local = tree_map(lambda p: p.expand(C, *p.shape), trainable)
+    state = tree_map(lambda v: v.expand(C, *v.shape), opt.init(trainable))
     step = cohort_stage_step(adapter, opt, hp, t)
-    captured = CapturedStep(step)
+    # as the runtime captures it: the frozen prefix and global_ref in place
+    captured = CapturedStep(step, shared=(2, 4))
     args = (state, local, frozen, batch, trainable, keep)
-    _, eager, em = step(*args)
-    _, again, _ = step(*args)
-    _, cap, cm = captured(*args)
-    cap = [p.clone() for p in _leaves(cap)]
+    eager, em = step(*args)[1:]
+    again = step(*args)[1]
+    repeats = all(torch.equal(a, b) for a, b in zip(_leaves(eager),
+                                                    _leaves(again)))
+    del again
+    # at full width the cohorts' stacked params are GBs: the eager step's
+    # wait on the host while the captured step runs
+    eager = tree_map(lambda p: p.cpu(), eager)
+    cap, cm = captured(*args)[1:]
+    cap = [p.cpu() for p in _leaves(cap)]
+    cm = {"loss": cm["loss"].clone()}
     bitwise = (torch.equal(em["loss"], cm["loss"])
                and all(torch.equal(a, b) for a, b in
                        zip(_leaves(eager), cap)))
-    row = {"captured_bitwise": bitwise,
-           "eager_repeats_bitwise": all(
-               torch.equal(a, b) for a, b in zip(_leaves(eager),
-                                                 _leaves(again)))}
+    row = {"captured_bitwise": bitwise, "eager_repeats_bitwise": repeats}
     if not bitwise:
         # name the first device kernel where the replay's sequence departs
         # from the eager step's, and hold the replay at the step bar
@@ -2184,7 +2520,9 @@ def cohort_step_check(torch, np, server, params, t, stack):
         check(row["captured_params_rel"] <= TOL,
               f"stage {t}: the captured cohort step beyond the step bar: "
               f"{row}")
-    del captured
+    captured.release()
+    del captured, cap
+    torch.cuda.empty_cache()
     seq = make_stage_step(adapter, opt, hp, t)
     moved = tree_map(lambda p: p * (1 + 1e-7), params)
     mfrozen, mtrain = adapter.split_stage(moved, t)
@@ -2192,7 +2530,8 @@ def cohort_step_check(torch, np, server, params, t, stack):
     for c in [c for c in range(C) if bool(keep[c])]:
         b = tree_map(lambda x: x[c], batch)
         want = seq(opt.init(trainable), trainable, frozen, b, trainable)[1:]
-        got = (tree_map(lambda p: p[c], eager), {"loss": em["loss"][c]})
+        got = (tree_map(lambda p: p[c].to(server.device), eager),
+               {"loss": em["loss"][c]})
         far = seq(opt.init(mtrain), mtrain, mfrozen, b, mtrain)[1:]
         loss_c, params_c = _step_diff(got, want)
         far_loss, far_params = _step_diff(far, want)
@@ -2217,6 +2556,27 @@ def cohort_step_check(torch, np, server, params, t, stack):
     return row
 
 
+def slstm_launches_per_step(torch, server, t, stack):
+    """K5's launches per vectorized step of stage t: the forward once per
+    sLSTM layer run, once for a frozen layer (r shared: the cohorts fold
+    into the rows), once per cohort group for a trainable one (each
+    cohort's own r: ``predicted_slstm_launches``); the backward once per
+    cohort group per trainable layer.  Empty for a model without sLSTM."""
+    cfg = server.adapter.cfg
+    per_period = sum(1 for k, _ in getattr(cfg, "pattern", ()) if k == "slstm")
+    if not per_period:
+        return {}
+    (f0, f1), (b0, b1), (a0, a1) = server.adapter.plan.stage_ranges(t)
+    B, S = stack.batches["inputs"]["tokens"].shape[2:4]
+    H = cfg.num_heads
+    groups = predicted_slstm_launches(
+        torch, (B, S, H, cfg.d_model // H), stack.num_cohorts, False)
+    frozen = (f1 - f0) * per_period
+    trainable = (b1 - b0 + a1 - a0) * per_period
+    return {"slstm_scan_fwd": frozen + trainable * groups,
+            "slstm_scan_bwd": trainable * groups}
+
+
 def vectorized_path(torch, kernels, np, make_server, name, periods=False):
     """Main path 6 on one model: its rounds through ``FLConfig(runtime=
     "vectorized")``, one per stage.  K1-K3 must launch exactly twice per
@@ -2231,50 +2591,76 @@ def vectorized_path(torch, kernels, np, make_server, name, periods=False):
     the seed must repeat bit for bit.  With ``periods`` (the ViT, whose
     rounds and steps amplify f32 rounding past any useful bar) each period
     is also held under vmap against the cohorts run alone
-    (``vmap_period_check``).  Reports s/round, the peak, and the idle share
-    of one round."""
+    (``vmap_period_check``).  The sequential rounds are eager: a captured
+    round gives their bits (the capture checks).  Reports s/round (from
+    the repeat, which records nothing), the peak, and the idle share of
+    one round: the first run's last, profiled."""
     from repro_torch.common.tree import tree_map
     from repro_torch.federated.runtime import SequentialRuntime
 
-    def run(quiet):
+    t0 = time.perf_counter()
+
+    def run(profile=None):
+        """The server's rounds; with ``profile`` (a dict) each round's
+        stack is recorded and the last round profiled."""
         server = make_server("vectorized")
-        seen = _record_stacks(server)
+        n = server.adapter.plan.num_stages
+        seen = (_record_stacks(torch, server, n - 1, profile)
+                if profile is not None else [])
         reset_all(kernels)
-        rounds = run_rounds(torch, server, kernels,
-                            server.adapter.plan.num_stages, quiet=quiet)
-        del server.runtime.run_stacked
+        rounds = run_rounds(torch, server, kernels, n,
+                            quiet=profile is None)
+        if profile is not None:
+            del server.runtime.run_stacked
         return server, rounds, seen
 
-    server, rounds, seen = run(False)
+    profile = {}
+    server, rounds, seen = run(profile)
     counts = read_all(kernels)
     trained = [r for r in rounds if r["n_selected"] > 0]
-    check(len(trained) == len(seen) and seen, "a round trained no cohort")
-    for r, (_, _, stack, _) in zip(trained, seen):
+    check(len(trained) == len(seen) == len(rounds) and profile,
+          "a round trained no cohort")
+    took = {"rounds": time.perf_counter() - t0}
+    for r, (_, t, stack, _) in zip(trained, seen):
         r["vectorized_steps"] = stack.max_steps
         r["cohorts"] = stack.num_cohorts
         check(all(r["launches"][n] == 2 * stack.max_steps for n in STREAMING),
               f"round {r['round_idx']}: {r['launches']}, expected 2 per "
               f"vectorized step ({stack.max_steps} steps of "
               f"{stack.num_cohorts} cohorts)")
+        want = slstm_launches_per_step(torch, server, t, stack)
+        r["slstm_launches_per_step"] = want
+        for n, per_step in want.items():
+            check(r["launches"][n] == stack.max_steps * per_step,
+                  f"round {r['round_idx']}: {r['launches']}, expected "
+                  f"{stack.max_steps} vectorized steps x {per_step} "
+                  f"launches of {n}")
     check(all(math.isfinite(r["mean_loss"]) for r in trained),
           "non-finite round loss")
-    profile = _round_profile(torch, server.runtime, *seen[-1][:3])
     seq = SequentialRuntime(server.adapter, server.optimizer, server.hp,
-                            server.device)
-    agree, failed = [], []
+                            server.device, capture=False)
+    agree, failed, first_steps = [], [], 0.0
     for (params, t, stack, vec), r in zip(seen, trained):
+        params = _on(server.device, params)
         new, _ = seq.run_stacked(params, t, stack)
         moved, _ = seq.run_stacked(tree_map(lambda p: p * (1 + 1e-7),
                                             params), t, stack)
         _, start = server.adapter.split_stage(params, t)
-        diff = _update_rel(vec, new, start)
+        diff = _update_rel(_on(server.device, vec), new, start)
         sens = _update_rel(moved, new, start)
         bar = max(TOL, 10 * sens) if sens > TOL / 10 else TOL
+        # the first-step check captures the cohort step: at full width it
+        # needs the card's memory
+        del new, moved, start
+        gc.collect()
+        torch.cuda.empty_cache()
         agree.append(diff)
+        t1 = time.perf_counter()
         r.update(vs_sequential_rel=diff, sequential_eps_rel=sens,
                  round_bar=bar,
                  first_step=cohort_step_check(torch, np, server, params,
                                               t, stack))
+        first_steps += time.perf_counter() - t1
         print(f"  round {r['round_idx']} (stage {t}): vectorized vs "
               f"sequential {diff:.2e} of the largest update; sequential at "
               f"params x (1 + 1e-7) {sens:.2e}; bar {bar:.1e}; first step "
@@ -2290,25 +2676,41 @@ def vectorized_path(torch, kernels, np, make_server, name, periods=False):
             failed.append(r["round_idx"])
     check(not failed, f"{name} rounds {failed}: vectorized vs sequential "
           f"beyond the round bar")
-    seq.release()
+    took["first_steps"] = first_steps
+    took["sequential"] = (time.perf_counter() - t0 - took["rounds"]
+                          - first_steps)
     vperiods = (vmap_period_check(torch, server, seen[0][2]) if periods
                 else None)
     del seq
-    again, again_rounds, _ = run(True)
-    repeats = _same_run(torch, rounds, server.params, again_rounds,
-                        again.params)
-    check(repeats, f"{name}: the vectorized rounds do not repeat bit for bit")
-    print(f"  {name} vectorized: vs sequential <= {max(agree):.2e} of the "
-          f"largest update; s/round {[round(r['seconds'], 4) for r in rounds]}"
-          f"; one round: wall {profile['wall_ms']:.1f} ms, busy "
-          f"{fmt_ms(profile['busy_ms'])} ms, idle "
-          f"{profile['idle_share'] if profile['idle_share'] is None else round(profile['idle_share'], 4)}"
-          f", {profile['device_ops']} device ops; repeats bit for bit",
-          flush=True)
-    del server, again
+    # the first run's params wait on the host: at full width two servers'
+    # params and a round's stacks do not fit the card together
+    first = _on("cpu", server.params)
+    del server
     gc.collect()
-    return {"rounds": rounds, "profile": profile, "repeats": repeats,
-            "vs_sequential_rel": agree, "period_check": vperiods}, counts
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    again, again_rounds, _ = run()
+    repeats = _same_run(torch, rounds, first, again_rounds,
+                        _on("cpu", again.params))
+    check(repeats, f"{name}: the vectorized rounds do not repeat bit for bit")
+    took["repeat"] = time.perf_counter() - t1
+    # the repeat neither records its stacks (host copies of the params)
+    # nor profiles: its seconds are the rounds'
+    seconds = [r["seconds"] for r in again_rounds]
+    print(f"  {name} vectorized: vs sequential <= {max(agree):.2e} of the "
+          f"largest update; s/round (the repeat) "
+          f"{[round(s_, 4) for s_ in seconds]}; phases (s) "
+          f"{ {k: round(v, 1) for k, v in took.items()} }; one round "
+          f"(the first run's last, its captures included): wall "
+          f"{profile['wall_ms']:.1f} ms, busy {fmt_ms(profile['busy_ms'])}, "
+          f"idle {profile['idle_share']}, {profile['device_ops']} device "
+          f"ops; repeats bit for bit",
+          flush=True)
+    del again
+    gc.collect()
+    return {"rounds": rounds, "seconds": seconds, "profile": profile,
+            "repeats": repeats, "vs_sequential_rel": agree,
+            "period_check": vperiods, "phase_seconds": took}, counts
 
 
 def main():
@@ -2356,13 +2758,16 @@ def main():
     errs.update(slstm_phase(torch, skernel, sops, sref))
     errs.update(gram_phase(torch, kernel, ops, ref, hsic))
     berrs, batched = batched_phase(torch, kernel, ref, hsic, fkernel, fref)
-    for n, (ab, rel) in berrs.items():
+    serrs, sbatched = batched_slstm_phase(torch, skernel, sref)
+    batched.update(sbatched)
+    for n, (ab, rel) in [*berrs.items(), *serrs.items()]:
         track(errs, n, rel, ab)
     timing = timing_phase(torch, kernel, ref, hsic)
     timing += flash_timing(torch, fkernel, fref)
     timing += slstm_timing(torch, skernel, sops, sref)
     timing += gram_timing(torch, kernel, ref, hsic)
     batched["timing"] = batched_timing(torch, kernel, ref, hsic)
+    batched["timing"] += batched_slstm_timing(torch, skernel, sref)
 
     phase("main path 1: ResNet18")
     server, rounds, counts = main_path(torch, kernels, np)
@@ -2393,7 +2798,8 @@ def main():
     del vserver
 
     phase("main path 3: xlstm-1.3b")
-    xserver, xrounds, xcounts, xacc = xlstm_main_path(torch, kernels, np)
+    xserver, xstart, xrounds, xcounts, xacc = xlstm_main_path(torch,
+                                                              kernels, np)
     phase("step check")
     plain = make_adapter(dataclasses.replace(xserver.adapter.cfg,
                                              use_slstm_kernel=False),
@@ -2404,8 +2810,11 @@ def main():
     phase("captured step against the eager step")
     captures["xlstm"] = capture_check(torch, xserver)
     phase("step profile")
-    xprofiles = step_profile(torch, xserver, steps=2)
+    xprofiles = step_profile(torch, xserver, steps=1)
     del xserver
+    phase("F2: main path 3's rounds against eager rounds")
+    f2 = f2_phase(torch, kernels, xrounds, xstart)
+    del xstart
 
     phase("main path 4: kernel benchmark")
     bench_rows, bcounts = bench_path(torch, kernels)
@@ -2428,7 +2837,11 @@ def main():
     vec = {}
     for name, make in (("resnet18", lambda rt: cnn_server(np, quiet=True,
                                                            runtime=rt)),
-                       ("vit12", lambda rt: vit_server(rt)[0])):
+                       ("vit12", lambda rt: vit_server(rt)[0]),
+                       ("xlstm-smoke", lambda rt: xlstm_vec_server("smoke",
+                                                                   rt)),
+                       ("xlstm-full", lambda rt: xlstm_vec_server("full",
+                                                                  rt))):
         phase(f"main path 6: vectorized rounds of {name}")
         vec[name], vec_counts = vectorized_path(torch, kernels, np, make,
                                                 name, name == "vit12")
@@ -2437,7 +2850,12 @@ def main():
     phase("round throughput (fl_round_throughput)")
     from repro_torch.benchmarks import fl_round_throughput
     reset_all(kernels)
-    throughput = fl_round_throughput.run("cuda", BENCH_FL_OUT)
+    # the reference's sizes (the module's full-width rows take most of its
+    # time; run it alone for them)
+    throughput = fl_round_throughput.run(
+        "cuda", BENCH_FL_OUT, iters=2,
+        settings=[s for s in fl_round_throughput.SETTINGS
+                  if s[1] == "reference"])
     tcounts = read_all(kernels)
     print(f"  rows written to {os.path.relpath(BENCH_FL_OUT, ROOT)}",
           flush=True)
@@ -2500,6 +2918,25 @@ def main():
         for key in ("device_ms", "library_device_ms"):
             if key in row:
                 out_kernels[-1][key] = row[key]
+    # K5 over 4 cohorts (the reference vmaps its pallas_call): launches are
+    # main path 6's on the xLSTM, errors the batched phase's
+    for row in batched["timing"]:
+        n = row["name"]
+        if n not in serrs or "ms" not in row:
+            continue
+        out_kernels.append({
+            "name": f"{n}, C = {row['cohorts']}", "route": "cuda",
+            "source": sources[n], "replaces": replaces[n],
+            "launches": sum(v["launches"][n] for k, v in vec.items()
+                            if k.startswith("xlstm")),
+            "max_abs_err": serrs[n][0], "max_rel_err": serrs[n][1],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "shape": row["shape"],
+            "device_ms": row["device_ms"],
+            "four_calls_ms": row["four_calls_ms"],
+            "four_calls_device_ms": row["four_calls_device_ms"],
+            "launches_per_call": row["launches_per_call"]})
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     os.makedirs(os.path.dirname(OUT), exist_ok=True)
@@ -2516,7 +2953,7 @@ def main():
                    "xlstm": {"rounds": xrounds, "launches": xcounts,
                              "test_acc": xacc, "step_check": xsteps,
                              "slstm_layer_check": xlayers,
-                             "step_profile": xprofiles},
+                             "step_profile": xprofiles, "f2": f2},
                    "kernels_bench": {"rows": bench_rows,
                                      "launches": bcounts},
                    "zoo": zoo, "batched": batched,

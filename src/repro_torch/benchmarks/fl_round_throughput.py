@@ -7,11 +7,11 @@ made once, before timing), for:
 
   sequential-eager     ``SequentialRuntime(capture=False)``: C·E eager
                        steps, every op issued from Python
-  sequential-captured  ``SequentialRuntime``: C·E replays of the stage
-                       step captured as a CUDA graph
-  vectorized           ``VectorizedRuntime``: E replays of one captured
-                       step of all C cohorts (``torch.func.vmap``), then
-                       the Eq. 1 sum
+  sequential-captured  ``SequentialRuntime``: the stage step captured as
+                       a CUDA graph, then C·E replays of it
+  vectorized           ``VectorizedRuntime``: one step of all C cohorts
+                       (``torch.func.vmap``) captured, E replays of it,
+                       then the Eq. 1 sum
 
 at the reference's settings (ResNet18 at width 0.0625 on 8x8 images, a
 ViT of 4 layers at d_model 64 on 16x16 images; 4 stages, C = 16, B = 4,
@@ -19,8 +19,9 @@ E = 2, stage 1) and at the smoke run's full-width configs (ResNet18 at
 width 1.0 on 32x32, 4 stages; ViT-12, d_model 384, on 64x64, 3 stages,
 attention through the flash kernel; B = 32, E = 2, stage 1) with C = 4
 and C = 16.  nHSIC runs through the kernels.  Each time is the median of
-``iters`` rounds after one warm-up round (the warm-up captures the
-graphs), with the card synchronised around each round.
+``iters`` rounds after one warm-up round, with the card synchronised
+around each round.  Every round captures its graphs anew and drops them
+after its last local step, as a server's round does.
 
   PYTHONPATH=src python -m repro_torch.benchmarks.fl_round_throughput \
       --out chiprun_out/bench_fl_round.json
@@ -108,7 +109,6 @@ def bench(kind: str, scale: str, num_cohorts: int, batch_size: int,
             return tree_leaves(new)[0], metrics["mean_local_loss"]
 
         out[name] = 1.0 / timeit(one_round, warmup=1, iters=iters)
-        runtime.release()       # its graphs, before the next runtime's
     return out
 
 

@@ -3,7 +3,8 @@ and 1 sLSTM blocks per period of 8.
 
 48 layers (6 periods), d_model 2048, 4 heads, d_ff 0 (xLSTM blocks carry
 their own up/down projections), vocab 50304, ``mlstm_expand=1``: 1,491,568,976
-params.  [arXiv:2405.04517]
+params.  ``smoke_config`` is its 16-layer reduction (2 periods, d_model
+256, 4 heads of 64, vocab 512, float32).  [arXiv:2405.04517]
 """
 from repro_torch.models.config import ModelConfig, XLSTMConfig, xlstm_pattern
 
@@ -25,3 +26,7 @@ def config() -> ModelConfig:
         # budget at 48 layers x d_model 2048
         xlstm=XLSTMConfig(mlstm_expand=1),
     )
+
+
+def smoke_config() -> ModelConfig:
+    return config().reduced(num_layers=16)

@@ -66,11 +66,35 @@ def curriculum_loss(logits, feats, batch, cfg, hp: CurriculumHP, t: int,
     return loss, metrics
 
 
+class _SquaredDistance(torch.autograd.Function):
+    """‖a − b‖² of one leaf, in float32.  Its backward recomputes a − b
+    from a and b rather than keeping it: autograd of the plain expression
+    keeps the difference, a second copy of the trainable subtree (for the
+    vectorized round's C cohorts, GBs at full width)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(a, b):
+        return torch.sum(torch.square(a.float() - b.float()))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        d = (2 * g) * (a.float() - b.float())
+        return (d.to(a.dtype) if ctx.needs_input_grad[0] else None,
+                (-d).to(b.dtype) if ctx.needs_input_grad[1] else None)
+
+
 def proximal_term(trainable, global_ref, mu: float):
     """μ/2 ‖θ − θ^l‖² over the trainable subtree (Eq. 5)."""
     leaves = tree_leaves(trainable)
     if mu == 0.0:
         return torch.zeros((), device=leaves[0].device)
-    sq = sum(torch.sum(torch.square(a.float() - b.float()))
+    sq = sum(_SquaredDistance.apply(a, b)
              for a, b in zip(leaves, tree_leaves(global_ref)))
     return 0.5 * mu * sq

@@ -333,12 +333,15 @@ def _static_copy(t):
 class _Graph:
     """One capture of a step at one set of argument shapes: the static
     argument trees the graph reads (the first ``carried`` of them are also
-    what it writes its new values into), its scalar outputs, and the
-    kernel launches it recorded."""
+    what it writes its new values into; those at the ``shared`` positions
+    are the caller's own tensors, read in place), its scalar outputs, and
+    the kernel launches it recorded."""
 
-    def __init__(self, fn, args, carried: int, name: str):
+    def __init__(self, fn, args, carried: int, name: str, shared=()):
         self.carried = carried
-        self.static = [tree_map(_static_copy, a) for a in args]
+        self.shared = frozenset(shared)
+        self.static = [a if i in self.shared else tree_map(_static_copy, a)
+                       for i, a in enumerate(args)]
         before = _snapshot()
         side = _capture_stream(tree_leaves(list(args))[0].device)
         side.wait_stream(torch.cuda.current_stream())
@@ -385,9 +388,11 @@ class _Graph:
 
     def load(self, args) -> None:
         """Copy each argument into its static buffers, unless it is those
-        buffers (the carried outputs of the last replay): one multi-tensor
-        copy a tree, not one launch a leaf."""
-        for arg, static in zip(args, self.static):
+        buffers (the carried outputs of the last replay) or read in place:
+        one multi-tensor copy a tree, not one launch a leaf."""
+        for i, (arg, static) in enumerate(zip(args, self.static)):
+            if i in self.shared:
+                continue
             src, dst = tree_leaves(arg), tree_leaves(static)
             if all(a is b for a, b in zip(src, dst)):
                 continue
@@ -414,6 +419,13 @@ def _signature(args):
                  for t in tree_leaves(list(args)))
 
 
+def _addresses(args, shared):
+    """Where the leaves of the ``shared`` arguments lie: a graph that reads
+    them in place serves only calls with these same tensors."""
+    return tuple((t.data_ptr(), t.stride()) for i in sorted(shared)
+                 for t in tree_leaves(args[i]))
+
+
 class CapturedStep:
     """``step(*args) -> (*carried, metrics)`` replayed from CUDA graphs,
     one per shape of its arguments, captured at the first call with those
@@ -421,30 +433,49 @@ class CapturedStep:
     also make the kernels' one-time ``cudaFuncSetAttribute`` calls).
 
     The graph reads static copies of every argument, copied in at every
-    call (the frozen prefix and ``global_ref`` too), and writes the first
-    ``carried`` outputs (opt_state and the trained params) into the static
-    copies of the first ``carried`` arguments, in place: the port's form of
-    the reference's donation.  So the returned trees are the graph's
-    buffers, rewritten by the next replay: a caller that keeps one past
-    the next call copies it (``own_outputs``).  Tensor metrics come back as
-    fresh tensors.  A capture that fails raises, naming the shapes: the
-    step never continues eagerly.  ``LAUNCHES`` of the kernel wrappers
-    gain, per replay, the launches recorded at capture."""
+    call, and writes the first ``carried`` outputs (opt_state and the
+    trained params) into the static copies of the first ``carried``
+    arguments, in place: the port's form of the reference's donation.  So
+    the returned trees are the graph's buffers, rewritten by the next
+    replay: a caller that keeps one past the next call copies it
+    (``own_outputs``).  The arguments at the ``shared`` positions (the
+    frozen prefix and ``global_ref``, the same tensors for every client of
+    a round) are not copied: the graph reads the caller's tensors in place,
+    so a call with other tensors there captures anew (the graph it
+    replaces is dropped first; the runtimes ``release`` theirs after every
+    round, so within one they hold one graph a batch shape).  Tensor
+    metrics come back as fresh tensors.  A capture that fails raises,
+    naming the shapes: the step never continues eagerly.  ``LAUNCHES`` of
+    the kernel wrappers gain, per replay, the launches recorded at
+    capture.  ``release`` drops the graphs and their pools; the trees
+    returned before stay valid."""
 
-    reuses_outputs = True
-
-    def __init__(self, step: Callable, carried: int = 2, name: str = "step"):
+    def __init__(self, step: Callable, carried: int = 2, name: str = "step",
+                 shared=()):
         self.step = step
         self.carried = carried
         self.name = name
+        self.shared = tuple(shared)
         self.graphs = {}
 
+    @property
+    def reuses_outputs(self) -> bool:
+        """Whether a later call may rewrite the trees returned so far: only
+        while a graph is held."""
+        return bool(self.graphs)
+
+    def release(self) -> None:
+        self.graphs.clear()
+
     def __call__(self, *args):
-        key = _signature(args)
+        shapes = _signature(args)
+        key = (shapes, _addresses(args, self.shared))
         graph = self.graphs.get(key)
         if graph is None:
+            for stale in [k for k in self.graphs if k[0] == shapes]:
+                del self.graphs[stale]
             graph = self.graphs[key] = _Graph(self.step, args, self.carried,
-                                              self.name)
+                                              self.name, self.shared)
         graph.load(args)
         return graph.replay()
 
@@ -452,7 +483,7 @@ class CapturedStep:
 def own_outputs(step, tree):
     """``tree`` (a step's output) as its caller may keep it past the step's
     next call: a copy where the step reuses its output buffers (a
-    ``CapturedStep``), else ``tree`` itself."""
+    ``CapturedStep`` holding its graphs), else ``tree`` itself."""
     if getattr(step, "reuses_outputs", False):
         return tree_map(torch.clone, tree)
     return tree
@@ -470,10 +501,10 @@ def jit_stage_step(adapter: Adapter, optimizer, hp: cur.CurriculumHP,
 
     ``donate_trainable=False`` is the default for the reference's reason:
     FL callers alias ``trainable`` with ``global_ref`` on the first local
-    step.  The captured step keeps its own static copy of each (of
-    ``global_ref`` once per client) and writes only its own buffers; it has
-    no counterpart of donating the caller's ``trainable``, so True
-    raises."""
+    step.  The captured step keeps its own static copy of ``trainable``
+    and reads ``frozen`` and ``global_ref`` in place (``shared``); it writes
+    only its own buffers and has no counterpart of donating the caller's
+    ``trainable``, so True raises."""
     step = make_stage_step(adapter, optimizer, hp, t)
     if not (donate and donation_supported(device)):
         return step
@@ -481,7 +512,7 @@ def jit_stage_step(adapter: Adapter, optimizer, hp: cur.CurriculumHP,
         raise NotImplementedError(
             "jit_stage_step: the captured step keeps a static trainable "
             "buffer of its own; donating the caller's has no counterpart")
-    return CapturedStep(step, name=f"stage {t} step")
+    return CapturedStep(step, name=f"stage {t} step", shared=(2, 4))
 
 
 def jit_full_step(adapter: Adapter, optimizer, *, donate: bool = True,

@@ -54,12 +54,12 @@ class ClientResult:
     num_batches: int
 
 
-def run_local_training(step_fn: Callable, optimizer, trainable, frozen,
-                       batcher: Batcher, local_epochs: int,
-                       global_ref=None, device: DeviceLike = None
-                       ) -> ClientResult:
-    """Run E local epochs of ``step_fn`` (a stage step) on ``device``: the
-    current CUDA card unless the caller passes ``device="cpu"``."""
+def local_steps(step_fn: Callable, optimizer, trainable, frozen,
+                batcher: Batcher, local_epochs: int, global_ref=None,
+                device: DeviceLike = None) -> ClientResult:
+    """``run_local_training`` without the copy of its trained tree: that
+    tree may be the buffers of a captured step, which its next call
+    rewrites (``own_outputs`` keeps it past that)."""
     device = resolve_device(device)
     opt_state = optimizer.init(trainable)
     gref = global_ref if global_ref is not None else trainable
@@ -70,8 +70,19 @@ def run_local_training(step_fn: Callable, optimizer, trainable, frozen,
                 opt_state, trainable, frozen, to_device(batch, device), gref)
             losses.append(metrics["loss"])
             nb += 1
-    return _result(own_outputs(step_fn, trainable), batcher, losses, nb,
-                   device)
+    return _result(trainable, batcher, losses, nb, device)
+
+
+def run_local_training(step_fn: Callable, optimizer, trainable, frozen,
+                       batcher: Batcher, local_epochs: int,
+                       global_ref=None, device: DeviceLike = None
+                       ) -> ClientResult:
+    """Run E local epochs of ``step_fn`` (a stage step) on ``device``: the
+    current CUDA card unless the caller passes ``device="cpu"``."""
+    res = local_steps(step_fn, optimizer, trainable, frozen, batcher,
+                      local_epochs, global_ref, device)
+    res.trainable = own_outputs(step_fn, res.trainable)
+    return res
 
 
 def run_local_training_full(step_fn: Callable, optimizer, params,

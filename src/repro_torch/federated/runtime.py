@@ -16,9 +16,12 @@ then takes the Eq. 1 weighted average of the trainable subtree.
                      axis (``eq1_aggregate``), eager.
 
 The sharded and async runtimes come with later parts of the port.  A
-runtime keeps the programs (and on the card the graphs and their memory)
-of the stage it is running, and drops them when a round of another stage
-starts.
+runtime builds its stage program at the start of a round and drops it
+(on the card its graphs and their memory) right after the round's last
+local step, so that Eq. 1, the evaluation and the next round reuse the
+graphs' memory as an eager round reuses its activations': every round
+captures anew.  A captured step reads the frozen prefix and
+``global_ref`` in place rather than copying them.
 
 Mid-round faults route through a ``RoundStack`` (``data.loader``): a
 (C, E) step mask whose False steps are skipped, with Eq. 1 weights scaled
@@ -42,7 +45,7 @@ from repro_torch.core.progressive import (Adapter, CapturedStep,
 from repro_torch.data.loader import (Batcher, RoundStack, stack_round,
                                      truncate_step_mask)
 from repro_torch.federated import aggregation as agg
-from repro_torch.federated.client import run_local_training
+from repro_torch.federated.client import local_steps
 from repro_torch.optim.optimizers import apply_updates
 
 
@@ -58,7 +61,10 @@ def _cohort_step(loss, optimizer, in_dims):
     ``torch.func.vmap`` of ``grad_and_value``; the SGD update is
     elementwise, so it runs on the stacked trees as they are.  A cohort
     whose ``keep`` is False keeps its params and optimizer state exactly
-    (``torch.where`` per leaf) and reports a loss of 0."""
+    (``torch.where`` per leaf) and reports a loss of 0.  A tree of C
+    cohorts' trainable params is GBs at full width (four of xlstm-1.3b's
+    two periods: 8.5 GB), so each tree is dropped as soon as the next is
+    made, and the update, the sum and the select go leaf by leaf."""
 
     def step(opt_state, params, *rest):
         *args, keep = rest
@@ -66,19 +72,20 @@ def _cohort_step(loss, optimizer, in_dims):
         def flat_loss(leaves, *a):
             return loss(tree_unflatten(params, leaves), *a)
 
-        grads, value = torch.func.vmap(
-            torch.func.grad_and_value(flat_loss), in_dims=(0, *in_dims))(
-                tree_leaves(params), *args)
-        grads = tree_unflatten(params, grads)
-        updates, new_opt = optimizer.update(grads, opt_state, params)
-        new_params = apply_updates(params, updates)
-
         def sel(new, old):
             return torch.where(keep.view(-1, *[1] * (new.dim() - 1)), new,
                                old)
 
-        return (tree_map(sel, new_opt, opt_state),
-                tree_map(sel, new_params, params),
+        grads, value = torch.func.vmap(
+            torch.func.grad_and_value(flat_loss), in_dims=(0, *in_dims))(
+                tree_leaves(params), *args)
+        updates, new_opt = optimizer.update(tree_unflatten(params, grads),
+                                            opt_state, params)
+        del grads
+        new_params = tree_map(lambda p, u: sel(apply_updates(p, u), p),
+                              params, updates)
+        del updates
+        return (tree_map(sel, new_opt, opt_state), new_params,
                 {"loss": torch.where(keep, value, torch.zeros_like(value))})
 
     return step
@@ -109,10 +116,13 @@ def _local_training(call, optimizer, params, batches, step_mask):
     device = tree_leaves(params)[0].device
     mask = torch.as_tensor(np.asarray(step_mask, bool), device=device)
     C, E = mask.shape
-    local = tree_map(lambda p: p.expand(C, *p.shape).contiguous(), params)
-    # a 0-d leaf (the step counter) becomes one per cohort
-    opt_state = tree_map(lambda v: v.expand(C).contiguous() if v.dim() == 0
-                         else v, optimizer.init(local))
+    # every cohort starts from params and a fresh optimizer state: views
+    # of one copy, which the first step reads (a captured step copies them
+    # into its buffers, and at full width a stack of the cohorts' params is
+    # GBs beside the graph's)
+    local = tree_map(lambda p: p.expand(C, *p.shape), params)
+    opt_state = tree_map(lambda v: v.expand(C, *v.shape),
+                         optimizer.init(params))
     total = torch.zeros(C, device=device)
     for e in range(E):
         # contiguous: a strided view can take other conv algorithms than
@@ -229,18 +239,22 @@ class ClientRuntime:
         self._programs: Dict[int, Any] = {}
 
     def release(self) -> None:
-        """Drop the programs kept, and hand their graphs' pools back to the
-        card: the allocator keeps a dropped graph's pool reserved until its
-        cache is emptied, so the next stage's eager warm-ups would otherwise
-        sit beside it (the xLSTM's reserved the whole 80 GB card)."""
+        """Drop the programs kept and their graphs, and hand the graphs'
+        pools back to the card: the allocator keeps a dropped graph's pool
+        reserved until its cache is emptied, so the round's Eq. 1 and
+        the next round's warm-ups would otherwise sit beside it.  Trees a
+        captured step returned before stay valid.  Every round calls it
+        after its last local step."""
         held = bool(self._programs)
+        for program in self._programs.values():
+            getattr(program, "release", lambda: None)()
         self._programs.clear()
         if held and self.capture:
             torch.cuda.empty_cache()
 
     def _stage_program(self, t: int, build):
-        """Stage t's program, built at its first round; a round of another
-        stage drops the programs kept (``release``)."""
+        """Stage t's program, built at the round's first step and dropped
+        after its last (``release``)."""
         if t not in self._programs:
             self.release()
             self._programs[t] = build()
@@ -323,6 +337,8 @@ class SequentialRuntime(ClientRuntime):
                 opt_state, tr_c, metrics = step(opt_state, tr_c, frozen,
                                                 batch, trainable)
                 cohort_losses.append(metrics["loss"])
+            if c == stack.num_cohorts - 1:
+                self.release()      # no copy of the last cohort's tree
             results.append(own_outputs(step, tr_c))
             losses.append(torch.stack(cohort_losses).mean() if cohort_losses
                           else torch.zeros((), device=self.device))
@@ -341,12 +357,13 @@ class SequentialRuntime(ClientRuntime):
         frozen, trainable = self.adapter.split_stage(params, t)
         step = self._step(t)
         results, losses, num_batches, num_samples = [], [], [], []
-        for cid in cohorts:
-            res = run_local_training(step, self.optimizer, trainable, frozen,
-                                     batchers[cid], local_epochs,
-                                     global_ref=trainable,
-                                     device=self.device)
-            results.append(res.trainable)
+        for i, cid in enumerate(cohorts):
+            res = local_steps(step, self.optimizer, trainable, frozen,
+                              batchers[cid], local_epochs,
+                              global_ref=trainable, device=self.device)
+            if i == len(cohorts) - 1:
+                self.release()      # no copy of the last client's tree
+            results.append(own_outputs(step, res.trainable))
             losses.append(res.mean_loss)
             num_batches.append(res.num_batches)
             num_samples.append(res.num_samples)
@@ -377,7 +394,8 @@ class VectorizedRuntime(ClientRuntime):
             step = cohort_stage_step(self.adapter, self.optimizer, self.hp,
                                      t)
             if self.capture:
-                step = CapturedStep(step, name=f"stage {t} cohort step")
+                step = CapturedStep(step, name=f"stage {t} cohort step",
+                                    shared=(2, 4))
             return step
         return self._stage_program(t, build)
 
@@ -387,6 +405,7 @@ class VectorizedRuntime(ClientRuntime):
         locals_, losses = _local_training(
             lambda o, p, b, k: step(o, p, frozen, b, trainable, k),
             self.optimizer, trainable, batches, stack.step_mask)
+        self.release()      # the carried locals_ stay valid
         new_trainable, mean_loss = eq1_aggregate(locals_, stack.weights,
                                                  losses)
         return new_trainable, {"mean_local_loss": mean_loss,

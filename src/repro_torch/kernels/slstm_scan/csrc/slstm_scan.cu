@@ -67,14 +67,24 @@
 // them) exceed what the card holds at once, or r's slice does not fit in
 // shared memory (Dh > 512 or so), the kernel streams r's slice from L2
 // through a staging buffer at every step instead, with as many blocks per
-// head as fit (a block then owns several tiles), and heads beyond that go
-// to further launches.  The design is chosen from the shape (and the card)
-// alone, the same way every time.  expf/log1pf/tanhf without fast math.
+// head as fit (a block then owns several tiles).  The design is chosen from
+// one cohort's shape (and the card) alone, the same way every time.
+// expf/log1pf/tanhf without fast math.
 //
-// Layout, all contiguous float32: g_in, g and dg (B, S, 4, H, Dh), r
-// (4, H, Dh, Dh), b (4, H, Dh), the initial and final states and their
-// gradients (B, H, Dh), hs, dhs and the per-step c, n, m (B, S, H, Dh);
-// scratch (2, H, ceil(Dh/TW), B, Dh); counters (H), zero.
+// Cohorts (the vectorized round: the reference vmaps the pallas_call, which
+// adds a grid axis).  C independent scans with their own r and b run as C H
+// heads: head (c, h) reads and writes cohort c's slices and has its own
+// counter.  Blocks per head and resident-or-streamed come from one cohort's
+// (B, S, H, Dh), never from C, so a cohort gets the bits of a launch of its
+// own; heads beyond what the card holds at once go to further launches, in
+// groups of whole heads.  (Cohorts that share r and b fold into B in the
+// wrapper: rows are independent, each row the M axis of its own mma.)
+//
+// Layout, all contiguous float32, each with a leading cohort axis of C:
+// g_in, g and dg (C, B, S, 4, H, Dh), r (C, 4, H, Dh, Dh), b (C, 4, H, Dh),
+// the initial and final states and their gradients (C, B, H, Dh), hs, dhs
+// and the per-step c, n, m (C, B, S, H, Dh); scratch
+// (2, C H, ceil(Dh/TW), B, Dh); counters (C H), zero.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -98,11 +108,24 @@ static_assert(RB * TW == THREADS, "one (row, column) pair per thread");
 
 struct Dims {
   int B, S, H, Dh;
+  int C;      // cohorts: C H heads in all
   int Dh16;   // Dh rounded up to 2 KS: rows of r in the forward
   int Dh64;   // Dh rounded up to 64: columns of r^T in the backward
   int T;      // tiles of a head, ceil(Dh / TW)
   int Gh;     // blocks per head
-  int head0;  // first head of this launch
+  int head0;  // first head (of all C H) of this launch
+  // a cohort's elements of a (B, S, 4, H, Dh), (B, S, H, Dh), (B, H, Dh),
+  // r and b
+  size_t gates, steps, states, rs, bs;
+};
+
+// The cohort of this block's head, and its head within the cohort.
+struct Head {
+  int global, cohort, head;
+  __device__ Head(const Dims& d, int block)
+      : global(d.head0 + block / d.Gh),
+        cohort((d.head0 + block / d.Gh) / d.H),
+        head((d.head0 + block / d.Gh) % d.H) {}
 };
 
 __device__ __forceinline__ float log_sigmoid(float x) {
@@ -339,13 +362,35 @@ slstm_fwd_kernel(const float* __restrict__ g_in, const float* __restrict__ r,
   extern __shared__ float4 smem4[];
   float* r_s = reinterpret_cast<float*>(smem4);  // fragments of (rows, TC)
   float* part = r_s + (RESIDENT ? d.Dh16 : FWD_SE) * TC;  // (WARPS, RB, PLD)
-  const int head = d.head0 + blockIdx.x / d.Gh;
+  const Head who(d, blockIdx.x);
+  const int head = who.head;
   const Items items(d, blockIdx.x % d.Gh);
+  const bool save = gs != nullptr;
+  {  // cohort who.cohort's slices
+    const size_t c = who.cohort;
+    g_in += c * d.gates;
+    r += c * d.rs;
+    bias += c * d.bs;
+    c0 += c * d.states;
+    n0 += c * d.states;
+    m0 += c * d.states;
+    h0 += c * d.states;
+    hs += c * d.steps;
+    cf += c * d.states;
+    nf += c * d.states;
+    mf += c * d.states;
+    hf += c * d.states;
+    if (save) {
+      gs += c * d.gates;
+      cs += c * d.steps;
+      ns += c * d.steps;
+      ms += c * d.steps;
+    }
+  }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gid = lane >> 2, tig = lane & 3;
   const int bl = threadIdx.x / TW, jj = threadIdx.x % TW;
   const size_t hd = static_cast<size_t>(d.H) * d.Dh;
-  const bool save = gs != nullptr;
   // with one item the thread's (c, n, m) stay in registers
   const bool single = items.n == 1;
 
@@ -475,7 +520,7 @@ slstm_fwd_kernel(const float* __restrict__ g_in, const float* __restrict__ r,
         ms[ht] = m_new;
       }
     }
-    if (t + 1 < d.S) head_barrier(counters + head, (t + 1) * d.Gh);
+    if (t + 1 < d.S) head_barrier(counters + who.global, (t + 1) * d.Gh);
   }
 }
 
@@ -569,17 +614,40 @@ slstm_bwd_kernel(const float* __restrict__ gs, const float* __restrict__ cs,
   const int ld = RESIDENT ? d.Dh64 : BWD_SE;      // e's of r^T held
   float* rt_s = reinterpret_cast<float*>(smem4);  // fragments of (TC, ld)
   float* dg_s = rt_s + TC * ld;                   // (RB, GLD)
-  const int head = d.head0 + blockIdx.x / d.Gh;
+  const Head who(d, blockIdx.x);
+  const int head = who.head;
   const Items items(d, blockIdx.x % d.Gh);
+  {  // cohort who.cohort's slices
+    const size_t c = who.cohort;
+    gs += c * d.gates;
+    cs += c * d.steps;
+    ns += c * d.steps;
+    ms += c * d.steps;
+    r += c * d.rs;
+    c0 += c * d.states;
+    n0 += c * d.states;
+    m0 += c * d.states;
+    dhs += c * d.steps;
+    dc_t += c * d.states;
+    dn_t += c * d.states;
+    dm_t += c * d.states;
+    dh_t += c * d.states;
+    dg += c * d.gates;
+    dc0 += c * d.states;
+    dn0 += c * d.states;
+    dm0 += c * d.states;
+    dh0 += c * d.states;
+  }
   const int bl = threadIdx.x / TW, jj = threadIdx.x % TW;
   const size_t hd = static_cast<size_t>(d.H) * d.Dh;
   const size_t tile_stride = static_cast<size_t>(d.B) * d.Dh;
   // with one item the thread's carried (dc, dn, dm) stay in registers
   const bool single = items.n == 1;
-  // partials of (step parity, tile) of this head
+  // partials of (step parity, tile) of this head (of all C H)
   auto part = [&](int parity, int tile) {
     return scratch +
-           ((static_cast<size_t>(parity) * d.H + head) * d.T + tile) *
+           ((static_cast<size_t>(parity) * d.C * d.H + who.global) * d.T +
+            tile) *
                tile_stride;
   };
   // item i's reads at step t, loaded one item ahead (they come from
@@ -708,7 +776,7 @@ slstm_bwd_kernel(const float* __restrict__ gs, const float* __restrict__ cs,
       }
       __syncthreads();
     }
-    head_barrier(counters + head, (d.S - t) * d.Gh);
+    head_barrier(counters + who.global, (d.S - t) * d.Gh);
   }
 
   // dh0: the partials of step 0, in tile order
@@ -727,13 +795,14 @@ struct Launch {
   const void* fn;
   size_t smem;
   int Gh;     // blocks per head
-  int heads;  // heads per launch
+  int most;   // blocks the card holds at once
 };
 
-// r resident when every block of the call (one per tile) fits on the card
-// at once and the slice fits in shared memory; else r streamed, with as
-// many blocks per head as fit, and the heads in groups if even one block
-// per head does not.
+// From one cohort's H heads of T tiles: r resident when every block of a
+// cohort (one per tile) fits on the card at once and the slice fits in
+// shared memory; else r streamed, with as many blocks per head as fit.
+// Each launch then takes as many whole heads (of all C H) as the card
+// holds at once: most / Gh.
 cudaError_t choose(const void* resident_fn, size_t resident_smem,
                    const void* streamed_fn, size_t streamed_smem, int H,
                    int T, Launch* out) {
@@ -758,7 +827,7 @@ cudaError_t choose(const void* resident_fn, size_t resident_smem,
     if (err != cudaSuccess) return err;
     if (static_cast<long long>(H) * T <=
         static_cast<long long>(per_sm) * sms) {
-      *out = {resident_fn, resident_smem, T, H};
+      *out = {resident_fn, resident_smem, T, per_sm * sms};
       return cudaSuccess;
     }
   }
@@ -772,20 +841,23 @@ cudaError_t choose(const void* resident_fn, size_t resident_smem,
   if (err != cudaSuccess) return err;
   const int most = per_sm * sms;
   if (most < 1) return cudaErrorInvalidConfiguration;
-  if (most >= H) {
-    *out = {streamed_fn, streamed_smem, T < most / H ? T : most / H, H};
-  } else {
-    *out = {streamed_fn, streamed_smem, 1, most};
-  }
+  const int Gh = most >= H ? (T < most / H ? T : most / H) : 1;
+  *out = {streamed_fn, streamed_smem, Gh, most};
   return cudaSuccess;
 }
 
-Dims dims(int B, int S, int H, int Dh) {
+Dims dims(int C, int B, int S, int H, int Dh) {
   Dims d;
   d.B = B;
   d.S = S;
   d.H = H;
   d.Dh = Dh;
+  d.C = C;
+  d.states = static_cast<size_t>(B) * H * Dh;
+  d.steps = d.states * S;
+  d.gates = d.steps * 4;
+  d.rs = static_cast<size_t>(4) * H * Dh * Dh;
+  d.bs = static_cast<size_t>(4) * H * Dh;
   d.Dh16 = (Dh + 2 * KS - 1) / (2 * KS) * (2 * KS);
   d.Dh64 = (Dh + 63) / 64 * 64;
   d.T = (Dh + TW - 1) / TW;
@@ -794,25 +866,48 @@ Dims dims(int B, int S, int H, int Dh) {
   return d;
 }
 
-bool bad_shape(int B, int S, int H, int Dh) {
-  return B < 1 || S < 1 || H < 1 || Dh < 1 || Dh > MAX_DH;
+bool bad_shape(int C, int B, int S, int H, int Dh) {
+  return C < 1 || B < 1 || S < 1 || H < 1 || Dh < 1 || Dh > MAX_DH;
+}
+
+// Launch L.fn over all C H heads of `d`, L.most / L.Gh whole heads at a
+// time; `args` are the kernel's arguments, its last slot left for the
+// launch's Dims.  Counts the launches in *launches.
+cudaError_t launch_heads(const Launch& L, Dims d, void** args, int nargs,
+                         int* launches, cudaStream_t stream) {
+  const int total = d.C * d.H, per = L.most / L.Gh;
+  d.Gh = L.Gh;
+  args[nargs - 1] = &d;
+  *launches = 0;
+  for (int first = 0; first < total; first += per) {
+    d.head0 = first;
+    const int nh = per < total - first ? per : total - first;
+    const cudaError_t err = cudaLaunchCooperativeKernel(
+        L.fn, dim3(nh * L.Gh), dim3(THREADS), args, L.smem, stream);
+    if (err != cudaSuccess) return err;
+    ++*launches;
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Forward.  gs, cs, ns, ms (the per-step pre-activations and states the
-// backward takes) may be null: then nothing is saved.  counters: H zeros.
-// Returns the CUDA error of the launches (0 on success).
+// Forward of C cohorts.  gs, cs, ns, ms (the per-step pre-activations and
+// states the backward takes) may be null: then nothing is saved.
+// counters: C H zeros.  Writes the number of launches to *launches;
+// returns the CUDA error of the launches (0 on success).
 int slstm_scan_fwd(const float* g_in, const float* r, const float* b,
                    const float* c0, const float* n0, const float* m0,
                    const float* h0, float* hs, float* cf, float* nf,
                    float* mf, float* hf, float* gs, float* cs, float* ns,
-                   float* ms, unsigned* counters, int B, int S, int H,
-                   int Dh, cudaStream_t stream) {
-  if (bad_shape(B, S, H, Dh)) return static_cast<int>(cudaErrorInvalidValue);
-  Dims d = dims(B, S, H, Dh);
+                   float* ms, unsigned* counters, int C, int B, int S, int H,
+                   int Dh, int* launches, cudaStream_t stream) {
+  if (bad_shape(C, B, S, H, Dh)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Dims d = dims(C, B, S, H, Dh);
   const size_t common =
       static_cast<size_t>(WARPS) * RB * PLD * sizeof(float);
   Launch L;
@@ -822,33 +917,28 @@ int slstm_scan_fwd(const float* g_in, const float* r, const float* b,
       reinterpret_cast<const void*>(&slstm_fwd_kernel<false>),
       static_cast<size_t>(FWD_SE) * TC * sizeof(float) + common, H, d.T, &L);
   if (err != cudaSuccess) return static_cast<int>(err);
-  for (int first = 0; first < H; first += L.heads) {
-    d.Gh = L.Gh;
-    d.head0 = first;
-    const int nh = L.heads < H - first ? L.heads : H - first;
-    void* args[] = {&g_in, &r,  &b,  &c0, &n0, &m0, &h0, &hs, &cf,
-                    &nf,   &mf, &hf, &gs, &cs, &ns, &ms, &counters, &d};
-    err = cudaLaunchCooperativeKernel(L.fn, dim3(nh * L.Gh), dim3(THREADS),
-                                      args, L.smem, stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
+  void* args[] = {&g_in, &r,  &b,  &c0, &n0, &m0, &h0,       &hs,    &cf,
+                  &nf,   &mf, &hf, &gs, &cs, &ns, &ms, &counters, nullptr};
+  return static_cast<int>(launch_heads(L, d, args, 18, launches, stream));
 }
 
-// Backward.  dhs (B, S, H, Dh) and dc, dn, dm, dh (B, H, Dh) are the
-// cotangents of hs and of the final states; writes dg (B, S, 4, H, Dh) and
-// dc0, dn0, dm0, dh0 (B, H, Dh).  scratch: (2, H, ceil(Dh / 16), B, Dh);
-// counters: H zeros.  Returns the CUDA error of the launches.
+// Backward of C cohorts.  dhs (C, B, S, H, Dh) and dc, dn, dm, dh
+// (C, B, H, Dh) are the cotangents of hs and of the final states; writes
+// dg (C, B, S, 4, H, Dh) and dc0, dn0, dm0, dh0 (C, B, H, Dh).  scratch:
+// (2, C H, ceil(Dh / 16), B, Dh); counters: C H zeros.  Writes the number
+// of launches to *launches; returns the CUDA error of the launches.
 int slstm_scan_bwd(const float* gs, const float* cs, const float* ns,
                    const float* ms, const float* r, const float* c0,
                    const float* n0, const float* m0, const float* dhs,
                    const float* dc, const float* dn, const float* dm,
                    const float* dh, float* dg, float* dc0, float* dn0,
                    float* dm0, float* dh0, float* scratch,
-                   unsigned* counters, int B, int S, int H, int Dh,
-                   cudaStream_t stream) {
-  if (bad_shape(B, S, H, Dh)) return static_cast<int>(cudaErrorInvalidValue);
-  Dims d = dims(B, S, H, Dh);
+                   unsigned* counters, int C, int B, int S, int H, int Dh,
+                   int* launches, cudaStream_t stream) {
+  if (bad_shape(C, B, S, H, Dh)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Dims d = dims(C, B, S, H, Dh);
   const size_t dg_smem = static_cast<size_t>(RB) * GLD * sizeof(float);
   Launch L;
   cudaError_t err = choose(
@@ -858,18 +948,10 @@ int slstm_scan_bwd(const float* gs, const float* cs, const float* ns,
       static_cast<size_t>(TC) * BWD_SE * sizeof(float) + dg_smem, H, d.T,
       &L);
   if (err != cudaSuccess) return static_cast<int>(err);
-  for (int first = 0; first < H; first += L.heads) {
-    d.Gh = L.Gh;
-    d.head0 = first;
-    const int nh = L.heads < H - first ? L.heads : H - first;
-    void* args[] = {&gs, &cs,  &ns,  &ms,  &r,       &c0,     &n0,
-                    &m0, &dhs, &dc,  &dn,  &dm,      &dh,     &dg,
-                    &dc0, &dn0, &dm0, &dh0, &scratch, &counters, &d};
-    err = cudaLaunchCooperativeKernel(L.fn, dim3(nh * L.Gh), dim3(THREADS),
-                                      args, L.smem, stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
+  void* args[] = {&gs,  &cs,  &ns,  &ms,  &r,  &c0,      &n0,
+                  &m0,  &dhs, &dc,  &dn,  &dm, &dh,      &dg,
+                  &dc0, &dn0, &dm0, &dh0, &scratch, &counters, nullptr};
+  return static_cast<int>(launch_heads(L, d, args, 21, launches, stream));
 }
 
 }  // extern "C"

@@ -1,7 +1,9 @@
 """Differentiable sLSTM scan (port of ``repro.kernels.slstm_scan.ops``).
 
 The forward is the CUDA kernel (``kernel.slstm_scan_fwd``; its plain
-version on CPU tensors).  When a gradient is needed it also saves the
+version on CPU tensors).  Under ``torch.func.vmap`` (the vectorized round)
+both kernels run batched over the cohorts through their vmap rules, and
+torch batches r's and b's gradients.  When a gradient is needed it also saves the
 per-step pre-activations and states, and the backward is the reverse-scan
 kernel (``kernel.slstm_scan_bwd``; ``ref.slstm_scan_bwd_ref`` on CPU
 tensors), the counterpart of the reference's ``_scan_bwd``, which takes the
@@ -18,11 +20,14 @@ from repro_torch.kernels.slstm_scan.kernel import STATE
 
 
 class SLSTMScan(torch.autograd.Function):
-    """In the ``setup_context`` form, so that ``torch.func.vmap`` reaches
-    its ``vmap`` rule, which raises: K5 under vmap (the xLSTM's vectorized
-    round) is not ported yet.  ``save`` (the caller's: whether a gradient
-    is needed) makes the forward also return the per-step pre-activations
-    and states, as outputs that carry no gradient."""
+    """In the ``setup_context`` form with a generated vmap rule, so that it
+    composes with ``torch.func`` (``vmap(grad(...))``: the vectorized
+    runtime): under vmap forward and backward kernels each launch for all
+    cohorts at once.  ``save`` (the caller's: whether a gradient is needed)
+    makes the forward also return the per-step pre-activations and
+    states, as outputs that carry no gradient."""
+
+    generate_vmap_rule = True
 
     @staticmethod
     def forward(g_in, r, b, c0, n0, m0, h0, save: bool):
@@ -39,19 +44,13 @@ class SLSTMScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dhs, dc, dn, dm, dh, *_):
         r, c0, n0, m0, h0, hs, g, cs, ns, ms = ctx.saved_tensors
-        dg, dc0, dn0, dm0, dh0 = kernel.slstm_scan_bwd(
-            g, cs, ns, ms, r, c0, n0, m0,
-            *(t.contiguous() for t in (dhs, dc, dn, dm, dh)))
+        with torch.no_grad():   # first order only; under torch.func.grad
+            dg, dc0, dn0, dm0, dh0 = kernel.slstm_scan_bwd(
+                g, cs, ns, ms, r, c0, n0, m0,
+                *(t.contiguous() for t in (dhs, dc, dn, dm, dh)))
         h_prev = torch.cat([h0[:, None], hs[:, :-1]], dim=1)
         dr = torch.einsum("bshe,bsghj->ghej", h_prev, dg)
         return dg, dr, dg.sum(dim=(0, 1)), dc0, dn0, dm0, dh0, None
-
-    @staticmethod
-    def vmap(info, in_dims, *args):
-        raise NotImplementedError(
-            "the sLSTM scan (K5) has no vmap rule yet, so the xLSTM has no "
-            "vectorized round: see ROADMAP.md, Queue 1 (at full width four "
-            "cohorts' stage steps of 30-37 GB each would not fit one card)")
 
 
 def slstm_scan(g_in, r, b, state0: dict):

@@ -111,6 +111,33 @@ class ModelConfig:
     def param_dtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
 
+    def reduced(self, num_layers: int = 2, d_model: int = 256,
+                vocab: int = 512) -> "ModelConfig":
+        """Reduced same-family variant for smoke tests: whole periods, at
+        most ``d_model`` wide, 2-4 heads, a vocabulary of at most
+        ``vocab``, float32.  (The reference's also shrinks MoE and MLA,
+        which the port does not run.)"""
+        period = self.period
+        layers = max(num_layers, period)
+        layers = (layers // period) * period or period
+        heads = max(2, min(4, self.num_heads))
+        kv = min(self.num_kv_heads, heads)
+        if heads % kv:
+            kv = heads
+        return dataclasses.replace(
+            self,
+            name=self.name + "-smoke",
+            num_layers=layers,
+            d_model=min(d_model, self.d_model),
+            num_heads=heads,
+            num_kv_heads=kv,
+            head_dim=0,
+            d_ff=min(512, self.d_ff) if self.d_ff else 0,
+            vocab_size=min(vocab, self.vocab_size),
+            window=min(self.window, 64) if self.window else 0,
+            dtype="float32",
+        )
+
 
 def xlstm_pattern() -> Tuple[Tuple[str, str], ...]:
     """xLSTM[7:1]: 7 mLSTM blocks then 1 sLSTM block per period of 8.

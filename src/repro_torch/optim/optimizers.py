@@ -36,12 +36,18 @@ def sgd(lr, momentum: float = 0.9, weight_decay: float = 5e-4) -> Optimizer:
     def update(grads, state, params):
         step = state["step"] + 1
         lr_t = sched(step)
-        g = tree_map(lambda g, p: g.float() + weight_decay * p.float(),
-                     grads, params)
-        mu = None
+
+        def decayed(g, p):
+            return g.float() + weight_decay * p.float()
+
+        # one leaf at a time, so that no tree of decayed gradients is held
+        # beside the momentum (a stack of cohorts' trees is GBs)
         if momentum:
-            mu = tree_map(lambda m, g: momentum * m + g, state["mu"], g)
+            mu = tree_map(lambda m, g, p: momentum * m + decayed(g, p),
+                          state["mu"], grads, params)
             g = mu
+        else:
+            mu, g = None, tree_map(decayed, grads, params)
         updates = tree_map(lambda g, p: (-lr_t * g).to(p.dtype), g, params)
         return updates, {"mu": mu, "step": step}
 

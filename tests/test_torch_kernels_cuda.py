@@ -253,18 +253,23 @@ def test_rowsums_kernel_repeats_its_bits(cuda, case):
     assert all(torch.equal(a, b) for r in runs for a, b in zip(r, runs[0]))
 
 
-def _device_ops(fn, runs=5):
+def _device_ops(fn, runs=5, tries=3):
     """(device ops per call of ``fn``, the names of those ops) from the
-    profiler."""
+    profiler.  The profiler now and then drops device events; every call
+    here launches at least one op, so a profile with fewer events than
+    calls lost some and is taken again, at most ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(names) >= runs:
+            break
     return len(names) / runs, set(names)
 
 
@@ -581,9 +586,10 @@ SLSTM_CASES = [
 STATE = ("c", "n", "m", "h")
 
 
-def _slstm_inputs(case, device):
+def _slstm_inputs(case, device, seed=None):
     B, S, H, Dh, random_state0, scale = case
-    rng = np.random.default_rng(B * 1000 + S * 10 + Dh)
+    rng = np.random.default_rng(B * 1000 + S * 10 + Dh if seed is None
+                                else seed)
     f = np.float32
     if scale > 1:
         g_in = rng.uniform(-scale, scale, (B, S, 4, H, Dh))
@@ -603,6 +609,14 @@ def _slstm_inputs(case, device):
             for a in (g_in, r, b, *st)]
 
 
+def _launched(case, counts):
+    """Whether K5's ``LAUNCHES`` after one call of ``case`` are right: one
+    launch a kernel, except where the heads exceed what the card holds at
+    once (H = 1100 at one block a head: more than 8 blocks an SM on 132
+    SMs), and then several."""
+    return all(n > 1 if case[2] > 1056 else n == 1 for n in counts)
+
+
 @pytest.mark.parametrize("case", SLSTM_CASES,
                          ids=[str(c) for c in SLSTM_CASES])
 def test_slstm_kernel_matches_plain_version(cuda, case):
@@ -611,7 +625,8 @@ def test_slstm_kernel_matches_plain_version(cuda, case):
     got = sl_kernel.slstm_scan_fwd(g_in, r, b, *st)
     hs, fin = sl_ref.slstm_scan_ref(g_in, r, b, dict(zip(STATE, st)))
     torch.cuda.synchronize()
-    assert sl_kernel.LAUNCHES == {"slstm_scan_fwd": 1, "slstm_scan_bwd": 0}
+    assert sl_kernel.LAUNCHES["slstm_scan_bwd"] == 0
+    assert _launched(case, [sl_kernel.LAUNCHES["slstm_scan_fwd"]])
     assert got[0].shape == hs.shape
     for a, want in zip(got, [hs] + [fin[k] for k in STATE], strict=True):
         assert torch.isfinite(a).all()
@@ -644,7 +659,7 @@ def test_slstm_saved_states_and_backward_kernel_match_plain_versions(cuda,
     dgot = sl_kernel.slstm_scan_bwd(*args)
     dwant = sl_ref.slstm_scan_bwd_ref(*args)
     torch.cuda.synchronize()
-    assert sl_kernel.LAUNCHES == {"slstm_scan_fwd": 1, "slstm_scan_bwd": 1}
+    assert _launched(case, sl_kernel.LAUNCHES.values())
     for a, want in zip(dgot, dwant, strict=True):
         assert torch.isfinite(a).all()
         assert _rel(a, want) <= TOL
@@ -762,7 +777,7 @@ def test_slstm_autograd_matches_plain_path(cuda, case):
     torch.autograd.backward([hs] + [fin[k] for k in STATE], cot)
     hs_p, fin_p = sl_ref.slstm_scan_ref(*b[:3], dict(zip(STATE, b[3:])))
     torch.autograd.backward([hs_p] + [fin_p[k] for k in STATE], cot)
-    assert sl_kernel.LAUNCHES == {"slstm_scan_fwd": 1, "slstm_scan_bwd": 1}
+    assert _launched(case, sl_kernel.LAUNCHES.values())
     for x, y in zip(a, b, strict=True):
         assert torch.isfinite(x.grad).all()
         assert _rel(x.grad, y.grad) <= TOL
@@ -786,6 +801,169 @@ def test_slstm_wrapper_raises_on_bad_inputs(cuda):
                                  torch.zeros(4, 1, big, big, device=cuda),
                                  torch.zeros(4, 1, big, device=cuda),
                                  z, z, z, z)
+
+
+# K5 over cohorts, (B, S, H, Dh): the xLSTM smoke config's width (16 blocks
+# a cohort) and xlstm-1.3b's (128 blocks a cohort, one an SM), then a
+# ragged shape (3 row chunks, head dim off the tile)
+BATCHED_SLSTM = [(8, 64, 4, 64), (8, 256, 4, 512), (40, 9, 3, 20)]
+
+
+def _cohort_launches(case, C, shared):
+    """K5's launches for C cohorts on this card: shared r folds into one
+    launch; a cohort's heads take H ceil(Dh/16) blocks, as many whole heads
+    as the card holds at once go to a launch (xlstm-1.3b's 128 blocks of
+    165 KiB: one cohort a launch on a card of 128-255 SMs)."""
+    B, S, H, Dh = case
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if shared or Dh <= 64:
+        return 1
+    assert 128 <= sms < 256, sms
+    return C
+
+
+def _stack_inputs(case, C, shared, device):
+    """C cohorts' sLSTM inputs, each drawn as ``_slstm_inputs`` draws them
+    (random initial states) from a seed of its own; r and b cohort 0's
+    where ``shared``."""
+    per = [_slstm_inputs((*case, True, 1.0), device, seed=100 * C + c)
+           for c in range(C)]
+    stack = [torch.stack(ts) for ts in zip(*per)]
+    if shared:
+        stack[1], stack[2] = stack[1][0], stack[2][0]
+    return stack
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["own-r", "shared-r"])
+@pytest.mark.parametrize("C", [1, 3, 4])
+@pytest.mark.parametrize("case", BATCHED_SLSTM,
+                         ids=[str(c) for c in BATCHED_SLSTM])
+def test_batched_slstm_equals_per_cohort_launches(cuda, case, C, shared):
+    """K5's forward and backward under ``torch.func.vmap`` over C cohorts:
+    each cohort the bits of a launch of its own and within the bar of the
+    plain versions, in the predicted number of launches (per-cohort r: the
+    cohorts' heads in groups of whole heads; shared r: one launch, the
+    cohorts folded into the rows)."""
+    g_in, r, b, *st = _stack_inputs(case, C, shared, cuda)
+    rd = None if shared else 0
+    sl_kernel.reset_launches()
+    out = torch.func.vmap(
+        lambda g, r_, b_, *s: sl_kernel.slstm_scan_fwd(g, r_, b_, *s,
+                                                       save=True),
+        in_dims=(0, rd, rd, 0, 0, 0, 0))(g_in, r, b, *st)
+    want = _cohort_launches(case, C, shared)
+    assert sl_kernel.LAUNCHES["slstm_scan_fwd"] == want
+    gen = torch.Generator(cuda).manual_seed(2)
+    cot = [torch.randn(t.shape, device=cuda, generator=gen)
+           for t in out[:5]]
+    back = torch.func.vmap(sl_kernel.slstm_scan_bwd,
+                           in_dims=(0, 0, 0, 0, rd) + (0,) * 8)(
+        *out[5:], r, *st[:3], *cot)
+    assert sl_kernel.LAUNCHES["slstm_scan_bwd"] == want
+    for c in range(C):
+        rc, bc = (r, b) if shared else (r[c], b[c])
+        own = sl_kernel.slstm_scan_fwd(g_in[c], rc, bc, *(s[c] for s in st),
+                                       save=True)
+        assert all(torch.equal(a[c], o) for a, o in zip(out, own,
+                                                          strict=True))
+        own_b = sl_kernel.slstm_scan_bwd(*own[5:], rc, *(s[c] for s in
+                                                          st[:3]),
+                                         *(t[c] for t in cot))
+        assert all(torch.equal(a[c], o) for a, o in zip(back, own_b,
+                                                          strict=True))
+        hs, fin = sl_ref.slstm_scan_ref(g_in[c], rc, bc,
+                                        dict(zip(STATE, (s[c] for s in st))))
+        for a, w in zip(own[:5], [hs] + [fin[k] for k in STATE]):
+            assert _rel(a, w) <= TOL
+        wb = sl_ref.slstm_scan_bwd_ref(*own[5:], rc, *(s[c] for s in
+                                                       st[:3]),
+                                       *(t[c] for t in cot))
+        for a, w in zip(own_b, wb):
+            assert _rel(a, w) <= TOL
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["own-r", "shared-r"])
+def test_vmap_grad_of_slstm_scan_equals_a_loop(cuda, shared):
+    """vmap(grad) through the differentiable scan (``ops.slstm_scan``) at
+    the smoke width over 4 cohorts: one forward and one backward launch,
+    the gradients those of a loop over the cohorts to the bit."""
+    case = BATCHED_SLSTM[0]
+    g_in, r, b, *st = _stack_inputs(case, 4, shared, cuda)
+    rd = None if shared else 0
+
+    def loss(g, r_, b_, *s):
+        hs, fin = sl_ops.slstm_scan(g, r_, b_, dict(zip(STATE, s)))
+        return hs.square().sum() + fin["c"].sum()
+
+    grad = torch.func.grad(loss, argnums=(0, 1, 2))
+    sl_kernel.reset_launches()
+    got = torch.func.vmap(grad, in_dims=(0, rd, rd, 0, 0, 0, 0))(
+        g_in, r, b, *st)
+    assert sl_kernel.LAUNCHES == {"slstm_scan_fwd": 1, "slstm_scan_bwd": 1}
+    for c in range(4):
+        rc, bc = (r, b) if shared else (r[c], b[c])
+        want = grad(g_in[c], rc, bc, *(s[c] for s in st))
+        # g_in's gradient is the backward kernel's output; r's and b's are
+        # products of it, batched by torch
+        assert torch.equal(got[0][c], want[0])
+        for a, w in zip(got[1:], want[1:]):
+            assert _rel(a[c], w) <= TOL
+
+
+def test_default_round_fits_what_an_eager_round_fits(cuda):
+    """With the process capped just above an eager xLSTM round's reserved
+    peak (110% of it), the default (captured) runtime's rounds of the same
+    stage still fit, each reserving at most 110% of the eager round's, the
+    second after one of its own stage (as under a sequential schedule):
+    a round hands its graph's pool back after its last local step, before
+    Eq. 1, and the frozen prefix and ``global_ref`` are read in place.  A
+    first captured round comes before: a process's first capture leaves
+    cuBLAS a workspace for the capture stream for its life."""
+    import dataclasses
+    import gc
+
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.configs import xlstm_1_3b
+    from repro_torch.core.curriculum import CurriculumHP
+    from repro_torch.core.progressive import make_adapter
+    from repro_torch.data.loader import Batcher
+    from repro_torch.data.synthetic import make_lm_dataset
+    from repro_torch.federated.runtime import SequentialRuntime
+    from repro_torch.optim.optimizers import sgd
+    cfg = dataclasses.replace(xlstm_1_3b.smoke_config(),
+                              use_slstm_kernel=True)
+    adapter = make_adapter(cfg, 2)
+    params = adapter.init_params(0, cuda)
+    batchers = [Batcher(make_lm_dataset(s, 64, 128, cfg.vocab_size), 16,
+                        seed=s, kind="lm") for s in range(2)]
+    hp = CurriculumHP(use_hsic_kernel=True)
+
+    def peak(runtime):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = runtime.run_round(params, 1, batchers, [0, 1], 1)
+        torch.cuda.synchronize()
+        assert all(torch.isfinite(p).all() for p in
+                   tree_leaves(out.trainable))
+        del out
+        return torch.cuda.max_memory_reserved()
+
+    def runtime(capture):
+        return SequentialRuntime(adapter, sgd(1e-4), hp, cuda,
+                                 capture=capture)
+
+    peak(runtime(True))
+    eager = peak(runtime(False))
+    total = torch.cuda.get_device_properties(0).total_memory
+    torch.cuda.set_per_process_memory_fraction(1.1 * eager / total)
+    try:
+        default = runtime(True)
+        captured = [peak(default) for _ in range(2)]
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    assert max(captured) <= 1.1 * eager
 
 
 # (B, Dx, Dz, linear_x) of the batched K1-K3 checks: the training batches
@@ -954,9 +1132,10 @@ def test_four_clients_give_four_uploads(cuda):
 
 
 def test_graphs_of_an_old_stage_are_released(cuda):
-    """A round of another stage drops the graphs kept: the memory the
-    captured stage held is allocated no more, and its graph's pool is no
-    longer reserved.  A first round and release come before the
+    """A round drops its graphs after its last local step: once its
+    outcome is dropped, the memory the captured stage held is allocated no
+    more, and its graph's pool is no longer reserved, while the round
+    reserved more than that at its peak.  A first round comes before the
     measurement: a process's first capture also leaves cuBLAS a workspace
     for the capture stream, which PyTorch keeps for the process's life."""
     import gc
@@ -972,30 +1151,29 @@ def test_graphs_of_an_old_stage_are_released(cuda):
     batchers = [Batcher(make_image_dataset(s, 32, image_size=16), 16,
                         seed=s) for s in range(2)]
     runtime.run_round(params, 0, batchers, [0, 1], 1)
-    runtime.release()
     gc.collect()
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     before = torch.cuda.memory_allocated()
     reserved = torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
     out = runtime.run_round(params, 0, batchers, [0, 1], 1)
+    assert not runtime._programs      # dropped with their graphs
     del out
     gc.collect()
     torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated()
-    assert held > before      # the stage's static buffers
-    assert torch.cuda.memory_reserved() > reserved   # and the graph's pool
-    runtime._stage_program(1, lambda: None)   # what a stage-1 round does
-    gc.collect()
-    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_reserved() > reserved   # the graph's pool
+    torch.cuda.empty_cache()      # Eq. 1's eager blocks
     assert torch.cuda.memory_allocated() <= before
     assert torch.cuda.memory_reserved() <= reserved
 
 
 def test_replay_reads_a_frozen_leaf_changed_in_place(cuda):
-    """Every call copies its arguments into the graph: a frozen leaf
-    changed in place between two calls, through ``.data`` (which leaves
-    the tensor's version counter as it was), reaches the replay, whose
-    step is then the same bits as the eager step on the changed leaf."""
+    """The graph reads the frozen prefix in place (and copies the other
+    arguments in at every call): a frozen leaf changed in place between
+    two calls, through ``.data`` (which leaves the tensor's version counter
+    as it was), reaches the replay, whose step is then the same bits as
+    the eager step on the changed leaf."""
     from repro_torch.common.tree import tree_leaves
     from repro_torch.core.curriculum import CurriculumHP
     from repro_torch.core.progressive import jit_stage_step, make_stage_step

@@ -1,9 +1,9 @@
 """The kernels' custom ops under ``torch.func``, on the CPU (their plain
 versions): each op under ``vmap`` equals a Python loop over cohorts, so
 does ``vmap(grad(...))`` of nHSIC and of flash attention;
-``torch.library.opcheck`` passes on each op; the sLSTM scan's vmap rule
-raises (not ported yet); and on the CPU ``jit_stage_step`` and
-``jit_full_step`` are the eager steps.  What launches once for all cohorts
+``torch.library.opcheck`` passes on each op; and on the CPU
+``jit_stage_step`` and ``jit_full_step`` are the eager steps.  The sLSTM
+scan's ops under ``vmap`` are held in ``tests/test_torch_xlstm_vectorized.py``.  What launches once for all cohorts
 on the card is held there (``tests/test_torch_kernels_cuda.py``).
 """
 import numpy as np
@@ -16,7 +16,6 @@ from repro_torch.core import progressive as prog
 from repro_torch.kernels.flash_attention import kernel as fkernel
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.hsic_gram import kernel, ops
-from repro_torch.kernels.slstm_scan import ops as sops
 from repro_torch.models.cnn import CNNConfig
 from repro_torch.optim.optimizers import sgd
 
@@ -153,17 +152,6 @@ def test_opcheck(name):
     torch.library.opcheck(op, (*(t[0] for t in batched), s),
                           {"linear_x": True})
     torch.library.opcheck(op, (*batched, s.expand(C, *s.shape).clone()))
-
-
-def test_slstm_scan_under_vmap_raises():
-    g_in = _rand(2, 1, 3, 4, 1, 4)
-    r, b = _rand(4, 1, 4, 4, seed=1), _rand(4, 1, 4, seed=2)
-    state = {k: torch.zeros(1, 1, 4) for k in "cnmh"}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        torch.func.vmap(lambda g: sops.slstm_scan(g, r, b, state)[0])(g_in)
-    # unbatched it runs, forward and backward
-    hs, _ = sops.slstm_scan(g_in[0].requires_grad_(), r, b, state)
-    hs.sum().backward()
 
 
 @pytest.fixture(scope="module")
