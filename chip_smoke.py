@@ -94,7 +94,31 @@
    cohort and shared) under vmap against per-cohort launches to the bit.
    Then round throughput at the reference's sizes
    (``benchmarks/fl_round_throughput.py``).
-9. The Fig. 6 phase, after every server is freed: the paper's peak-memory
+9. Main path 7: the paper's Tables 1 and 2 at full width
+   (``benchmarks/table1_accuracy.py``, ``table2_complexity.py``): NeuLite
+   (nHSIC through K1-K3, captured steps) and the nine baselines (FedAvg,
+   ExclusiveFL, AllSmall, DepthFL, HeteroFL, FedRolex, TiFL, Oort,
+   ProgFed; cross-entropy alone, eager steps) on ResNet18, VGG11 and
+   SqueezeNet at 32x32x3, 10 classes, over the reference's fleet (20
+   clients, 5 a round, E = 1, B = 32, 4 stages), two rounds a method;
+   then ResNet18 and ResNet34, ResNet34 on ResNet18's device budgets.
+   K1-K3 launch twice per NeuLite local step and never in a baseline
+   round; every loss and accuracy is finite; ResNet18's ten methods run
+   again from the seed and repeat params and accuracies bit for bit; each
+   distinct baseline step (the full model, AllSmall's width, each HeteroFL
+   ratio, each DepthFL level, ProgFed's stage 0) runs once on the card
+   against the same step on the CPU (1e-4, or 10x the CPU step's own
+   movement under a 1e-7 change); HeteroFL's and FedRolex's
+   scatter-average on the card against a numpy float64 ``np.add.at`` copy
+   of the reference's at 1e-6; ResNet34 keeps NeuLite's participation
+   above 0.  Rows to ``chiprun_out/table1.json`` and ``table2.json``.
+10. The Fig. 7 phase: ``benchmarks/fig7_time.py``'s ``run`` on ResNet18
+   and VGG11 at the reference's size (width 0.5, 16x16, B = 32) and at
+   full width (32x32): each stage step against the full step, eager and
+   captured, CUDA events, median of 5 after a warm-up; the speedups are
+   printed beside the paper's 1.84-2.31x (no gate).  Rows to
+   ``chiprun_out/fig7_time.json``.
+11. The Fig. 6 phase, after every server is freed: the paper's peak-memory
    claim measured by ``benchmarks/fig6_memory.py``'s ``run``
    (``analysis.memory.measure_local_training``: the allocator's peak over
    two local steps on the same two batches, each from an empty cache with
@@ -114,6 +138,7 @@ of per-kernel numbers (``max_rel_err`` beside ``max_abs_err``), and as
 the last line ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero.  Details go to ``chiprun_out/chip_smoke.json``.
 """
+import contextlib
 import dataclasses
 import gc
 import json
@@ -128,6 +153,13 @@ OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke.json")
 BENCH_OUT = os.path.join(ROOT, "chiprun_out", "bench_kernels.json")
 FIG6_OUT = os.path.join(ROOT, "chiprun_out", "fig6_memory.json")
 BENCH_FL_OUT = os.path.join(ROOT, "chiprun_out", "bench_fl_round.json")
+TABLE1_OUT = os.path.join(ROOT, "chiprun_out", "table1.json")
+TABLE1_REPEAT_OUT = os.path.join(ROOT, "chiprun_out", "table1_repeat.json")
+TABLE2_OUT = os.path.join(ROOT, "chiprun_out", "table2.json")
+FIG7_OUT = os.path.join(ROOT, "chiprun_out", "fig7_time.json")
+# Fig. 7 at the reference's size and at full width: (width, image size)
+FIG7_SIZES = ((0.5, 16), (1.0, 32))
+FIG7_ARCHS, FIG7_BATCH = ("resnet18", "vgg11"), 32
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 # H100 SXM peak rates (dense): a matrix product in f32 is counted at the
@@ -1866,29 +1898,57 @@ def _stage_profile(torch, server, t, steps, captured):
     return row
 
 
-def fig6_nhsic_shapes():
-    """(B, Dx, Dz, linear_x) of the nHSIC calls of the Fig. 6 CNNs' stage
-    steps at the paper's batch, from their adapters' block plans: h_xz
-    between the frozen prefix's output (the images at stage 0) and the
-    active block's, h_yz between the labels and the 64-wide projection."""
-    from repro_torch.benchmarks import fig6_memory as fig6
+def cnn_nhsic_shapes(adapter, B):
+    """(B, Dx, Dz, linear_x) of the nHSIC calls of a CNN adapter's stage
+    steps, from its block plan: h_xz between the frozen prefix's output
+    (the images at stage 0) and the active block's, h_yz between the labels
+    and the 64-wide projection."""
     from repro_torch.models.cnn import unit_meta
-    B, out = fig6.PAPER_BATCH, []
-    for arch, stages in fig6.CNNS:
-        adapter = fig6.cnn_adapter(arch, stages)
-        cfg, metas = adapter.cfg, unit_meta(adapter.cfg)
-        for t in range(stages):
-            (_, f1), _, (_, a1) = adapter.plan.stage_ranges(t)
-            dx = metas[f1 - 1][1]["cout"] if f1 else cfg.in_channels
-            out.append((B, dx, metas[a1 - 1][1]["cout"], False))
-        out.append((B, cfg.num_classes, 64, True))
+    cfg, metas, out = adapter.cfg, unit_meta(adapter.cfg), []
+    for t in range(adapter.plan.num_stages):
+        (_, f1), _, (_, a1) = adapter.plan.stage_ranges(t)
+        dx = metas[f1 - 1][1]["cout"] if f1 else cfg.in_channels
+        out.append((B, dx, metas[a1 - 1][1]["cout"], False))
+    out.append((B, cfg.num_classes, 64, True))
     return out
+
+
+def fig6_nhsic_shapes():
+    """The Fig. 6 CNNs' nHSIC shapes at the paper's batch."""
+    from repro_torch.benchmarks import fig6_memory as fig6
+    return [s for arch, stages in fig6.CNNS
+            for s in cnn_nhsic_shapes(fig6.cnn_adapter(arch, stages),
+                                      fig6.PAPER_BATCH)]
+
+
+def fig7_nhsic_shapes():
+    """The Fig. 7 phase's nHSIC shapes: each arch at each of FIG7_SIZES
+    (width 0.5 gives other channel counts than the full width)."""
+    from repro_torch.benchmarks import fig7_time
+    from repro_torch.core.progressive import make_adapter
+    from repro_torch.models.cnn import CNNConfig
+    return [s for width, size in FIG7_SIZES for arch in FIG7_ARCHS
+            for s in cnn_nhsic_shapes(make_adapter(CNNConfig(
+                name=arch, arch=arch, image_size=size, width_mult=width),
+                fig7_time.STAGES), FIG7_BATCH)]
+
+
+def tables_nhsic_shapes():
+    """Main path 7's nHSIC shapes: NeuLite's stage steps in Tables 1 and 2
+    (ResNet34 too) at TABLE_SIZE, 4 stages, the fleet's batch of 32."""
+    from repro_torch.core.progressive import make_adapter
+    from repro_torch.models.cnn import CNNConfig
+    return [s for arch in TABLE1_ARCHS + ("resnet34",)
+            for s in cnn_nhsic_shapes(make_adapter(CNNConfig(
+                name=arch, arch=arch, image_size=TABLE_SIZE["image_size"],
+                width_mult=TABLE_SIZE["width"]), 4), 32)]
 
 
 def nhsic_shapes():
     """The training paths' nHSIC shapes, each once: the main paths', then
-    the Fig. 6 CNNs'."""
-    return list(dict.fromkeys(MAIN_PATH_SHAPES + fig6_nhsic_shapes()))
+    the Fig. 6 CNNs', Tables 1-2's and the Fig. 7 phase's."""
+    return list(dict.fromkeys(MAIN_PATH_SHAPES + fig6_nhsic_shapes()
+                              + tables_nhsic_shapes() + fig7_nhsic_shapes()))
 
 
 def fig6_step_check(torch, device):
@@ -1911,6 +1971,36 @@ def fig6_step_check(torch, device):
     return out
 
 
+@contextlib.contextmanager
+def nhsic_shapes_seen():
+    """The set of (B, Dx, Dz, linear_x, kernel_z) that nHSIC takes while
+    the block runs."""
+    from repro_torch.kernels.hsic_gram import ops
+    seen, nhsic = set(), ops.nhsic
+
+    def recorded(x, z, *, kernel_x="rbf", kernel_z="rbf"):
+        seen.add((x.shape[0], x.shape[1], z.shape[1], kernel_x == "linear",
+                  kernel_z))
+        return nhsic(x, z, kernel_x=kernel_x, kernel_z=kernel_z)
+
+    ops.nhsic = recorded
+    try:
+        yield seen
+    finally:
+        ops.nhsic = nhsic
+
+
+def check_held(seen, where):
+    """Every nHSIC shape of ``seen`` was held against the plain version in
+    the kernel phase."""
+    held = set(nhsic_shapes())
+    unheld = {s for s in seen if s[4] != "rbf" or s[:4] not in held}
+    check(not unheld, f"nHSIC shapes of {where} that the kernel phase did "
+          f"not hold against the plain version: {unheld}")
+    print(f"  nHSIC took {len(seen)} shapes in {where}, each held in the "
+          f"kernel phase", flush=True)
+
+
 def fig6_phase(torch, kernels):
     """The paper's Fig. 6 on the card (``fig6_memory.run``), every model's
     measurements from an empty cache with nothing else resident.  The
@@ -1919,26 +2009,15 @@ def fig6_phase(torch, kernels):
     the paper's batch.  Returns the rows, the kernels' launches in the
     measurements and the step checks."""
     from repro_torch.benchmarks import fig6_memory as fig6
-    from repro_torch.kernels.hsic_gram import ops
 
     device = torch.device("cuda")
     gc.collect()
     torch.cuda.empty_cache()
     before = torch.cuda.memory_allocated()
     print(f"  allocated before the phase: {before} bytes", flush=True)
-    seen, nhsic = set(), ops.nhsic
-
-    def recorded(x, z, *, kernel_x="rbf", kernel_z="rbf"):
-        seen.add((x.shape[0], x.shape[1], z.shape[1], kernel_x == "linear",
-                  kernel_z))
-        return nhsic(x, z, kernel_x=kernel_x, kernel_z=kernel_z)
-
     reset_all(kernels)
-    ops.nhsic = recorded
-    try:
+    with nhsic_shapes_seen() as seen:
         rows = fig6.run(device, FIG6_OUT)
-    finally:
-        ops.nhsic = nhsic
     counts = read_all(kernels)
     print(f"  launches {counts}", flush=True)
     for name, r in rows.items():
@@ -1952,12 +2031,7 @@ def fig6_phase(torch, kernels):
     check(all(counts[n] > 0 for n in ("flash_attention_fwd",
                                       "slstm_scan_fwd", "slstm_scan_bwd")),
           f"a per-layer kernel never ran in the Fig. 6 phase: {counts}")
-    held = set(nhsic_shapes())
-    unheld = {s for s in seen if s[4] != "rbf" or s[:4] not in held}
-    check(not unheld, f"nHSIC shapes of the Fig. 6 phase that the kernel "
-          f"phase did not hold against the plain version: {unheld}")
-    print(f"  nHSIC took {len(seen)} shapes, each held in the kernel phase",
-          flush=True)
+    check_held(seen, "the Fig. 6 phase")
     failures = {name: r["failures"] for name, r in rows.items()
                 if r["failures"]}
     check(not failures, f"a stage peaks at or above its full step: "
@@ -2713,6 +2787,378 @@ def vectorized_path(torch, kernels, np, make_server, name, periods=False):
             "period_check": vperiods, "phase_seconds": took}, counts
 
 
+# --------------------------------------------------------------------------- #
+# main path 7: the paper's Tables 1 and 2 (NeuLite and the nine baselines)
+# --------------------------------------------------------------------------- #
+TABLE_ROUNDS = 2
+TABLE_SIZE = dict(width=1.0, image_size=32)
+TABLE1_ARCHS = ("resnet18", "vgg11", "squeezenet")
+STEP_CHECK_BATCH = 8       # rows of the baselines' card-vs-CPU step check
+
+
+class _TableRecorder:
+    """``hooks`` of ``table1_accuracy.run`` / ``table2_complexity.run``:
+    for each method the kernels' launches over its rounds (snapshots at
+    each hook, the next method's construction launching nothing), its
+    true local steps and its local losses (device tensors, read once at
+    the end), and ``keep``'s runners."""
+
+    def __init__(self, kernels, keep=()):
+        self.kernels, self.keep = kernels, set(keep)
+        self.order, self.snaps = [], []
+        self.steps, self.losses, self.runners = {}, {}, {}
+
+    def __call__(self, arch, method, runner):
+        key = (arch, method)
+        self.order.append(key)
+        self.snaps.append(read_all(self.kernels))
+        steps, losses = self.steps.setdefault(key, []), \
+            self.losses.setdefault(key, [])
+        if method == "neulite":
+            run = runner.runtime.run_round
+
+            def recorded(*a, **kw):
+                out = run(*a, **kw)
+                steps.append(sum(out.num_batches))
+                losses.append(out.mean_loss)
+                return out
+
+            runner.runtime.run_round = recorded
+        else:
+            train = runner._train
+
+            def recorded(*a, **kw):
+                res = train(*a, **kw)
+                steps.append(res.num_batches)
+                losses.append(res.mean_loss)
+                return res
+
+            runner._train = recorded
+        if arch in self.keep:
+            self.runners[key] = runner
+
+    def launches(self):
+        """{(arch, method): launches over its rounds}."""
+        snaps = self.snaps + [read_all(self.kernels)]
+        return {key: {n: b[n] - a[n] for n in a}
+                for key, a, b in zip(self.order, snaps, snaps[1:])}
+
+    def finite(self, torch):
+        """Every local loss of every method finite (one read per method;
+        a NeuLite round with no one selected reports NaN by design)."""
+        bad = []
+        for key, ls in self.losses.items():
+            if ls and not bool(torch.isfinite(torch.stack(
+                    [x.reshape(()).float() for x in ls])).all()):
+                bad.append(key)
+        return bad
+
+    def release(self):
+        for runner in self.runners.values():
+            for name in ("run_round", "_train"):
+                for obj in (runner, getattr(runner, "runtime", None)):
+                    if obj is not None and name in vars(obj):
+                        delattr(obj, name)
+        self.runners.clear()
+
+
+def _state_of(runner):
+    """What a method's rounds move: its params (and a depth method's
+    heads)."""
+    return {"params": runner.params, "heads": getattr(runner, "heads", None)}
+
+
+def _cpu_tree(tree):
+    from repro_torch.common.tree import tree_map
+    return tree_map(lambda t: t.detach().cpu(), tree)
+
+
+def baseline_step_check(torch, runners, batcher):
+    """Each distinct baseline step once on the card against the same step
+    on the CPU, from the same params and batch (TF32 off): the full model
+    (FedAvg), AllSmall's width, each HeteroFL ratio present, each DepthFL
+    level and ProgFed's stage-0 bundle.  Bar: TOL / 10 (1e-4), or 10x the
+    CPU step's own movement at params x (1 + 1e-7) where that is larger."""
+    from repro_torch.common.device import to_device
+    from repro_torch.common.tree import tree_map
+    from repro_torch.federated.baselines import _extract_submodel
+    host = batcher.sample(STEP_CHECK_BATCH)
+    cpu = torch.device("cpu")
+    steps = [("fedavg full model", runners["fedavg"].full_step(),
+              runners["fedavg"].params, runners["fedavg"].optimizer),
+             ("allsmall", runners["allsmall"].full_step(),
+              runners["allsmall"].params, runners["allsmall"].optimizer)]
+    het = runners["heterofl"]
+    for ratio in sorted(set(het.client_ratio.values())):
+        sub, _ = _extract_submodel(het.params, ratio, 0, het.ccfg.num_classes,
+                                   het.ccfg.in_channels)
+        steps.append((f"heterofl ratio {ratio}", het.full_step(), sub,
+                      het.optimizer))
+    dfl = runners["depthfl"]
+    for lvl, end in enumerate(dfl.depth_ends):
+        steps.append((f"depthfl level {lvl}", dfl._step(lvl),
+                      {"units": dfl.params["units"][:end],
+                       "head": dfl.heads[lvl]}, dfl.optimizer))
+    pfl = runners["progfed"]
+    steps.append(("progfed stage 0", pfl._step(0),
+                  {"units": pfl.params["units"][:pfl.depth_ends[0]],
+                   "head": pfl.heads[0]}, pfl.optimizer))
+    out = []
+    for name, step, params, opt in steps:
+        def one(p, device):
+            return step(opt.init(p), p, to_device(host, device))[1:]
+
+        card = one(params, params_device(params))
+        p_cpu = _cpu_tree(params)
+        plain = one(p_cpu, cpu)
+        moved = one(tree_map(lambda p: p * (1 + 1e-7), p_cpu), cpu)
+        loss_rel, params_rel = _step_diff(
+            (_cpu_tree(card[0]), {"loss": card[1]["loss"].cpu()}), plain)
+        s_loss, s_params = _step_diff(moved, plain)
+        bar_loss = max(TOL / 10, 10 * s_loss)
+        bar_params = max(TOL / 10, 10 * s_params)
+        row = dict(step=name, loss=float(card[1]["loss"]),
+                   cpu_loss=float(plain[1]["loss"]), loss_rel=loss_rel,
+                   params_rel=params_rel, cpu_eps_loss_rel=s_loss,
+                   cpu_eps_params_rel=s_params, bar_loss=bar_loss,
+                   bar_params=bar_params)
+        print(f"  {name}: card vs CPU loss rel {loss_rel:.2e}, params rel "
+              f"{params_rel:.2e} (CPU at params x (1 + 1e-7): "
+              f"{s_loss:.2e}, {s_params:.2e}; bars {bar_loss:.1e}, "
+              f"{bar_params:.1e})", flush=True)
+        check(loss_rel <= bar_loss and params_rel <= bar_params,
+              f"baseline step, card vs CPU: {row}")
+        out.append(row)
+    return out
+
+
+def params_device(tree):
+    return _leaves(tree)[0].device
+
+
+def numpy_scatter_mean(params, subs):
+    """The reference's HeteroFL aggregation (``baselines.py``,
+    ``HeteroFL.round``) in numpy float64 with ``np.add.at``, on trees in
+    the reference's layout: ``subs`` holds (sub-tree, maps) with the
+    reference's axes."""
+    import numpy as np
+
+    from repro_torch.federated.baselines import _flatten_paths, _map_with_path
+    flat = _flatten_paths(params)
+    sums = {p: np.zeros_like(v, np.float64) for p, v in flat.items()}
+    counts = {p: np.zeros(v.shape, np.float64) for p, v in flat.items()}
+    for sub, maps in subs:
+        for p, leaf in _flatten_paths(sub).items():
+            arr = np.asarray(leaf, np.float64)
+            idxs = maps[p]
+            if idxs:
+                full_ix = [slice(None)] * sums[p].ndim
+                k = len(idxs)
+                for j, (ax, m) in enumerate(idxs):
+                    shape = [1] * k
+                    shape[j] = len(m)
+                    full_ix[ax] = m.reshape(shape)
+                np.add.at(sums[p], tuple(full_ix), arr)
+                np.add.at(counts[p], tuple(full_ix), 1.0)
+            else:
+                sums[p] += arr
+                counts[p] += 1.0
+    return _map_with_path(lambda p, v: np.where(
+        counts[p] > 0, sums[p] / np.maximum(counts[p], 1),
+        np.asarray(v, np.float64)).astype(v.dtype), params)
+
+
+def scatter_check(torch, runner, r):
+    """``runner``'s (HeteroFL's or FedRolex's) round-r aggregation on the
+    card, on client trees trained on the card, against
+    ``numpy_scatter_mean`` of the same trees in the reference's layout, at
+    1e-6 relative."""
+    import numpy as np
+
+    from repro_torch import bridge
+    from repro_torch.federated.baselines import (WidthScatterMean,
+                                                 _extract_submodel,
+                                                 _flatten_paths)
+    # the port's OIHW conv axes -> the reference's HWIO ones
+    conv_axes = {1: 2, 0: 3}
+    cands = runner.candidates(r)
+    cohort = [int(c) for c in np.random.default_rng(r).choice(
+        cands, size=min(5, len(cands)), replace=False)]
+    acc = WidthScatterMean(runner.params)
+    subs = []
+    for cid in cohort:
+        ratio = runner.client_ratio[cid]
+        sub, maps = _extract_submodel(runner.params, ratio, runner._offset(r),
+                                      runner.ccfg.num_classes,
+                                      runner.ccfg.in_channels)
+        res = runner._train(runner.full_step(), sub, cid)
+        acc.add(res.trainable, maps)
+        flat = _flatten_paths(sub)
+        ref_maps = {p: tuple((conv_axes[ax] if flat[p].ndim == 4 else ax, m)
+                             for ax, m in idxs) for p, idxs in maps.items()}
+        subs.append((bridge.to_reference(res.trainable), ref_maps))
+    got = bridge.to_reference(acc.result())
+    want = numpy_scatter_mean(bridge.to_reference(runner.params), subs)
+    from repro_torch.common.tree import tree_leaves
+    scale = max(float(np.abs(w).max()) for w in tree_leaves(want))
+    err = max(float(np.abs(np.asarray(g, np.float64) - w).max())
+              for g, w in zip(tree_leaves(got), tree_leaves(want)))
+    rel = err / scale
+    ratios = sorted({runner.client_ratio[c] for c in cohort})
+    print(f"  {runner.name} round {r} aggregation on the card vs numpy "
+          f"np.add.at (float64): rel {rel:.2e}, cohort {cohort}, ratios "
+          f"{ratios}", flush=True)
+    check(rel <= 1e-6, f"{runner.name} scatter-average: rel {rel}")
+    return {"method": runner.name, "round": r, "cohort": cohort,
+            "ratios": ratios, "rel": rel}
+
+
+def tables_path(torch, kernels, np):
+    """Main path 7: ``table1_accuracy.run`` (NeuLite and the nine baselines
+    on ResNet18, VGG11 and SqueezeNet) and ``table2_complexity.run``
+    (ResNet18, then ResNet34 on ResNet18's fleet) at full width, 32x32x3,
+    10 classes, the reference's fleet (20 clients, 5 a round, E = 1,
+    B = 32, 4 stages), TABLE_ROUNDS rounds a method."""
+    from repro_torch.benchmarks import table1_accuracy, table2_complexity
+    from repro_torch.common.tree import tree_leaves
+    out = {}
+    rec = _TableRecorder(kernels, keep=("resnet18",))
+    reset_all(kernels)
+    t0 = time.perf_counter()
+    with nhsic_shapes_seen() as seen:
+        t1 = table1_accuracy.run(rounds=TABLE_ROUNDS, archs=TABLE1_ARCHS,
+                                 device="cuda", out_path=TABLE1_OUT,
+                                 hooks=rec, quiet=True, **TABLE_SIZE)
+    t1_s = time.perf_counter() - t0
+    counts = read_all(kernels)
+    per = rec.launches()
+    print(f"  Table 1 in {t1_s:.1f} s; rows written to "
+          f"{os.path.relpath(TABLE1_OUT, ROOT)}", flush=True)
+    for (arch, m), row in t1.items():
+        steps = sum(rec.steps[(arch, m)])
+        k = {n: per[(arch, m)][n] for n in STREAMING}
+        print(f"  {arch:10s} {m:12s} acc {row['acc']:.4f}  participation "
+              f"{row['pr']:.3f}  {row['time_s']:.2f} s  {steps} local steps"
+              f"  K1-K3 {sorted(set(k.values()))}", flush=True)
+        check(math.isfinite(row["acc"]) and 0.0 <= row["acc"] <= 1.0,
+              f"table 1 {arch} {m}: bad accuracy {row['acc']}")
+        if m == "neulite":
+            # a fleet may have no device for a stage (n_feasible 0)
+            check(set(k.values()) == {2 * steps},
+                  f"table 1 {arch} NeuLite: expected 2 launches of each "
+                  f"nHSIC kernel per local step ({steps}): {k}")
+        else:
+            check(set(k.values()) == {0},
+                  f"table 1 {arch} {m}: an nHSIC kernel ran in a baseline "
+                  f"round: {k}")
+    check(sum(rec.steps[("resnet18", "neulite")]) > 0,
+          "table 1: NeuLite took no local step on ResNet18")
+    bad = rec.finite(torch)
+    check(not bad, f"non-finite local losses in {bad}")
+    first = {m: _cpu_tree(_state_of(r))
+             for (a, m), r in rec.runners.items()}
+    runners = {m: r for (a, m), r in rec.runners.items()}
+
+    phase("main path 7: the baselines' steps, card against CPU")
+    from repro_torch.benchmarks.common import make_fl_setup
+    clients, _ = make_fl_setup(0, image_size=TABLE_SIZE["image_size"])
+    from repro_torch.data.loader import Batcher
+    out["baseline_steps"] = baseline_step_check(
+        torch, runners, Batcher(clients[0], STEP_CHECK_BATCH, seed=SEED))
+    phase("main path 7: HeteroFL's and FedRolex's scatter-average")
+    out["scatter"] = [scatter_check(torch, runners["heterofl"], 0),
+                      scatter_check(torch, runners["fedrolex"], 1)]
+    rec.release()
+    del runners
+
+    phase("main path 7: ResNet18's ten methods again from the seed")
+    again = _TableRecorder(kernels, keep=("resnet18",))
+    t1b = table1_accuracy.run(rounds=TABLE_ROUNDS, archs=("resnet18",),
+                              device="cuda", out_path=TABLE1_REPEAT_OUT,
+                              hooks=again, quiet=True, **TABLE_SIZE)
+    differ = [m for (a, m), r in again.runners.items()
+              if not all(torch.equal(x.cpu(), y) for x, y in zip(
+                  tree_leaves(_state_of(r)), tree_leaves(first[m])))
+              or repr(t1b[(a, m)]["acc"]) != repr(t1[(a, m)]["acc"])]
+    again.release()
+    print(f"  params and accuracies {'identical' if not differ else 'DIFFER'}"
+          f" ({len(first)} methods){': ' + str(differ) if differ else ''}",
+          flush=True)
+    check(not differ, f"ResNet18's Table 1 methods do not repeat bit for "
+          f"bit: {differ}")
+    del first
+
+    phase("main path 7: Table 2")
+    rec2 = _TableRecorder(kernels)
+    before_t2 = read_all(kernels)
+    t0 = time.perf_counter()
+    with nhsic_shapes_seen() as seen2:
+        t2 = table2_complexity.run(rounds=TABLE_ROUNDS, device="cuda",
+                                   out_path=TABLE2_OUT, hooks=rec2,
+                                   quiet=True, **TABLE_SIZE)
+    t2_s = time.perf_counter() - t0
+    per2 = rec2.launches()
+    for arch, row in t2.items():
+        steps = sum(rec2.steps[(arch, "neulite")])
+        k = {n: per2[(arch, "neulite")][n] for n in STREAMING}
+        print(f"  {arch}: NeuLite acc {row['neulite_acc']:.4f}, "
+              f"participation {row['neulite_pr']:.3f}, full-model-feasible "
+              f"devices {row['full_model_feasible_devices']}, "
+              f"{row['time_s']:.2f} s, {steps} local steps, K1-K3 "
+              f"{sorted(set(k.values()))}", flush=True)
+        check(steps > 0 and set(k.values()) == {2 * steps},
+              f"table 2 {arch}: expected 2 launches of each nHSIC kernel "
+              f"per local step ({steps}): {k}")
+        check(math.isfinite(row["neulite_acc"]),
+              f"table 2 {arch}: bad accuracy")
+    check(not rec2.finite(torch), "non-finite local losses in table 2")
+    check_held(seen | seen2, "Tables 1 and 2")
+    check(t2["resnet34"]["neulite_pr"] > 0,
+          f"table 2: ResNet34 on ResNet18's budgets left NeuLite no "
+          f"device: {t2['resnet34']}")
+    end = read_all(kernels)
+    t2_counts = {n: end[n] - before_t2[n] for n in end}
+    counts = {n: counts[n] + t2_counts[n] for n in counts}
+    out.update(table1={f"{a}|{m}": v for (a, m), v in t1.items()},
+               table1_seconds=t1_s, table2=t2, table2_seconds=t2_s,
+               launches_by_method={f"{a}|{m}": v for (a, m), v in
+                                   per.items()})
+    return out, counts
+
+
+def fig7_phase(torch, kernels):
+    """Paper Fig. 7 on the card: ``fig7_time.run`` on ResNet18 and VGG11
+    at the reference's sizes (width 0.5, 16x16, B = 32) and at full width
+    (32x32), the captured and the eager step, each stage against the full
+    step.  No gate: the speedups are printed beside the paper's.  Every
+    shape nHSIC takes here must have been held against the plain version
+    in the kernel phase (``fig7_nhsic_shapes``)."""
+    from repro_torch.benchmarks import fig7_time
+    reset_all(kernels)
+    with nhsic_shapes_seen() as seen:
+        rows = fig7_time.run(archs=FIG7_ARCHS, batch=FIG7_BATCH,
+                             device="cuda", sizes=FIG7_SIZES,
+                             out_path=FIG7_OUT, quiet=True)
+    counts = read_all(kernels)
+    for label, archs in rows.items():
+        for arch, row in archs.items():
+            for kind, r in row.items():
+                sp = r["speedups"]
+                check(all(math.isfinite(x) and x > 0 for x in sp),
+                      f"fig7 {label} {arch} {kind}: {r}")
+                print(f"  {label} {arch:8s} {kind:8s} full {r['full_ms']:.3f}"
+                      f" ms, stages {[round(s, 3) for s in r['stage_ms']]} "
+                      f"ms, speedup {min(sp):.2f}-{max(sp):.2f}x (paper "
+                      f"{fig7_time.PAPER_SPEEDUP[0]}-"
+                      f"{fig7_time.PAPER_SPEEDUP[1]}x)", flush=True)
+    check(all(counts[n] > 0 for n in STREAMING),
+          f"an nHSIC kernel never ran in the Fig. 7 phase: {counts}")
+    check_held(seen, "the Fig. 7 phase")
+    print(f"  launches {counts}; rows written to "
+          f"{os.path.relpath(FIG7_OUT, ROOT)}", flush=True)
+    return rows, counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2860,6 +3306,11 @@ def main():
     print(f"  rows written to {os.path.relpath(BENCH_FL_OUT, ROOT)}",
           flush=True)
 
+    phase("main path 7: Tables 1 and 2 at full width")
+    tables, tabcounts = tables_path(torch, kernels, np)
+    phase("Fig. 7: stage step against full step")
+    fig7_rows, f7counts = fig7_phase(torch, kernels)
+
     phase("Fig. 6: peak memory of each stage against the full-model step")
     fig6_out, fcounts = fig6_phase(torch, kernels)
 
@@ -2867,7 +3318,8 @@ def main():
                "kernels_bench": bcounts,
                **{a: z["launches"] for a, z in zoo.items()},
                **{f"{a}_vectorized": v["launches"] for a, v in vec.items()},
-               "fl_round_throughput": tcounts, "fig6": fcounts}
+               "fl_round_throughput": tcounts, "tables": tabcounts,
+               "fig7": f7counts, "fig6": fcounts}
     launches = {n: sum(c[n] for c in by_path.values()) for n in xcounts}
     sources = {n: os.path.relpath(k.SOURCE, ROOT) for k in kernels
                for n in k.LAUNCHES}
@@ -2958,7 +3410,8 @@ def main():
                                      "launches": bcounts},
                    "zoo": zoo, "batched": batched,
                    "captured_vs_eager": captures, "vectorized": vec,
-                   "fl_round_throughput": throughput, "fig6": fig6_out,
+                   "fl_round_throughput": throughput, "tables": tables,
+                   "fig7": fig7_rows, "fig6": fig6_out,
                    "kernels": out_kernels, "device": device}, f, indent=1)
     phase("done")
     print(smi, flush=True)

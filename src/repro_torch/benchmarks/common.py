@@ -16,6 +16,9 @@ import time
 
 import torch
 
+RESULTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
+                           "..", "..", "results")
+
 
 def _sync() -> None:
     if torch.cuda.is_initialized():
@@ -73,3 +76,28 @@ def write_bench_json(path, payload: dict, device: torch.device,
         json.dump(doc, f, indent=2, sort_keys=True, default=float)
         f.write("\n")
     return path
+
+
+def ensure_dir(*parts) -> str:
+    """``results/<parts>`` at the repository's root, made if missing."""
+    p = os.path.join(RESULTS_DIR, *parts)
+    os.makedirs(p, exist_ok=True)
+    return p
+
+
+def make_fl_setup(seed=0, n_clients=20, n_train=2000, n_test=512,
+                  num_classes=10, image_size=16, alpha=1.0):
+    """The reference's benchmark fleet data (numpy only): a synthetic image
+    set split over ``n_clients`` by a Dirichlet(``alpha``) partition, and a
+    test batcher of 128."""
+    from repro_torch.data.loader import Batcher
+    from repro_torch.data.partition import dirichlet_partition
+    from repro_torch.data.synthetic import make_image_dataset
+    ds = make_image_dataset(seed, n_train, num_classes=num_classes,
+                            image_size=image_size)
+    test = make_image_dataset(seed + 1, n_test, num_classes=num_classes,
+                              image_size=image_size)
+    parts = dirichlet_partition(seed, ds.labels, n_clients, alpha=alpha)
+    clients = [ds.subset(p) for p in parts]
+    test_batcher = Batcher(test, 128, kind="image")
+    return clients, test_batcher

@@ -15,8 +15,8 @@ O(cohort) — sampling a memory-feasible cohort from a million-device
 population rejection-samples against the analytic per-tier feasibility
 probabilities instead of scanning a materialized list.
 
-This is a numpy-only copy of ``repro.federated.devices``'s streaming
-``Fleet``; the materialized fleet comes with a later part of the port.
+This is a numpy-only copy of ``repro.federated.devices``: the streaming
+``Fleet``, the materialized ``MaterializedFleet`` and ``sample_devices``.
 
 Determinism contract: a device's tier depends only on ``(seed, n_devices,
 device_id)`` (tiers are stratified — a seed-keyed bijection of ``[0, n)``
@@ -219,3 +219,76 @@ class Fleet:
     # alias matching selection-policy vocabulary
     def sample_feasible(self, rng, k, required_bytes):
         return self.sample_cohort(rng, k, required_bytes)
+
+
+class MaterializedFleet(Fleet):
+    """A ``Fleet`` view over explicit ``DeviceProfile``s (O(population)
+    memory — the reference/compatibility path, e.g. externally profiled
+    fleets).  Attribute lookups index precomputed arrays; tiers are speed
+    quintiles (TiFL's profiled-round-time tiering).  Shares the cohort
+    sampling implementation with the streaming fleet, so given identical
+    profiles and RNG state both produce identical cohorts."""
+
+    def __init__(self, profiles: Sequence[DeviceProfile],
+                 full_model_bytes: Optional[int] = None,
+                 n_tiers: int = 5):
+        prof = sorted(profiles, key=lambda d: d.device_id)
+        if [d.device_id for d in prof] != list(range(len(prof))):
+            raise ValueError("MaterializedFleet needs contiguous device ids "
+                             "0..n-1 (the population is index-addressed)")
+        self.seed = -1
+        self.n_devices = len(prof)
+        self._mem = np.asarray([d.mem_bytes for d in prof], np.int64)
+        self._speed = np.asarray([d.speed for d in prof], np.float64)
+        self.full_model_bytes = int(full_model_bytes
+                                    if full_model_bytes is not None
+                                    else max(self._mem.max(initial=1), 1))
+        # speed quintiles: tier 0 = slowest (matches tifl_select's
+        # 1/speed ascending-time ordering with tier indices reversed
+        # consistently for both)
+        order = np.argsort(self._speed, kind="stable")
+        self._tier = np.empty(self.n_devices, np.int64)
+        for t, part in enumerate(np.array_split(order, n_tiers)):
+            self._tier[part] = t
+        self.tier_fracs = np.asarray(
+            [np.count_nonzero(self._tier == t) / max(self.n_devices, 1)
+             for t in range(n_tiers)])
+        self.tier_mem_frac = np.ones(n_tiers)
+        self.tier_speed = np.asarray(
+            [self._speed[self._tier == t].mean()
+             if np.any(self._tier == t) else 1.0 for t in range(n_tiers)])
+        self._cum = np.cumsum(self.tier_fracs)
+
+    def tier_of(self, device_ids) -> np.ndarray:
+        return self._tier[np.asarray(device_ids, np.int64)]
+
+    def speeds(self, device_ids) -> np.ndarray:
+        return self._speed[np.asarray(device_ids, np.int64)]
+
+    def mem_bytes(self, device_ids) -> np.ndarray:
+        return self._mem[np.asarray(device_ids, np.int64)]
+
+    def tier_feasible_prob(self, required_bytes: int) -> np.ndarray:
+        req = int(required_bytes)
+        out = np.zeros(self.n_tiers)
+        for t in range(self.n_tiers):
+            members = self._mem[self._tier == t]
+            if members.size:
+                out[t] = np.count_nonzero(members >= req) / members.size
+        return out
+
+    def feasible_count(self, required_bytes: int) -> int:
+        return int(np.count_nonzero(self._mem >= int(required_bytes)))
+
+
+def sample_devices(seed: int, n_devices: int,
+                   full_model_bytes: int) -> List[DeviceProfile]:
+    """``full_model_bytes`` is the peak memory of FULL-model training; tiers
+    are budgeted relative to it so the memory wall binds by construction.
+
+    Materializes ``Fleet`` lookups — kept for list-shaped consumers
+    (baselines, external analysis).  Same ``(seed, n_devices)`` with a
+    different ``full_model_bytes`` yields the same tiers and speeds with
+    only the budgets rescaled (regression-tested)."""
+    return Fleet(seed, n_devices, full_model_bytes).profiles(
+        range(n_devices))

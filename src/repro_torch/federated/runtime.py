@@ -31,7 +31,7 @@ come back unchanged with a NaN loss.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -414,11 +414,19 @@ class VectorizedRuntime(ClientRuntime):
 
 RUNTIMES = {"sequential": SequentialRuntime,
             "vectorized": VectorizedRuntime}
+NOT_PORTED = ("sharded", "async")
 
 
-def make_runtime(spec: str, adapter: Adapter, optimizer, hp: CurriculumHP,
+def make_runtime(spec: Union[str, ClientRuntime], adapter: Adapter,
+                 optimizer, hp: CurriculumHP,
                  device: torch.device) -> ClientRuntime:
-    """Resolve a runtime name (``FLConfig.runtime``)."""
+    """Resolve a runtime name (``FLConfig.runtime``) or pass an
+    already-constructed ``ClientRuntime`` through unchanged."""
+    if isinstance(spec, ClientRuntime):
+        return spec
+    if spec in NOT_PORTED:
+        raise ValueError(f"runtime {spec!r} is not yet ported; the port has "
+                         f"{sorted(RUNTIMES)}")
     try:
         cls = RUNTIMES[spec]
     except KeyError:

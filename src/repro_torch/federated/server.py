@@ -12,14 +12,14 @@
 round reads the device once, for its losses; ``evaluate`` reads it once.
 On a CUDA device the server makes cuDNN deterministic (deterministic
 algorithms, no autotuning), so a run repeats bit for bit, as the
-reference's rounds do.  The port has the sequential runtime and random
-selection; checkpointing, the async and vectorized runtimes and TiFL/Oort
-come with later parts.
+reference's rounds do.  The port has the sequential and vectorized
+runtimes and the random, TiFL and Oort policies; checkpointing and the
+async and sharded runtimes come with later parts.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
@@ -33,9 +33,9 @@ from repro_torch.core.schedule import (PlateauSchedule, RoundRobinSchedule,
 from repro_torch.data.loader import Batcher
 from repro_torch.federated import aggregation as agg
 from repro_torch.federated.client import dropout_prob, sample_fault_steps
-from repro_torch.federated.devices import Fleet
-from repro_torch.federated.runtime import make_runtime
-from repro_torch.federated.selection import make_policy
+from repro_torch.federated.devices import Fleet, MaterializedFleet
+from repro_torch.federated.runtime import ClientRuntime, make_runtime
+from repro_torch.federated.selection import SelectionPolicy, make_policy
 from repro_torch.optim.optimizers import sgd
 
 
@@ -83,12 +83,18 @@ class NeuLiteServer:
     ``data.partition.ProceduralClients``).  ``params``
     starts the server from given params (e.g. converted reference params);
     by default the adapter inits them from ``flc.seed``.  ``device`` is the
-    current CUDA card unless the caller passes another (``"cpu"``)."""
+    current CUDA card unless the caller passes another (``"cpu"``).
+    ``runtime`` (a name or a ``ClientRuntime``) overrides ``flc.runtime``;
+    ``fleet`` overrides the streaming fleet (e.g. a ``MaterializedFleet``
+    over given profiles) and ``selection_policy`` ``flc.selection``."""
 
     def __init__(self, adapter, client_datasets, flc: FLConfig,
                  test_batcher: Optional[Batcher] = None,
-                 data_kind: str = "image", params=None,
-                 device: DeviceLike = None):
+                 data_kind: str = "image",
+                 runtime: Union[str, ClientRuntime, None] = None,
+                 fleet: Optional[Fleet] = None,
+                 selection_policy: Optional[SelectionPolicy] = None,
+                 params=None, device: DeviceLike = None):
         self.adapter = adapter
         self.flc = flc
         self.device = resolve_device(device)
@@ -104,8 +110,9 @@ class NeuLiteServer:
                                lambda2_max=flc.lambda2, mu=flc.mu,
                                enabled=flc.curriculum,
                                use_hsic_kernel=flc.use_hsic_kernel)
-        self.runtime = make_runtime(flc.runtime, adapter, self.optimizer,
-                                    self.hp, self.device)
+        self.runtime = make_runtime(
+            runtime if runtime is not None else flc.runtime, adapter,
+            self.optimizer, self.hp, self.device)
         self.test_batcher = test_batcher
         if isinstance(client_datasets, (list, tuple)):
             self.batchers = [Batcher(ds, flc.batch_size, seed=flc.seed + i,
@@ -124,10 +131,28 @@ class NeuLiteServer:
             self.schedule = SequentialSchedule(T, flc.rounds_per_stage)
         full_mem = estimate_full_memory(adapter, flc.batch_size,
                                         seq=self._seq_len())
-        self.fleet = Fleet(flc.seed, flc.n_devices, full_mem.total)
-        self.selector = make_policy(flc.selection)
+        self.fleet = (fleet if fleet is not None
+                      else Fleet(flc.seed, flc.n_devices, full_mem.total))
+        self.selector = (selection_policy if selection_policy is not None
+                         else make_policy(flc.selection))
+        self._devices = None
         self.history: List[RoundResult] = []
         self.next_round: int = 0
+
+    @property
+    def devices(self):
+        """The fleet's ``DeviceProfile`` list, built on first use
+        (O(population); the round loop never builds it)."""
+        if self._devices is None:
+            self._devices = self.fleet.profiles(range(self.fleet.n_devices))
+        return self._devices
+
+    @devices.setter
+    def devices(self, profiles):
+        # given profiles (Table 2 reuses a smaller model's budgets) must
+        # reach selection: they replace the fleet, not only this view
+        self.fleet = MaterializedFleet(profiles)
+        self._devices = list(profiles)
 
     def _seq_len(self) -> int:
         """Sequence length for the memory model (0 for image tasks)."""
@@ -187,11 +212,16 @@ class NeuLiteServer:
         self.next_round = r + 1
         return rr
 
-    def run(self, rounds: int) -> List[RoundResult]:
-        """Run ``rounds`` further rounds starting at ``self.next_round``."""
+    def run(self, rounds: int, log_every: int = 0) -> List[RoundResult]:
+        """Run ``rounds`` further rounds starting at ``self.next_round``;
+        with ``log_every`` print every ``log_every``-th round."""
         start = self.next_round
         for r in range(start, start + rounds):
-            self.run_round(r)
+            rr = self.run_round(r)
+            if log_every and (r % log_every == 0):
+                print(f"round {r:4d} stage {rr.stage} "
+                      f"loss {rr.mean_loss:.4f} acc {rr.test_acc} "
+                      f"feasible {rr.n_feasible}/{self.flc.n_devices}")
         return self.history
 
     @torch.no_grad()
@@ -216,3 +246,10 @@ class NeuLiteServer:
         if total == 0:
             return 0.0
         return int(correct.item()) / total
+
+    @property
+    def participation_rate(self) -> float:
+        if not self.history:
+            return 0.0
+        return float(np.mean([h.n_feasible / self.flc.n_devices
+                              for h in self.history]))

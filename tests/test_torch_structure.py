@@ -64,6 +64,25 @@ def test_entry_points_default_to_cuda(monkeypatch):
         bridge.from_reference({"w": [[1.0]]})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_local_training(None, None, {}, {}, None, 1)
+    from repro_torch.benchmarks import (fig7_time, table1_accuracy,
+                                        table2_complexity)
+    from repro_torch.federated import baselines as tb
+    from repro_torch.federated.server import FLConfig
+    flc = FLConfig(n_devices=2, clients_per_round=1, num_stages=2)
+    for name in tb.BASELINES:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tb.BASELINES[name](adapter.cfg, [], None, flc)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        table1_accuracy.run(rounds=1, archs=("resnet18",), width=0.125,
+                            image_size=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        table2_complexity.run(rounds=1, width=0.125, image_size=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fig7_time.run(archs=("resnet18",), sizes=((0.125, 8),))
+    from repro_torch.examples import federated_heterogeneous
+    monkeypatch.delenv("FEDHET_DEVICE", raising=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        federated_heterogeneous.main()
 
 
 def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
@@ -172,7 +191,12 @@ def test_unported_archs_and_runtimes_raise():
     from repro_torch.models.cnn import CNNConfig, build_units
     with pytest.raises(ValueError, match="alexnet"):
         build_units(CNNConfig(name="a", arch="alexnet"))
-    with pytest.raises(ValueError, match="sequential"):
-        make_runtime("sharded", None, None, None, torch.device("cpu"))
-    with pytest.raises(ValueError, match="random"):
-        make_policy("oort")
+    for name in ("sharded", "async"):
+        with pytest.raises(ValueError, match="not yet ported.*sequential"):
+            make_runtime(name, None, None, None, torch.device("cpu"))
+    # every policy of the reference is ported: an unknown name raises and
+    # lists all three
+    with pytest.raises(ValueError,
+                       match=r"unknown selection policy 'fedprox'.*"
+                             r"\['oort', 'random', 'tifl'\]"):
+        make_policy("fedprox")
