@@ -118,7 +118,7 @@
    captured, CUDA events, median of 5 after a warm-up; the speedups are
    printed beside the paper's 1.84-2.31x (no gate).  Rows to
    ``chiprun_out/fig7_time.json``.
-11. The Fig. 6 phase, after every server is freed: the paper's peak-memory
+11. The Fig. 6 phase, last, after every server is freed: the paper's peak-memory
    claim measured by ``benchmarks/fig6_memory.py``'s ``run``
    (``analysis.memory.measure_local_training``: the allocator's peak over
    two local steps on the same two batches, each from an empty cache with
@@ -131,6 +131,40 @@
    else the run fails.  The table goes to ``chiprun_out/fig6_memory.json``.
    Every shape nHSIC takes there must be one the kernel phase held.  Then
    the step check of the four CNNs at batch 128, one step per stage.
+
+12. Main path 8, after main path 1: kill and resume.  Main path 1's
+   ResNet18 (full width, 4 of 100 clients, K1-K3) runs 4 rounds with
+   ``checkpoint_every=2`` in a child process (this script with
+   ``--resume-child DIR``: the kernels the parent built, loaded, not
+   built again), which SIGKILLs itself as round 2 opens; this process
+   restores the round-2 checkpoint (``NeuLiteServer.restore``) and runs
+   rounds 2-3, and runs the 4 rounds straight.  The resumed params,
+   history, server RNG, batcher RNGs and selector state must equal the
+   straight run's to the bit, the child's checkpoint the straight run's
+   round-2 one (arrays and sidecar), the last checkpoint read on the CPU
+   the bits of ``to_reference`` of the card's params; K1-K3 launch twice
+   per local step of the resumed rounds.  Prints the checkpoint's bytes
+   and the seconds of ``save_state`` and ``restore``; everything lands in
+   a temporary directory, removed at the end.
+13. The Fig. 2 phase (``benchmarks/fig2_hsic_plane.py``): E2E, naive PT
+   and NeuLite-CA on ResNet18 at the reference's size (width 0.25, 16x16)
+   and at full width (32x32), 60 steps; K1-K3 twice a NeuLite-CA step,
+   never in the other two; each trace's first and last point and whether
+   the paper's ordering holds (printed, not a gate).
+14. The Fig. 5 phase (``benchmarks/fig5_scale_vit.py``): 5a, ResNet18 at
+   full width on 62 classes at scales 24 and 48, 2 rounds (K1-K3 twice a
+   local step); 5b, ViT-12's widths (d_model 384, 12 layers in 3 blocks)
+   at 32x32 and 32 classes, C = 4 on the vectorized runtime, 2 rounds
+   (K1-K3 twice a vectorized step; K4 once a layer run per vectorized
+   step and per evaluation batch).
+15. The Fig. 8 phase (``benchmarks/fig8_ablation.py``): NeuLite, w/o CA,
+   w/o PC and FedAvg on ResNet18 at full width, 4 rounds (one a stage):
+   K1-K3 twice a local step in NeuLite and w/o PC, never in the other two.
+16. The quickstart (``examples/quickstart.py``) at its own size: the
+   progressive loop's 64 steps and the two runtimes' rounds; K1-K3 twice
+   a step (a vectorized step's cohorts in one launch), K4 once a layer
+   run.  Every nHSIC and K4 shape the phases 13-16 take must be one the
+   kernel phase held (``nhsic_shapes``, ``FLASH_CASES``).
 
 Each main path is driven with the launch counts set to 0 just before it
 and read just after.  Prints the card's name and power limit, a JSON line
@@ -253,6 +287,18 @@ FLASH_CASES += [(2, 70, 90, 4, 2, 1, True, 0, "float32"),
                 (3, 9, 9, 2, 1, 32, True, 0, "float32"),
                 (1, 1000, 1000, 2, 2, 64, True, 300, "float32")]
 FLASH_GRAD_CASES = [FLASH_VIT, FLASH_CASES[5], FLASH_CASES[8]]
+FLASH_WINDOWED = FLASH_CASES[-1]      # held to its bits over three runs
+# the figures' and the quickstart's shapes, as nHSIC's phases take them
+# (under vmap per cohort) and, with 4 cohorts folded into B, as K4 then
+# launches: the quickstart's causal GQA (B 8, S 64, H 4 over KV 2, D 32),
+# Fig. 5b's ViT at ViT-12's widths (D 64) and at the reference's (D 16),
+# 16 patches, batches of 32 and evaluations of 128
+FLASH_CASES += [(8, 64, 64, 4, 2, 32, True, 0, "float32"),
+                (32, 64, 64, 4, 2, 32, True, 0, "float32"),
+                (32, 16, 16, 6, 6, 64, False, 0, "float32"),
+                (128, 16, 16, 6, 6, 64, False, 0, "float32"),
+                (32, 16, 16, 6, 6, 16, False, 0, "float32"),
+                (128, 16, 16, 6, 6, 16, False, 0, "float32")]
 # timed: the ViT-12 shape and the kernel benchmark's two attention rows
 # (kernels_bench.ATTN_SHAPES, causal f32)
 FLASH_TIMED = [FLASH_VIT, (2, 256, 256, 8, 2, 64, True, 0, "float32"),
@@ -280,6 +326,20 @@ SLSTM_CASES = [SLSTM_MAIN,
                (16, 64, 8, 512, True, 1.0),
                (2, 16, 16, 1024, True, 1.0)]
 STATE = ("c", "n", "m", "h")
+
+# the paper's figures on the card: Fig. 2 at the reference's size and at
+# full width, 60 steps; Fig. 5a at full width, 62 classes, two scales; 5b
+# at ViT-12's published widths on 32x32 (16 patches), C = 4; Fig. 8 at
+# full width, one round a stage
+FIG2_SIZES = ((0.25, 16), (1.0, 32))
+FIG2_STEPS = 60
+FIG5_SIZE = dict(width=1.0, image_size=32)
+FIG5_SCALES, FIG5_ROUNDS = (24, 48), 2
+FIG5_VIT = dict(image_size=32, d_model=384, num_layers=12)
+FIG8_SIZE = dict(width=1.0, image_size=32)
+FIG8_ROUNDS = 4
+# main path 8: main path 1's server killed after its second round
+RESUME_ROUNDS, RESUME_EVERY = 4, 2
 
 # main path sizes (a CPU rehearsal shrinks them)
 RESNET = dict(arch="resnet18", num_classes=10, image_size=32, width_mult=1.0)
@@ -904,7 +964,7 @@ def flash_phase(torch, fkernel, fops, fref):
               "non-finite flash grad")
         print(f"  check flash autograd {case}: out {rel_o:.2e}, grads "
               f"{rel_g:.2e}", flush=True)
-    for case in (FLASH_VIT, FLASH_CASES[-1]):
+    for case in (FLASH_VIT, FLASH_WINDOWED):
         q, k, v = flash_inputs(torch, case)
         runs = [fkernel.flash_attention_fwd(q, k, v, causal=case[6],
                                             window=case[7])
@@ -1193,21 +1253,21 @@ def run_rounds(torch, server, kernels, n, quiet=False, fresh=False):
     return rounds
 
 
-def cnn_server(np, spec=RESNET, quiet=False, runtime="sequential"):
-    """Main path 1's server (main path 5's with another ``spec``, main path
-    6's with ``runtime="vectorized"``): a full-width CNN over a 100-device
-    fleet, built from SEED."""
+def cnn_setup(spec=RESNET, runtime="sequential", **flc_kw):
+    """The constructor arguments of main path 1's server (adapter, client
+    datasets, FLConfig, test batcher): a full-width CNN over a 100-device
+    fleet, built from SEED; ``flc_kw`` adds FLConfig fields."""
     from repro_torch.core.progressive import make_adapter
     from repro_torch.data.loader import Batcher
     from repro_torch.data.partition import dirichlet_partition
     from repro_torch.data.synthetic import make_image_dataset
-    from repro_torch.federated.server import FLConfig, NeuLiteServer
+    from repro_torch.federated.server import FLConfig
     from repro_torch.models.cnn import CNNConfig
 
     ccfg = CNNConfig(name=spec["arch"], **spec)
     flc = FLConfig(n_devices=100, clients_per_round=4, local_epochs=1,
                    batch_size=32, num_stages=4, use_hsic_kernel=True,
-                   runtime=runtime, seed=SEED)
+                   runtime=runtime, seed=SEED, **flc_kw)
     adapter = make_adapter(ccfg, flc.num_stages)
     size, classes = ccfg.image_size, ccfg.num_classes
     ds = make_image_dataset(SEED, RESNET_IMAGES, num_classes=classes,
@@ -1217,8 +1277,17 @@ def cnn_server(np, spec=RESNET, quiet=False, runtime="sequential"):
     test = Batcher(make_image_dataset(SEED + 1, TEST_IMAGES,
                                       num_classes=classes, image_size=size),
                    32, seed=SEED)
-    server = NeuLiteServer(adapter, [ds.subset(p) for p in parts], flc,
-                           test_batcher=test)
+    return adapter, [ds.subset(p) for p in parts], flc, test
+
+
+def cnn_server(np, spec=RESNET, quiet=False, runtime="sequential",
+               **flc_kw):
+    """Main path 1's server (main path 5's with another ``spec``, main path
+    6's with ``runtime="vectorized"``, main path 8's with checkpointing in
+    ``flc_kw``)."""
+    from repro_torch.federated.server import NeuLiteServer
+    adapter, clients, flc, test = cnn_setup(spec, runtime, **flc_kw)
+    server = NeuLiteServer(adapter, clients, flc, test_batcher=test)
     steps = [b.steps_per_epoch for b in server.batchers]
     if not quiet:
         print(f"  clients: {len(steps)}, local steps per epoch: min "
@@ -1944,11 +2013,52 @@ def tables_nhsic_shapes():
                 width_mult=TABLE_SIZE["width"]), 4), 32)]
 
 
+def resnet18_nhsic_shapes(width, image_size, num_classes=10, B=32):
+    """A 4-stage ResNet18's nHSIC shapes at batch B."""
+    from repro_torch.core.progressive import make_adapter
+    from repro_torch.models.cnn import CNNConfig
+    return cnn_nhsic_shapes(make_adapter(CNNConfig(
+        name="resnet18", arch="resnet18", num_classes=num_classes,
+        image_size=image_size, width_mult=width), 4), B)
+
+
+def transformer_nhsic_shapes(cfg, B):
+    """A transformer's nHSIC shapes at batch B, any stage: h_xz between
+    the pooled d_model-wide input and output of the trained block, h_yz
+    between the label features (min(classes, 256) buckets) and the 64-wide
+    projection."""
+    return [(B, cfg.d_model, cfg.d_model, False),
+            (B, min(cfg.vocab_size, 256), 64, True)]
+
+
+def fig2_nhsic_shapes():
+    """The Fig. 2 phase's nHSIC shapes: ResNet18 at each of FIG2_SIZES."""
+    return [s for width, size in FIG2_SIZES
+            for s in resnet18_nhsic_shapes(width, size)]
+
+
+def fig5_nhsic_shapes():
+    """The Fig. 5 phase's: 5a's ResNet18 on 62 classes, 5b's ViT-12 on 32
+    (per cohort under vmap)."""
+    from repro_torch.benchmarks.fig5_scale_vit import vit_config
+    return (resnet18_nhsic_shapes(FIG5_SIZE["width"],
+                                  FIG5_SIZE["image_size"], 62)
+            + transformer_nhsic_shapes(vit_config(**FIG5_VIT), 32))
+
+
+def quickstart_nhsic_shapes():
+    from repro_torch.examples import quickstart
+    return transformer_nhsic_shapes(quickstart.config(), quickstart.BATCH)
+
+
 def nhsic_shapes():
     """The training paths' nHSIC shapes, each once: the main paths', then
-    the Fig. 6 CNNs', Tables 1-2's and the Fig. 7 phase's."""
-    return list(dict.fromkeys(MAIN_PATH_SHAPES + fig6_nhsic_shapes()
-                              + tables_nhsic_shapes() + fig7_nhsic_shapes()))
+    the Fig. 6 CNNs', Tables 1-2's, the Fig. 7, 2, 5 and 8 phases' and the
+    quickstart's."""
+    return list(dict.fromkeys(
+        MAIN_PATH_SHAPES + fig6_nhsic_shapes() + tables_nhsic_shapes()
+        + fig7_nhsic_shapes() + fig2_nhsic_shapes() + fig5_nhsic_shapes()
+        + resnet18_nhsic_shapes(**FIG8_SIZE) + quickstart_nhsic_shapes()))
 
 
 def fig6_step_check(torch, device):
@@ -1988,6 +2098,35 @@ def nhsic_shapes_seen():
         yield seen
     finally:
         ops.nhsic = nhsic
+
+
+@contextlib.contextmanager
+def flash_shapes_seen():
+    """The set of K4 cases, as FLASH_CASES lists them, that flash
+    attention takes while the block runs (per cohort under vmap)."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    seen, flash = set(), fops.flash_attention
+
+    def recorded(q, k, v, *, causal=True, window=0):
+        seen.add((q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                  k.shape[2], q.shape[3], bool(causal), int(window),
+                  str(q.dtype).removeprefix("torch.")))
+        return flash(q, k, v, causal=causal, window=window)
+
+    fops.flash_attention = recorded
+    try:
+        yield seen
+    finally:
+        fops.flash_attention = flash
+
+
+def check_flash_held(seen, where):
+    """Every K4 case of ``seen`` is one the kernel phase held."""
+    unheld = set(seen) - set(FLASH_CASES)
+    check(not unheld, f"flash attention shapes of {where} that the kernel "
+          f"phase did not hold against the plain version: {unheld}")
+    print(f"  K4 took {len(seen)} shapes in {where}, each held in the "
+          f"kernel phase", flush=True)
 
 
 def check_held(seen, where):
@@ -2797,16 +2936,19 @@ STEP_CHECK_BATCH = 8       # rows of the baselines' card-vs-CPU step check
 
 
 class _TableRecorder:
-    """``hooks`` of ``table1_accuracy.run`` / ``table2_complexity.run``:
-    for each method the kernels' launches over its rounds (snapshots at
-    each hook, the next method's construction launching nothing), its
-    true local steps and its local losses (device tensors, read once at
-    the end), and ``keep``'s runners."""
+    """``hooks`` of ``table1_accuracy.run`` / ``table2_complexity.run``
+    (and, through a lambda, of the figures' modules): for each method the
+    kernels' launches over its rounds (snapshots at each hook, the next
+    method's construction launching nothing), its true local steps (and a
+    server's vectorized steps, its longest cohort's, per round) and its
+    local losses (device tensors, read once at the end), and ``keep``'s
+    runners."""
 
     def __init__(self, kernels, keep=()):
         self.kernels, self.keep = kernels, set(keep)
         self.order, self.snaps = [], []
         self.steps, self.losses, self.runners = {}, {}, {}
+        self.vsteps = {}    # the longest cohort's steps: a vectorized round
 
     def __call__(self, arch, method, runner):
         key = (arch, method)
@@ -2814,12 +2956,14 @@ class _TableRecorder:
         self.snaps.append(read_all(self.kernels))
         steps, losses = self.steps.setdefault(key, []), \
             self.losses.setdefault(key, [])
-        if method == "neulite":
+        vsteps = self.vsteps.setdefault(key, [])
+        if hasattr(runner, "runtime"):          # a NeuLite server
             run = runner.runtime.run_round
 
             def recorded(*a, **kw):
                 out = run(*a, **kw)
                 steps.append(sum(out.num_batches))
+                vsteps.append(max(out.num_batches))
                 losses.append(out.mean_loss)
                 return out
 
@@ -2943,12 +3087,12 @@ def numpy_scatter_mean(params, subs):
     reference's axes."""
     import numpy as np
 
-    from repro_torch.federated.baselines import _flatten_paths, _map_with_path
-    flat = _flatten_paths(params)
+    from repro_torch.common.tree import flatten_paths, map_with_path
+    flat = flatten_paths(params)
     sums = {p: np.zeros_like(v, np.float64) for p, v in flat.items()}
     counts = {p: np.zeros(v.shape, np.float64) for p, v in flat.items()}
     for sub, maps in subs:
-        for p, leaf in _flatten_paths(sub).items():
+        for p, leaf in flatten_paths(sub).items():
             arr = np.asarray(leaf, np.float64)
             idxs = maps[p]
             if idxs:
@@ -2963,7 +3107,7 @@ def numpy_scatter_mean(params, subs):
             else:
                 sums[p] += arr
                 counts[p] += 1.0
-    return _map_with_path(lambda p, v: np.where(
+    return map_with_path(lambda p, v: np.where(
         counts[p] > 0, sums[p] / np.maximum(counts[p], 1),
         np.asarray(v, np.float64)).astype(v.dtype), params)
 
@@ -2976,9 +3120,9 @@ def scatter_check(torch, runner, r):
     import numpy as np
 
     from repro_torch import bridge
+    from repro_torch.common.tree import flatten_paths
     from repro_torch.federated.baselines import (WidthScatterMean,
-                                                 _extract_submodel,
-                                                 _flatten_paths)
+                                                 _extract_submodel)
     # the port's OIHW conv axes -> the reference's HWIO ones
     conv_axes = {1: 2, 0: 3}
     cands = runner.candidates(r)
@@ -2993,7 +3137,7 @@ def scatter_check(torch, runner, r):
                                       runner.ccfg.in_channels)
         res = runner._train(runner.full_step(), sub, cid)
         acc.add(res.trainable, maps)
-        flat = _flatten_paths(sub)
+        flat = flatten_paths(sub)
         ref_maps = {p: tuple((conv_axes[ax] if flat[p].ndim == 4 else ax, m)
                              for ax, m in idxs) for p, idxs in maps.items()}
         subs.append((bridge.to_reference(res.trainable), ref_maps))
@@ -3159,6 +3303,388 @@ def fig7_phase(torch, kernels):
     return rows, counts
 
 
+# --------------------------------------------------------------------------- #
+# main path 8: kill and resume (the checkpoint store, save_state, restore)
+# --------------------------------------------------------------------------- #
+def card_settings(torch):
+    """TF32 off for products and convs: every process of the run the
+    same, so that their rounds give the same bits."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def resume_child(directory):
+    """Main path 8's killed run, in its own process: main path 1's server
+    checkpointing every RESUME_EVERY rounds into ``directory``, killed by
+    SIGKILL as its third round opens.  Loads the kernels the parent built;
+    never builds them."""
+    import signal
+
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels.build import library_path
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.hsic_gram import kernel
+    from repro_torch.kernels.slstm_scan import kernel as skernel
+    card_settings(torch)
+    for k in (kernel, fkernel, skernel):
+        if not library_path(k.SOURCE).exists():
+            print(f"resume child: {k.SOURCE} is not built", file=sys.stderr)
+            return 3
+        k.library()
+    server = cnn_server(np, quiet=True, checkpoint_dir=directory,
+                        checkpoint_every=RESUME_EVERY)
+    run_round = server.run_round
+
+    def crashing(r):
+        if r == RESUME_EVERY:
+            os.kill(os.getpid(), signal.SIGKILL)
+        return run_round(r)
+
+    server.run_round = crashing
+    server.run(RESUME_ROUNDS)
+    return 4        # not reached: the kill comes first
+
+
+def _same_history(a, b):
+    """Two round histories equal field by field (NaN equal to NaN)."""
+    def same(x, y):
+        return x == y or (isinstance(x, float) and isinstance(y, float)
+                          and math.isnan(x) and math.isnan(y))
+    return len(a) == len(b) and all(
+        all(same(v, dataclasses.asdict(hb)[k])
+            for k, v in dataclasses.asdict(ha).items())
+        for ha, hb in zip(a, b))
+
+
+def _npz_equal(np, a, b):
+    """Two checkpoints' arrays equal to the bit, and their sidecars equal."""
+    with np.load(a) as x, np.load(b) as y:
+        arrays = (sorted(x.files) == sorted(y.files) and all(
+            x[k].dtype == y[k].dtype and x[k].tobytes() == y[k].tobytes()
+            for k in x.files))
+    with open(a + ".json") as f, open(b + ".json") as g:
+        return arrays and json.load(f) == json.load(g)
+
+
+def resume_path(torch, kernels, np):
+    """Main path 8: main path 1's ResNet18 (full width, 32x32, 4 of 100
+    clients, nHSIC through K1-K3) runs 4 rounds checkpointing every 2, in
+    three parts: a child process (``resume_child``) is killed by SIGKILL
+    after its round-2 checkpoint; this process restores it
+    (``NeuLiteServer.restore``) and runs rounds 2-3; and runs the 4
+    rounds straight.  The resumed params, history, RNG and selector state
+    must equal the straight run's to the bit, the child's checkpoint the
+    straight run's round-2 checkpoint, and K1-K3 launch twice per local
+    step of the resumed rounds.  The checkpoint read on the CPU must give
+    the bits of ``to_reference`` of the card's params.  Everything lands
+    in a temporary directory, deleted at the end."""
+    import signal
+    import subprocess
+    import tempfile
+
+    from repro_torch import bridge
+    from repro_torch.checkpoint import (checkpoint_step, latest_checkpoint,
+                                        load_checkpoint)
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.federated.server import NeuLiteServer
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="neulite-resume-") as tmp:
+        killed = os.path.join(tmp, "killed")
+        straight_dir = os.path.join(tmp, "straight")
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, os.path.realpath(__file__), "--resume-child",
+             killed], capture_output=True, text=True, timeout=600)
+        out["child_seconds"] = time.perf_counter() - t0
+        check(child.returncode == -signal.SIGKILL,
+              f"the resume child ended with {child.returncode}, not "
+              f"SIGKILL:\n{child.stdout[-3000:]}\n{child.stderr[-3000:]}")
+        path = latest_checkpoint(killed)
+        check(path is not None and checkpoint_step(path) == RESUME_EVERY,
+              f"the killed run left no round-{RESUME_EVERY} checkpoint: "
+              f"{os.listdir(killed) if os.path.isdir(killed) else None}")
+        out["checkpoint_bytes"] = (os.path.getsize(path)
+                                   + os.path.getsize(path + ".json"))
+        print(f"  child killed by SIGKILL after {out['child_seconds']:.1f} s;"
+              f" its checkpoint {os.path.basename(path)}: "
+              f"{out['checkpoint_bytes']} bytes", flush=True)
+
+        straight = cnn_server(np, quiet=True, checkpoint_dir=straight_dir,
+                              checkpoint_every=RESUME_EVERY)
+        save_s, save = [], straight.save_state
+
+        def timed_save(*a, **kw):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            written = save(*a, **kw)
+            save_s.append(time.perf_counter() - t1)
+            return written
+
+        straight.save_state = timed_save
+        reset_all(kernels)
+        straight.run(RESUME_ROUNDS)
+        torch.cuda.synchronize()
+        counts = read_all(kernels)
+        del straight.save_state
+        out["save_state_seconds"] = save_s
+        check(len(save_s) == RESUME_ROUNDS // RESUME_EVERY,
+              f"run() saved {len(save_s)} times, not every "
+              f"{RESUME_EVERY} rounds")
+        same_file = _npz_equal(
+            np, path, os.path.join(straight_dir,
+                                   os.path.basename(path)))
+        out["child_checkpoint_is_straight_runs"] = same_file
+        check(same_file, "the killed child's round-2 checkpoint differs "
+              "from the straight run's")
+
+        adapter, clients, flc, test = cnn_setup(
+            checkpoint_dir=killed, checkpoint_every=RESUME_EVERY)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        resumed = NeuLiteServer.restore(adapter, clients, flc, killed,
+                                        test_batcher=test)
+        torch.cuda.synchronize()
+        out["restore_seconds"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        resumed.load_state(path)
+        torch.cuda.synchronize()
+        out["load_state_seconds"] = time.perf_counter() - t1
+        check(resumed.next_round == RESUME_EVERY,
+              f"resumed at round {resumed.next_round}")
+        steps = record_steps(resumed)
+        reset_all(kernels)
+        resumed.run(RESUME_ROUNDS - RESUME_EVERY)
+        torch.cuda.synchronize()
+        rcounts = read_all(kernels)
+        del resumed.runtime.run_round
+        n_steps = sum(steps)
+        out.update(resumed_local_steps=n_steps, resumed_launches=rcounts,
+                   straight_launches=counts)
+        check(n_steps > 0 and all(rcounts[n] == 2 * n_steps
+                                  for n in STREAMING),
+              f"resumed rounds: expected 2 launches of each nHSIC kernel "
+              f"per local step ({n_steps}): {rcounts}")
+        same = {
+            "params": all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(straight.params), tree_leaves(resumed.params),
+                strict=True)),
+            "history": _same_history(straight.history, resumed.history),
+            "rng": (straight.rng.bit_generator.state
+                    == resumed.rng.bit_generator.state),
+            "selector": (straight.selector.state_dict()
+                         == resumed.selector.state_dict()),
+            "batchers": all(
+                a.rng.bit_generator.state == b.rng.bit_generator.state
+                for a, b in zip(straight.batchers + [straight.test_batcher],
+                                resumed.batchers + [resumed.test_batcher]))}
+        out["resumed_equals_straight"] = same
+        print(f"  save_state {[round(x, 3) for x in save_s]} s, restore "
+              f"{out['restore_seconds']:.3f} s (load_state alone "
+              f"{out['load_state_seconds']:.3f} s); resumed rounds "
+              f"{RESUME_EVERY}-{RESUME_ROUNDS - 1}: {n_steps} local steps, "
+              f"launches {rcounts}; resumed vs straight: {same}", flush=True)
+        check(all(same.values()), f"the resumed run differs from the "
+              f"straight run: {same}")
+        for h in resumed.history:
+            print(f"  round {h.round_idx}: {h}", flush=True)
+
+        last = latest_checkpoint(straight_dir)
+        cpu, _ = load_checkpoint(last, {"params": straight.params},
+                                 device="cpu")
+        card = bridge.to_reference(straight.params)
+        cpu_bits = all(
+            torch.equal(a, torch.from_numpy(b)) for a, b in zip(
+                tree_leaves(cpu["params"]), tree_leaves(card), strict=True))
+        out["cpu_load_is_card_bits"] = cpu_bits
+        check(cpu_bits, "the checkpoint read on the CPU differs from "
+              "to_reference of the card's params")
+        print(f"  {os.path.basename(last)} read on the CPU: the bits of "
+              f"to_reference of the card's params", flush=True)
+        del straight, resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["directory_removed"] = not os.path.exists(tmp)
+    check(out["directory_removed"], f"{tmp} was not removed")
+    return out, {n: counts[n] + rcounts[n] for n in counts}
+
+
+# --------------------------------------------------------------------------- #
+# the paper's Fig. 2, 5 and 8 and the quickstart
+# --------------------------------------------------------------------------- #
+def fig2_phase(torch, kernels):
+    """``fig2_hsic_plane.run`` at FIG2_SIZES: E2E, naive PT and NeuLite-CA
+    (K1-K3 twice a step, in NeuLite-CA only), the probes plain.  Prints
+    each trace's first and last point and whether the paper's ordering
+    holds (naive PT ends below E2E in nHSIC(X;Z), and CA reaches E2E): a
+    finding, not a gate, as in the reference."""
+    from repro_torch.benchmarks import fig2_hsic_plane
+    out = {}
+    reset_all(kernels)
+    with nhsic_shapes_seen() as seen:
+        for width, size in FIG2_SIZES:
+            before = read_all(kernels)
+            traces = fig2_hsic_plane.run(
+                steps=FIG2_STEPS, quiet=True, device="cuda", width=width,
+                image_size=size, out_path=os.path.join(
+                    ROOT, "chiprun_out", f"fig2_w{width}_{size}.json"))
+            after = read_all(kernels)
+            k = {n: after[n] - before[n] for n in after}
+            check(all(k[n] == 2 * FIG2_STEPS for n in STREAMING),
+                  f"fig2 {width}, {size}: expected 2 launches of each nHSIC "
+                  f"kernel per NeuLite-CA step ({FIG2_STEPS}): {k}")
+            check(all(math.isfinite(v) for t in traces.values()
+                      for p in t for v in p), f"fig2: non-finite {traces}")
+            xz = {m: t[-1][0] for m, t in traces.items()}
+            order = {"pt_below_e2e": xz["pt_naive"] < xz["e2e"],
+                     "ca_reaches_e2e": xz["neulite_ca"] >= xz["e2e"]}
+            label = f"width {width}, {size}x{size}"
+            out[label] = {"traces": traces, "ordering": order,
+                          "launches": k}
+            for m, t in traces.items():
+                print(f"  {label} {m:10s} (nHSIC(X;Z), nHSIC(Y;Z)) "
+                      f"{t[0][0]:.4f}, {t[0][1]:.4f} -> {t[-1][0]:.4f}, "
+                      f"{t[-1][1]:.4f}", flush=True)
+            print(f"  {label}: naive PT ends below E2E in nHSIC(X;Z): "
+                  f"{order['pt_below_e2e']}; CA reaches E2E: "
+                  f"{order['ca_reaches_e2e']}", flush=True)
+    check_held(seen, "the Fig. 2 phase")
+    return out, read_all(kernels)
+
+
+def _launches_check(rec, name, per_step, steps_of="steps", **extra):
+    """``rec``'s launches for ``name``: K1-K3 ``per_step`` times its local
+    (or vectorized) steps, ``extra`` kernels exactly as given."""
+    key = ("fig", name)
+    steps = sum(getattr(rec, steps_of)[key])
+    got = rec.launches()[key]
+    want = {n: per_step * steps for n in STREAMING}
+    want.update(extra)
+    check(all(got[n] == c for n, c in want.items()),
+          f"{name}: launches {got}, expected {want} ({steps} {steps_of})")
+    return {"launches": got, steps_of: steps}
+
+
+def fig5_phase(torch, kernels):
+    """``fig5_scale_vit`` on the card: 5a (ResNet18 at full width, 62
+    classes, FIG5_SCALES, sequential) and 5b (ViT-12's widths at 32x32,
+    C = 4, vectorized), FIG5_ROUNDS rounds each.  K1-K3 twice a local step
+    in 5a, twice a vectorized step in 5b; K4 once an attention layer run
+    per vectorized step (the cohorts folded into its batch) and per
+    evaluation batch; every nHSIC and K4 shape held."""
+    from repro_torch.benchmarks import fig5_scale_vit
+    rec = _TableRecorder(kernels, keep=("fig",))
+    hooks = lambda name, srv: rec("fig", name, srv)   # noqa: E731
+    reset_all(kernels)
+    out = {}
+    with nhsic_shapes_seen() as seen, flash_shapes_seen() as fseen:
+        t0 = time.perf_counter()
+        out["scale"] = fig5_scale_vit.run_scale(
+            FIG5_SCALES, FIG5_ROUNDS, True, "cuda", hooks=hooks, **FIG5_SIZE)
+        out["scale_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["vit_acc"] = fig5_scale_vit.run_vit(
+            FIG5_ROUNDS, True, "cuda", hooks=hooks, **FIG5_VIT)
+        out["vit_seconds"] = time.perf_counter() - t0
+    for n in FIG5_SCALES:
+        out[f"scale {n}"] = _launches_check(rec, f"scale {n}", 2,
+                                            flash_attention_fwd=0)
+        print(f"  5a scale {n}: acc {out['scale'][n]:.4f}, "
+              f"{out[f'scale {n}']}", flush=True)
+    srv = rec.runners[("fig", "vit")]
+    plan, L = srv.adapter.plan, srv.adapter.cfg.num_layers
+    evals = min(8, srv.test_batcher.steps_per_epoch)
+    vsteps = rec.vsteps[("fig", "vit")]
+    flash = (sum(e * plan.bounds[h.stage][1] for e, h in
+                 zip(vsteps, [h for h in srv.history if h.n_selected]))
+             + len(srv.history) * evals * L)
+    out["vit"] = _launches_check(rec, "vit", 2, "vsteps",
+                                 flash_attention_fwd=flash)
+    rec.release()
+    print(f"  5b ViT ({L} layers, d_model {srv.adapter.cfg.d_model}, C = "
+          f"{srv.flc.clients_per_round}): acc {out['vit_acc']:.4f}, "
+          f"{out['vit']} (K4: the vectorized steps x the layers run, and "
+          f"{evals} evaluation batches x {L} a round); 5a "
+          f"{out['scale_seconds']:.1f} s, 5b {out['vit_seconds']:.1f} s",
+          flush=True)
+    for key, ls in rec.losses.items():
+        check(ls and bool(torch.isfinite(torch.stack(
+            [x.reshape(()).float() for x in ls])).all()),
+              f"fig5 {key}: non-finite local losses")
+    del srv
+    check_held(seen, "the Fig. 5 phase")
+    check_flash_held(fseen, "the Fig. 5 phase")
+    return out, read_all(kernels)
+
+
+def fig8_phase(torch, kernels):
+    """``fig8_ablation.run`` on the card at FIG8_SIZE, FIG8_ROUNDS rounds
+    (one a stage): K1-K3 twice a local step in NeuLite and w/o PC, never
+    in w/o CA and FedAvg."""
+    from repro_torch.benchmarks import fig8_ablation
+    rec = _TableRecorder(kernels)
+    reset_all(kernels)
+    t0 = time.perf_counter()
+    with nhsic_shapes_seen() as seen:
+        accs = fig8_ablation.run(
+            rounds=FIG8_ROUNDS, quiet=True, device="cuda",
+            out_path=os.path.join(ROOT, "chiprun_out", "fig8_ablation.json"),
+            hooks=lambda name, runner: rec("fig", name, runner), **FIG8_SIZE)
+    out = {"acc": accs, "seconds": time.perf_counter() - t0}
+    for name in accs:
+        curriculum = name in ("neulite", "wo_pc")
+        out[name] = _launches_check(rec, name, 2 if curriculum else 0,
+                                    flash_attention_fwd=0)
+        check(math.isfinite(accs[name]) and 0.0 <= accs[name] <= 1.0,
+              f"fig8 {name}: bad accuracy {accs[name]}")
+        print(f"  {name:8s} acc {accs[name]:.4f}, {out[name]}", flush=True)
+    check(not rec.finite(torch), "fig8: non-finite local losses")
+    rec.release()
+    check_held(seen, "the Fig. 8 phase")
+    print(f"  Fig. 8 in {out['seconds']:.1f} s", flush=True)
+    return out, read_all(kernels)
+
+
+def quickstart_phase(torch, kernels):
+    """``examples/quickstart.py``'s ``main`` on the card at its own size:
+    K1-K3 twice a step (the progressive loop's, the sequential runtime's
+    cohort steps, and twice a vectorized step), K4 once an attention layer
+    run per step (per vectorized step, its cohorts folded)."""
+    from repro_torch.examples import quickstart
+    from repro_torch.core.progressive import make_adapter
+    reset_all(kernels)
+    t0 = time.perf_counter()
+    with nhsic_shapes_seen() as seen, flash_shapes_seen() as fseen, \
+            contextlib.redirect_stdout(sys.stderr):
+        res = quickstart.main(device="cuda")
+    seconds = time.perf_counter() - t0
+    counts = read_all(kernels)
+    plan = make_adapter(quickstart.config(), quickstart.NUM_STAGES).plan
+    # the loop: 4 steps a round; each runtime twice (a warm-up, then the
+    # timed round) at stage 0, 2 steps of each of the 4 cohorts
+    loop_steps = 4 * len(res["rounds"])
+    cohort_steps, vec_steps = 2 * 4 * 2, 2 * 2
+    layers = sum(4 * plan.bounds[t][1] for t, *_ in res["rounds"]) \
+        + (cohort_steps + vec_steps) * plan.bounds[0][1]
+    want = {n: 2 * (loop_steps + cohort_steps + vec_steps) for n in STREAMING}
+    want["flash_attention_fwd"] = layers
+    check(all(counts[n] == c for n, c in want.items()),
+          f"quickstart: launches {counts}, expected {want}")
+    vals = [v for r in res["rounds"] for v in r[1:]] + [
+        loss for loss, _ in res["runtimes"].values()]
+    check(all(math.isfinite(v) for v in vals), f"quickstart: {res}")
+    seq, vec = (res["runtimes"][k][0] for k in ("sequential", "vectorized"))
+    check(abs(seq - vec) <= TOL * abs(seq),
+          f"quickstart: sequential {seq} against vectorized {vec}")
+    print(f"  {res['memory_line']}; round 0 {res['rounds'][0]}, round 15 "
+          f"{res['rounds'][-1]}; runtimes {res['runtimes']}; launches "
+          f"{counts}; {seconds:.1f} s", flush=True)
+    check_held(seen, "the quickstart")
+    check_flash_held(fseen, "the quickstart")
+    return dict(res, seconds=seconds, launches=counts), counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3184,8 +3710,7 @@ def main():
     print(smi, flush=True)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}", flush=True)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    card_settings(torch)
     print(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}",
           flush=True)
@@ -3227,6 +3752,9 @@ def main():
     phase("step profile")
     profiles = step_profile(torch, server)
     del server
+
+    phase("main path 8: ResNet18 killed after round 2 and resumed")
+    resume, rescounts = resume_path(torch, kernels, np)
 
     phase("main path 2: ViT-12")
     vserver, vrounds, vcounts, vacc = vit_main_path(torch, kernels, np)
@@ -3311,6 +3839,15 @@ def main():
     phase("Fig. 7: stage step against full step")
     fig7_rows, f7counts = fig7_phase(torch, kernels)
 
+    phase("Fig. 2: the nHSIC plane")
+    fig2_out, f2counts = fig2_phase(torch, kernels)
+    phase("Fig. 5: device scales and the ViT on the vectorized round")
+    fig5_out, f5counts = fig5_phase(torch, kernels)
+    phase("Fig. 8: the ablation")
+    fig8_out, f8counts = fig8_phase(torch, kernels)
+    phase("the quickstart")
+    quick_out, qcounts = quickstart_phase(torch, kernels)
+
     phase("Fig. 6: peak memory of each stage against the full-model step")
     fig6_out, fcounts = fig6_phase(torch, kernels)
 
@@ -3319,7 +3856,9 @@ def main():
                **{a: z["launches"] for a, z in zoo.items()},
                **{f"{a}_vectorized": v["launches"] for a, v in vec.items()},
                "fl_round_throughput": tcounts, "tables": tabcounts,
-               "fig7": f7counts, "fig6": fcounts}
+               "fig7": f7counts, "fig6": fcounts, "resume": rescounts,
+               "fig2": f2counts, "fig5": f5counts, "fig8": f8counts,
+               "quickstart": qcounts}
     launches = {n: sum(c[n] for c in by_path.values()) for n in xcounts}
     sources = {n: os.path.relpath(k.SOURCE, ROOT) for k in kernels
                for n in k.LAUNCHES}
@@ -3411,7 +3950,9 @@ def main():
                    "zoo": zoo, "batched": batched,
                    "captured_vs_eager": captures, "vectorized": vec,
                    "fl_round_throughput": throughput, "tables": tables,
-                   "fig7": fig7_rows, "fig6": fig6_out,
+                   "fig7": fig7_rows, "fig6": fig6_out, "resume": resume,
+                   "fig2": fig2_out, "fig5": fig5_out, "fig8": fig8_out,
+                   "quickstart": quick_out,
                    "kernels": out_kernels, "device": device}, f, indent=1)
     phase("done")
     print(smi, flush=True)
@@ -3421,4 +3962,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--resume-child"]:
+        sys.exit(resume_child(sys.argv[2]))
     sys.exit(main())

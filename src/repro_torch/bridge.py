@@ -37,12 +37,14 @@ def _map_with_conv(fn, tree, in_conv: bool = False):
 
 
 def from_reference(np_tree, device: DeviceLike = None):
-    """A reference param tree (numpy arrays, or anything ``np.asarray``
-    takes) -> the port's tensors on ``device``."""
+    """A reference param tree (numpy arrays, anything ``np.asarray`` takes,
+    or tensors in the reference's layout, such as ``load_checkpoint``
+    gives) -> the port's tensors on ``device``."""
     dev = resolve_device(device)
 
     def leaf(a, conv):
-        t = torch.from_numpy(np.array(np.asarray(a), copy=True))
+        t = (a.detach().clone() if torch.is_tensor(a)
+             else torch.from_numpy(np.array(np.asarray(a), copy=True)))
         if conv:
             t = t.permute(3, 2, 0, 1).contiguous()
         return t.to(dev)
@@ -50,12 +52,19 @@ def from_reference(np_tree, device: DeviceLike = None):
     return _map_with_conv(leaf, np_tree)
 
 
-def to_reference(tree):
-    """The port's param tree -> numpy arrays in the reference's layout."""
+def reference_layout(tree):
+    """The port's param tree -> CPU tensors in the reference's layout, of
+    any dtype (bf16 too, which numpy cannot hold)."""
     def leaf(t, conv):
         t = t.detach()
         if conv:
             t = t.permute(2, 3, 1, 0)
-        return t.cpu().contiguous().numpy().copy()
+        return t.cpu().contiguous()
 
     return _map_with_conv(leaf, tree)
+
+
+def to_reference(tree):
+    """The port's param tree -> numpy arrays in the reference's layout."""
+    return _map_with_conv(lambda t, _: t.numpy().copy(),
+                          reference_layout(tree))

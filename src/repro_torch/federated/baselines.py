@@ -42,6 +42,7 @@ import torch
 
 from repro_torch.common import paramdef as PD
 from repro_torch.common.device import DeviceLike, resolve_device, to_device
+from repro_torch.common.tree import flatten_paths, map_with_path
 from repro_torch.core.memory import estimate_full_memory
 from repro_torch.core.progressive import _value_and_grad, make_cnn_adapter
 from repro_torch.data.loader import Batcher
@@ -293,26 +294,6 @@ def _slice_leaf(path: str, leaf, ratio: float, offset: int,
     return leaf.contiguous(), tuple(idx_map)
 
 
-def _map_with_path(fn, tree, prefix: str = ""):
-    """``fn(path, leaf)`` over a dict/list tree, paths as the reference's
-    ``common.tree.path_str`` writes them ('units/0/conv/w')."""
-    def join(k):
-        return f"{prefix}/{k}" if prefix else str(k)
-
-    if isinstance(tree, dict):
-        return {k: _map_with_path(fn, tree[k], join(k)) for k in sorted(tree)}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_with_path(fn, t, join(i))
-                          for i, t in enumerate(tree))
-    return fn(prefix, tree)
-
-
-def _flatten_paths(tree) -> dict:
-    out = {}
-    _map_with_path(lambda p, x: out.__setitem__(p, x), tree)
-    return out
-
-
 def _extract_submodel(params, ratio: float, offset: int, num_classes: int,
                       in_channels: int):
     maps = {}
@@ -323,7 +304,7 @@ def _extract_submodel(params, ratio: float, offset: int, num_classes: int,
         maps[p] = m
         return arr
 
-    return _map_with_path(visit, params), maps
+    return map_with_path(visit, params), maps
 
 
 class WidthScatterMean:
@@ -336,14 +317,14 @@ class WidthScatterMean:
 
     def __init__(self, params):
         self.params = params
-        flat = _flatten_paths(params)
+        flat = flatten_paths(params)
         self.sums = {p: torch.zeros_like(v, dtype=torch.float64)
                      for p, v in flat.items()}
         self.counts = {p: torch.zeros_like(v, dtype=torch.float64)
                        for p, v in flat.items()}
 
     def add(self, sub, maps) -> None:
-        for p, leaf in _flatten_paths(sub).items():
+        for p, leaf in flatten_paths(sub).items():
             arr = leaf.double()
             s, c = self.sums[p], self.counts[p]
             idxs = maps[p]
@@ -370,7 +351,7 @@ class WidthScatterMean:
             return torch.where(c > 0, self.sums[p] / c.clamp_min(1),
                                v.double()).to(v.dtype)
 
-        return _map_with_path(avg, self.params)
+        return map_with_path(avg, self.params)
 
 
 class HeteroFL(_Base):

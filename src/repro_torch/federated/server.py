@@ -13,8 +13,13 @@ round reads the device once, for its losses; ``evaluate`` reads it once.
 On a CUDA device the server makes cuDNN deterministic (deterministic
 algorithms, no autotuning), so a run repeats bit for bit, as the
 reference's rounds do.  The port has the sequential and vectorized
-runtimes and the random, TiFL and Oort policies; checkpointing and the
-async and sharded runtimes come with later parts.
+runtimes and the random, TiFL and Oort policies; the async and sharded
+runtimes come with later parts.
+
+Crash safety: ``save_state`` checkpoints the complete round-loop state in
+the reference's format (params in the reference's layout, through the
+bridge), so ``restore`` resumes a killed run bit for bit, and a checkpoint
+written by either package restores in the other.
 """
 from __future__ import annotations
 
@@ -24,6 +29,9 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch import bridge
+from repro_torch.checkpoint import (latest_checkpoint, load_checkpoint,
+                                    read_checkpoint_meta, save_checkpoint)
 from repro_torch.common.device import DeviceLike, resolve_device, to_device
 from repro_torch.core.curriculum import CurriculumHP
 from repro_torch.core.memory import (estimate_full_memory,
@@ -49,6 +57,7 @@ class FLConfig:
     momentum: float = 0.9
     weight_decay: float = 5e-4
     num_stages: int = 4
+    boundary_units: int = 1
     schedule: str = "round_robin"       # round_robin | plateau | sequential
     rounds_per_stage: int = 10          # for sequential
     curriculum: bool = True             # ablation: w/o CA
@@ -63,6 +72,11 @@ class FLConfig:
     runtime: str = "sequential"
     dropout_schedule: str = "none"      # none | constant | ramp
     dropout_rate: float = 0.0           # per-client fault probability
+    # crash safety: periodic exact server checkpoints (run())
+    checkpoint_dir: Optional[str] = None  # save_state target; None = never
+    checkpoint_every: int = 0           # save after round r when
+                                        # (r + 1) % N == 0 (0 = never)
+    keep_checkpoints: int = 3           # rotation depth in checkpoint_dir
 
 
 @dataclasses.dataclass
@@ -75,6 +89,9 @@ class RoundResult:
     upload_bytes: int
     sim_time: float
     test_acc: Optional[float] = None
+    server_version: Optional[int] = None   # the async runtime's server
+                                           # version; None on the
+                                           # synchronous runtimes
 
 
 class NeuLiteServer:
@@ -213,8 +230,14 @@ class NeuLiteServer:
         return rr
 
     def run(self, rounds: int, log_every: int = 0) -> List[RoundResult]:
-        """Run ``rounds`` further rounds starting at ``self.next_round``;
-        with ``log_every`` print every ``log_every``-th round."""
+        """Run ``rounds`` further rounds starting at ``self.next_round`` (0
+        on a fresh server, the resume point after ``restore``); with
+        ``log_every`` print every ``log_every``-th round.  With
+        ``flc.checkpoint_dir`` set and ``flc.checkpoint_every > 0`` the
+        round-loop state is saved after every ``checkpoint_every``-th
+        round, so a killed process resumes from the last visible
+        checkpoint."""
+        flc = self.flc
         start = self.next_round
         for r in range(start, start + rounds):
             rr = self.run_round(r)
@@ -222,7 +245,124 @@ class NeuLiteServer:
                 print(f"round {r:4d} stage {rr.stage} "
                       f"loss {rr.mean_loss:.4f} acc {rr.test_acc} "
                       f"feasible {rr.n_feasible}/{self.flc.n_devices}")
+            if (flc.checkpoint_dir is not None and flc.checkpoint_every > 0
+                    and (r + 1) % flc.checkpoint_every == 0):
+                self.save_state(flc.checkpoint_dir)
         return self.history
+
+    # crash safety: exact checkpoint and resume of the round loop
+    _STATE_FORMAT = "neulite-server"
+    _STATE_VERSION = 1
+
+    def _kinds(self) -> dict:
+        return {"runtime": self.runtime.name,
+                "num_stages": int(self.adapter.plan.num_stages),
+                "schedule_kind": type(self.schedule).__name__,
+                "selector_kind": type(self.selector).__name__}
+
+    def save_state(self, directory: str, *, step: Optional[int] = None,
+                   keep: Optional[int] = None) -> str:
+        """Checkpoint the state that decides the next rounds' bits: the
+        params (in the reference's layout), the server's RNG, the schedule
+        and selector state, every client batcher's RNG and the test
+        batcher's (which ``evaluate`` consumes), the history and the
+        resume point; the reference's format, so its ``load_state`` reads
+        it.  A round keeps no graph or optimizer state across rounds (each
+        captures anew and makes its SGD state), so none is saved.  The
+        ``async`` slot, the reference's async buffer, is ``None``.
+        ``step`` defaults to ``next_round``, ``keep`` to
+        ``flc.keep_checkpoints``."""
+        meta = {
+            "format": self._STATE_FORMAT,
+            "state_version": self._STATE_VERSION,
+            "next_round": int(self.next_round),
+            **self._kinds(),
+            "rng": self.rng.bit_generator.state,
+            "schedule": self.schedule.state_dict(),
+            "selector": self.selector.state_dict(),
+            "history": [dataclasses.asdict(rr) for rr in self.history],
+            "async": None,
+            "batcher_rngs": None,
+            "test_batcher_rng": None,
+        }
+        if isinstance(self.batchers, (list, tuple)):
+            meta["batcher_rngs"] = [b.rng.bit_generator.state
+                                    for b in self.batchers]
+        if self.test_batcher is not None and hasattr(self.test_batcher,
+                                                     "rng"):
+            meta["test_batcher_rng"] = (
+                self.test_batcher.rng.bit_generator.state)
+        return save_checkpoint(
+            directory, self.next_round if step is None else step,
+            {"params": bridge.reference_layout(self.params)}, meta=meta,
+            keep=self.flc.keep_checkpoints if keep is None else keep)
+
+    def load_state(self, path: str) -> None:
+        """Install the state ``save_state`` (of either package) wrote.  The
+        server must have been built with the run's configuration: the
+        runtime, stage count and schedule and selector kinds are checked,
+        then every mutable part is overwritten."""
+        meta = read_checkpoint_meta(path)
+        if not isinstance(meta, dict) or meta.get("format") \
+                != self._STATE_FORMAT:
+            raise ValueError(
+                f"{path!r} is not a NeuLiteServer state checkpoint "
+                f"(save_state writes format={self._STATE_FORMAT!r}; plain "
+                f"param checkpoints cannot resume a round loop)")
+        for key, have in self._kinds().items():
+            if meta.get(key) != have:
+                raise ValueError(
+                    f"checkpoint/server mismatch on {key}: saved "
+                    f"{meta.get(key)!r}, this server has {have!r} — "
+                    f"rebuild the server with the run's original config")
+        if meta["async"] is not None:
+            raise ValueError(
+                f"{path!r} holds an async runtime's buffer: the async "
+                f"runtime is not yet ported")
+        batcher_rngs = meta["batcher_rngs"]
+        if batcher_rngs is not None and (
+                not isinstance(self.batchers, (list, tuple))
+                or len(self.batchers) != len(batcher_rngs)):
+            held = (len(self.batchers)
+                    if isinstance(self.batchers, (list, tuple)) else 0)
+            raise ValueError(
+                f"checkpoint carries {len(batcher_rngs)} client batcher RNG "
+                f"states but this server holds {held} materialized "
+                f"batchers")
+        tree, _ = load_checkpoint(path, {"params": self.params},
+                                  device="cpu")
+        self.params = bridge.from_reference(tree["params"], self.device)
+        self.rng.bit_generator.state = meta["rng"]
+        self.schedule.load_state_dict(meta["schedule"])
+        self.selector.load_state_dict(meta["selector"])
+        self.history = [RoundResult(**h) for h in meta["history"]]
+        self.next_round = int(meta["next_round"])
+        if batcher_rngs is not None:
+            for b, state in zip(self.batchers, batcher_rngs):
+                b.rng.bit_generator.state = state
+        if (meta["test_batcher_rng"] is not None
+                and self.test_batcher is not None
+                and hasattr(self.test_batcher, "rng")):
+            self.test_batcher.rng.bit_generator.state = (
+                meta["test_batcher_rng"])
+
+    @classmethod
+    def restore(cls, adapter, client_datasets, flc: FLConfig,
+                directory: str, **kwargs) -> "NeuLiteServer":
+        """A server built from its constructor's arguments (``kwargs`` are
+        ``__init__``'s, as the run was built) and the newest complete
+        checkpoint in ``directory`` (or a ``ckpt_*.npz`` path); its
+        ``run(n)`` continues from the checkpointed round."""
+        if directory.endswith(".npz"):
+            path = directory
+        else:
+            path = latest_checkpoint(directory)
+            if path is None:
+                raise FileNotFoundError(
+                    f"no complete checkpoint found in {directory!r}")
+        server = cls(adapter, client_datasets, flc, **kwargs)
+        server.load_state(path)
+        return server
 
     @torch.no_grad()
     def evaluate(self, max_batches: int = 8) -> float:

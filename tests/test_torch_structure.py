@@ -25,7 +25,8 @@ def _imported_roots(path):
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
 def test_port_imports_neither_jax_nor_reference(path):
-    bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "flax", "optax"}
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "flax", "optax",
+                                   "ml_dtypes"}
     assert not bad, f"{path} imports {sorted(bad)}"
 
 
@@ -49,7 +50,7 @@ def test_resolve_device_never_falls_back(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_entry_points_default_to_cuda(monkeypatch):
+def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     from repro_torch import bridge
     from repro_torch.core.progressive import make_adapter
     from repro_torch.federated.client import run_local_training
@@ -83,6 +84,22 @@ def test_entry_points_default_to_cuda(monkeypatch):
     monkeypatch.delenv("FEDHET_DEVICE", raising=False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         federated_heterogeneous.main()
+    from repro_torch.benchmarks import (fig2_hsic_plane, fig5_scale_vit,
+                                        fig8_ablation)
+    from repro_torch.examples import quickstart
+    for run in (lambda: fig2_hsic_plane.run(steps=1, width=0.125,
+                                            image_size=8),
+                lambda: fig5_scale_vit.run(rounds=1, width=0.125,
+                                           image_size=8),
+                lambda: fig8_ablation.run(rounds=1, width=0.125,
+                                          image_size=8),
+                lambda: quickstart.main(rounds=1)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run()
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    path = save_checkpoint(str(tmp_path), 0, {"w": torch.zeros(2)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_checkpoint(path, {"w": torch.zeros(2)}, device=None)
 
 
 def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
