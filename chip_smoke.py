@@ -165,6 +165,30 @@
    a step (a vectorized step's cohorts in one launch), K4 once a layer
    run.  Every nHSIC and K4 shape the phases 13-16 take must be one the
    kernel phase held (``nhsic_shapes``, ``FLASH_CASES``).
+17. Main path 9, after the round throughput: the buffered-async (FedBuff)
+   runtime.  Main path 1's ResNet18 with ``runtime="async"`` (K = 3 of 4
+   cohorts, polynomial staleness at alpha 0.5, 15% constant dropout), 8
+   rounds, two passes of the round-robin schedule: K1-K3 twice a
+   vectorized step; every delivered entry flushed exactly once or still
+   pending; each flush one version and each staleness the versions since
+   its entry's pull; at least one entry carried across rounds; no pending
+   entry holding more storage than its own; a fresh ``buffer_size=0``
+   server against the vectorized runtime on the first round's stack
+   (cohort losses to the bit, the update at TOL or 10x the vectorized
+   round's own movement); the rounds again from the seed to the bit,
+   checkpointing every 2 rounds; then a child killed as the first round
+   opens whose last checkpoint holds a pending entry, restored here and
+   run to round 8: params, history, version, clock, pending entries, RNG
+   and selector equal the straight run's to the bit, the last checkpoint
+   read on the CPU the bits of ``to_reference`` of the card's params and
+   buffer.  ViT-12 at full width on the async runtime (C = 4, K = 3, 6
+   rounds, an evaluation each): K1-K3 twice a vectorized step, K4 once a
+   layer run per vectorized step and per evaluation batch.  The example
+   (``examples/async_fedbuff.py``) at its own size, its simulated sync and
+   async times and speedup printed; ``fl_round_throughput``'s async mode
+   at the reference's sizes and its population mode at 10^2, 10^4 and
+   10^6 clients (rows added to ``chiprun_out/bench_fl_round.json``).
+   Every nHSIC and K4 shape held; each part's seconds printed.
 
 Each main path is driven with the launch counts set to 0 just before it
 and read just after.  Prints the card's name and power limit, a JSON line
@@ -340,6 +364,17 @@ FIG8_SIZE = dict(width=1.0, image_size=32)
 FIG8_ROUNDS = 4
 # main path 8: main path 1's server killed after its second round
 RESUME_ROUNDS, RESUME_EVERY = 4, 2
+# main path 9: main path 1's server on the buffered-async runtime (K = 3 of
+# 4 cohorts, polynomial staleness, 15% constant dropout), two passes of the
+# round-robin schedule so that a stage's stragglers flush when it returns
+ASYNC_KW = dict(runtime="async", buffer_size=3,
+                staleness_schedule="polynomial", staleness_alpha=0.5,
+                dropout_schedule="constant", dropout_rate=0.15)
+ASYNC_ROUNDS, ASYNC_VIT_ROUNDS, ASYNC_EVERY = 8, 6, 2
+# main path 9's checkpoints: every ASYNC_EVERY rounds, all of them kept
+ASYNC_CKPT = dict(checkpoint_every=ASYNC_EVERY,
+                  keep_checkpoints=ASYNC_ROUNDS // ASYNC_EVERY)
+ASYNC_POPULATIONS, ASYNC_POP_ROUNDS = (1e2, 1e4, 1e6), 2
 
 # main path sizes (a CPU rehearsal shrinks them)
 RESNET = dict(arch="resnet18", num_classes=10, image_size=32, width_mult=1.0)
@@ -1202,10 +1237,12 @@ def record_eval_peaks(torch, server):
 
 
 def run_rounds(torch, server, kernels, n, quiet=False, fresh=False):
-    """``n`` rounds; per round the seconds, peak allocated bytes (and,
-    where the round evaluates, the peak before and during the evaluation),
-    local steps and each kernel's launches.  With ``fresh`` each round
-    starts from an emptied cache, so that its reserved peak is its own."""
+    """``n`` rounds, each through ``server.run(1)`` (which checkpoints as
+    the server's ``FLConfig`` says); per round the seconds, peak allocated
+    bytes (and, where the round evaluates, the peak before and during the
+    evaluation), local steps and each kernel's launches.  With ``fresh``
+    each round starts from an emptied cache, so that its reserved peak is
+    its own."""
     step_counts = record_steps(server)
     eval_peaks = record_eval_peaks(torch, server)
     rounds = []
@@ -1218,7 +1255,7 @@ def run_rounds(torch, server, kernels, n, quiet=False, fresh=False):
             torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        rr = server.run_round(r)
+        rr = server.run(1)[-1]
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
@@ -1504,10 +1541,11 @@ def transformer_rounds(torch, kernels, np, server, test_batcher, t0,
     return rounds, counts, acc
 
 
-def vit_server(runtime="sequential"):
-    """Main path 2's server (main path 6's with ``runtime="vectorized"``)
-    and its test batcher: full-width ViT-12 over a 100-device fleet, built
-    from SEED."""
+def vit_server(runtime="sequential", **flc_kw):
+    """Main path 2's server (main path 6's with ``runtime="vectorized"``,
+    main path 9's with the async runtime's fields in ``flc_kw``) and its
+    test batcher: full-width ViT-12 over a 100-device fleet, built from
+    SEED."""
     from repro_torch.configs.paper_models import vit
     from repro_torch.core.progressive import make_adapter
     from repro_torch.data.loader import Batcher
@@ -1518,7 +1556,7 @@ def vit_server(runtime="sequential"):
     cfg = dataclasses.replace(vit(**VIT), use_flash_kernel=True)
     flc = FLConfig(n_devices=100, clients_per_round=4, local_epochs=1,
                    batch_size=32, num_stages=3, use_hsic_kernel=True,
-                   runtime=runtime, seed=SEED)
+                   runtime=runtime, seed=SEED, **flc_kw)
     ds = make_image_dataset(SEED, VIT_IMAGES, num_classes=cfg.vocab_size,
                             image_size=cfg.image_size)
     parts = dirichlet_partition(SEED, ds.labels, flc.n_devices,
@@ -2051,14 +2089,36 @@ def quickstart_nhsic_shapes():
     return transformer_nhsic_shapes(quickstart.config(), quickstart.BATCH)
 
 
+def async_nhsic_shapes():
+    """Main path 9's beyond the main paths': the async example's ResNet18
+    (its own size, 2 stages, B = 16) and ``fl_round_throughput``'s
+    reference-size ResNet18 and ViT at B = 4 (the async and population
+    modes)."""
+    from repro_torch.benchmarks import fl_round_throughput as flr
+    from repro_torch.core.progressive import make_adapter
+    from repro_torch.examples import async_fedbuff as ex
+    from repro_torch.models.cnn import CNNConfig
+    example = make_adapter(CNNConfig(
+        name="resnet18", arch="resnet18", num_classes=10,
+        image_size=ex.IMAGE_SIZE, width_mult=ex.WIDTH),
+        ex.BASE["num_stages"])
+    return (cnn_nhsic_shapes(example, ex.BASE["batch_size"])
+            + cnn_nhsic_shapes(make_adapter(*flr._config("cnn",
+                                                         "reference")[:2]),
+                               4)
+            + transformer_nhsic_shapes(flr._config("vit", "reference")[0],
+                                       4))
+
+
 def nhsic_shapes():
     """The training paths' nHSIC shapes, each once: the main paths', then
-    the Fig. 6 CNNs', Tables 1-2's, the Fig. 7, 2, 5 and 8 phases' and the
-    quickstart's."""
+    the Fig. 6 CNNs', Tables 1-2's, the Fig. 7, 2, 5 and 8 phases', the
+    quickstart's and main path 9's."""
     return list(dict.fromkeys(
         MAIN_PATH_SHAPES + fig6_nhsic_shapes() + tables_nhsic_shapes()
         + fig7_nhsic_shapes() + fig2_nhsic_shapes() + fig5_nhsic_shapes()
-        + resnet18_nhsic_shapes(**FIG8_SIZE) + quickstart_nhsic_shapes()))
+        + resnet18_nhsic_shapes(**FIG8_SIZE) + quickstart_nhsic_shapes()
+        + async_nhsic_shapes()))
 
 
 def fig6_step_check(torch, device):
@@ -3313,11 +3373,13 @@ def card_settings(torch):
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def resume_child(directory):
+def resume_child(directory, kind="sequential"):
     """Main path 8's killed run, in its own process: main path 1's server
     checkpointing every RESUME_EVERY rounds into ``directory``, killed by
-    SIGKILL as its third round opens.  Loads the kernels the parent built;
-    never builds them."""
+    SIGKILL as its third round opens; with ``kind="async"`` main path 9's
+    (``ASYNC_KW``, every ASYNC_EVERY rounds), killed as the first round
+    opens whose last checkpoint holds a pending entry.  Loads the kernels
+    the parent built; never builds them."""
     import signal
 
     import numpy as np
@@ -3333,17 +3395,30 @@ def resume_child(directory):
             print(f"resume child: {k.SOURCE} is not built", file=sys.stderr)
             return 3
         k.library()
-    server = cnn_server(np, quiet=True, checkpoint_dir=directory,
-                        checkpoint_every=RESUME_EVERY)
+    from repro_torch.checkpoint import (latest_checkpoint,
+                                        read_checkpoint_meta)
+    if kind == "async":
+        server = cnn_server(np, quiet=True, checkpoint_dir=directory,
+                            **ASYNC_CKPT, **ASYNC_KW)
+        rounds, every = ASYNC_ROUNDS, ASYNC_EVERY
+    else:
+        server = cnn_server(np, quiet=True, checkpoint_dir=directory,
+                            checkpoint_every=RESUME_EVERY)
+        rounds, every = RESUME_ROUNDS, RESUME_EVERY
     run_round = server.run_round
 
     def crashing(r):
-        if r == RESUME_EVERY:
+        if kind == "async":
+            last = latest_checkpoint(directory)
+            if (r % every == 0 and last is not None
+                    and read_checkpoint_meta(last)["async"]["stages"]):
+                os.kill(os.getpid(), signal.SIGKILL)
+        elif r == every:
             os.kill(os.getpid(), signal.SIGKILL)
         return run_round(r)
 
     server.run_round = crashing
-    server.run(RESUME_ROUNDS)
+    server.run(rounds)
     return 4        # not reached: the kill comes first
 
 
@@ -3685,6 +3760,492 @@ def quickstart_phase(torch, kernels):
     return dict(res, seconds=seconds, launches=counts), counts
 
 
+# --------------------------------------------------------------------------- #
+# main path 9: the buffered-async (FedBuff) runtime
+# --------------------------------------------------------------------------- #
+def _own_storage(t):
+    """Whether ``t`` holds storage of its own, not a view of a larger one."""
+    return t.untyped_storage().nbytes() == t.numel() * t.element_size()
+
+
+def watch_async(torch, np, server):
+    """Record, as the async runtime runs them, each round's stack (the
+    first one's params too), its deliveries and metrics, and each flush:
+    its version against the server's before the round, its entries'
+    staleness and pulls, the entries themselves (so that an entry flushed
+    twice shows); and whether every pending entry holds storage of its
+    own after the round."""
+    from repro_torch.common.tree import tree_leaves, tree_map
+    rt = server.runtime
+    log = {"rounds": [], "flushes": [], "flushed": [], "first": None}
+    run = rt.run_stacked
+
+    def recorded(params, t, stack, *, sim_times=None):
+        state, v0 = rt.state, rt.state.version
+        schedule = state.schedule
+
+        def planned(new, K, stage):
+            flushes = schedule(new, K, stage)
+            for j, f in enumerate(flushes):
+                log["flushes"].append(dict(
+                    version=f.version, expected_version=v0 + j,
+                    staleness=f.staleness.tolist(),
+                    pulled=[e.pulled_version for e in f.entries]))
+                log["flushed"].extend(f.entries)
+            return flushes
+
+        if log["first"] is None:
+            log["first"] = (tree_map(torch.clone, params), t, stack)
+        state.schedule = planned
+        try:
+            out = run(params, t, stack, sim_times=sim_times)
+        finally:
+            del state.schedule
+        m = out[1]
+        log["rounds"].append(dict(
+            round=server.next_round, stage=t,
+            vectorized_steps=stack.max_steps, cohorts=stack.num_cohorts,
+            delivered=int(np.count_nonzero(np.asarray(stack.weights) > 0)),
+            staleness=m["staleness"].tolist(),
+            **{k: m[k] for k in ("n_uploads", "n_pending", "n_carried",
+                                 "n_evicted", "server_version",
+                                 "sim_round_time")},
+            pending_own_storage=all(
+                _own_storage(x) for e in rt.state.entries
+                for x in tree_leaves(e.delta) + [e.loss])))
+        return out
+
+    rt.run_stacked = recorded
+    return log
+
+
+def check_async_log(log, state, name, carried=True):
+    """Main path 9's buffer checks over a run's ``watch_async`` log and its
+    final state: every delivered entry flushed exactly once or still
+    pending (nothing evicted), each flush one version past the last and
+    each staleness the versions since its entry's pull, (with
+    ``carried``) at least one entry carried across rounds, no pending
+    entry pinning more than its own storage."""
+    rounds = log["rounds"]
+    delivered = sum(r["delivered"] for r in rounds)
+    uploads = sum(r["n_uploads"] for r in rounds)
+    flushed = {id(e) for e in log["flushed"]}
+    out = dict(delivered=delivered, flushed=uploads, pending=len(state),
+               carried=sum(r["n_carried"] for r in rounds),
+               flushes=len(log["flushes"]), server_version=state.version)
+    check(len(flushed) == len(log["flushed"]) == uploads
+          and not flushed & {id(e) for e in state.entries}
+          and uploads + len(state) == delivered
+          and all(r["n_evicted"] == 0 for r in rounds),
+          f"{name}: not every delivery flushed exactly once or pending: "
+          f"{out}")
+    check(all(f["version"] == f["expected_version"] and all(
+        s == f["version"] - p for s, p in zip(f["staleness"], f["pulled"]))
+        for f in log["flushes"]) and state.version == len(log["flushes"]),
+          f"{name}: a flush's staleness is not the versions since its "
+          f"entries' pulls: {log['flushes']}")
+    check(not carried or out["carried"] >= 1,
+          f"{name}: no entry was carried across rounds: {rounds}")
+    check(all(r["pending_own_storage"] for r in rounds),
+          f"{name}: a pending entry pins more storage than its own")
+    return out
+
+
+def async_launch_check(rounds, log, per_step, idle=None):
+    """Each round's launches: ``per_step(log round)`` for a round the async
+    runtime trained (K1-K3 twice a vectorized step), ``idle`` (none of
+    K1-K3) for a round it did not (every cohort dropped, or none
+    feasible).  A round's loss is finite where it flushed, NaN where it
+    flushed nothing."""
+    trained = {r["round"]: r for r in log["rounds"]}
+    idle = {n: 0 for n in STREAMING} if idle is None else idle
+    for r in rounds:
+        a = trained.get(r["round_idx"])
+        want = per_step(a) if a is not None else idle
+        r["async"] = a
+        check(all(r["launches"][n] == c for n, c in want.items()),
+              f"round {r['round_idx']}: launches {r['launches']}, expected "
+              f"{want} ({a and a['vectorized_steps']} vectorized steps)")
+        check(math.isfinite(r["mean_loss"]) == bool(a and a["n_uploads"]),
+              f"round {r['round_idx']}: loss {r['mean_loss']} after "
+              f"{a and a['n_uploads']} flushed entries")
+
+
+def async_cnn_run(torch, kernels, np, **flc_kw):
+    """Main path 9's ResNet18 server (main path 1's with ``ASYNC_KW``):
+    ASYNC_ROUNDS rounds, watched (``watch_async``), K1-K3 counted."""
+    server = cnn_server(np, quiet=True, **ASYNC_KW, **flc_kw)
+    log = watch_async(torch, np, server)
+    log["save_seconds"], save = [], server.save_state
+
+    def timed_save(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        written = save(*a, **kw)
+        log["save_seconds"].append(time.perf_counter() - t0)
+        return written
+
+    server.save_state = timed_save
+    reset_all(kernels)
+    rounds = run_rounds(torch, server, kernels, ASYNC_ROUNDS, quiet=True)
+    counts = read_all(kernels)
+    del server.runtime.run_stacked, server.save_state
+    async_launch_check(rounds, log, lambda a: {
+        n: 2 * a["vectorized_steps"] for n in STREAMING})
+    check(counts["flash_attention_fwd"] == 0 and counts["gram"] == 0,
+          f"a kernel off the CNN path ran: {counts}")
+    check(any(math.isfinite(r["mean_loss"]) for r in rounds)
+          and all(bool(torch.isfinite(p).all())
+                  for p in _leaves(server.params)),
+          "async ResNet18: no round flushed, or a non-finite param")
+    return server, rounds, log, counts
+
+
+def async_k0_check(torch, server, first):
+    """``buffer_size=0`` (one flush of every delivery) on a fresh server
+    against the vectorized runtime, one round on the first round's params
+    and stack: the same cohort step, so the cohort losses to the bit, and
+    the new trainable at TOL of the largest update, or 10x the vectorized
+    round's own movement at params x (1 + 1e-7) where that exceeds
+    TOL / 10."""
+    from repro_torch.common.tree import tree_map
+    from repro_torch.federated.runtime import (AsyncBufferedRuntime,
+                                               VectorizedRuntime)
+    params, t, stack = first
+    args = (server.adapter, server.optimizer, server.hp, server.device)
+    asy = AsyncBufferedRuntime(*args, buffer_size=0,
+                               staleness_schedule="polynomial",
+                               staleness_alpha=0.5)
+    vec = VectorizedRuntime(*args)
+    tr_a, m_a = asy.run_stacked(params, t, stack)
+    tr_v, m_v = vec.run_stacked(params, t, stack)
+    moved, _ = vec.run_stacked(tree_map(lambda p: p * (1 + 1e-7), params),
+                               t, stack)
+    _, start = server.adapter.split_stage(params, t)
+    diff = _update_rel(tr_a, tr_v, start)
+    sens = _update_rel(moved, tr_v, start)
+    bar = max(TOL, 10 * sens) if sens > TOL / 10 else TOL
+    active = [w > 0 for w in stack.weights]
+    row = dict(stage=t, cohorts=stack.num_cohorts, rel=diff,
+               vectorized_eps_rel=sens, bar=bar,
+               cohort_losses_bitwise=torch.equal(m_a["cohort_losses"],
+                                                 m_v["cohort_losses"]),
+               mean_loss_rel=abs(float(m_a["mean_local_loss"]
+                                       - m_v["mean_local_loss"]))
+               / abs(float(m_v["mean_local_loss"])),
+               server_version=m_a["server_version"],
+               n_pending=m_a["n_pending"])
+    check(row["cohort_losses_bitwise"] and diff <= bar
+          and row["mean_loss_rel"] <= TOL and m_a["server_version"] == 1
+          and m_a["n_pending"] == 0 and all(
+              (s == 0) == a for s, a in zip(m_a["staleness"], active)),
+          f"K = 0 async against vectorized: {row}")
+    return row
+
+
+def _buffer_on_host(state):
+    """A buffer's entries as host values and CPU tensors."""
+    return [((e.stage, e.weight, e.pulled_version, e.arrival_time,
+              e.cohort), [x.cpu() for x in _leaves(e.delta)], e.loss.cpu())
+            for e in state.entries]
+
+
+def _same_buffer(torch, a, b):
+    """Two ``_buffer_on_host`` lists equal to the bit."""
+    return len(a) == len(b) and all(
+        ka == kb and torch.equal(la, lb) and len(da) == len(db)
+        and all(torch.equal(x, y) for x, y in zip(da, db))
+        for (ka, da, la), (kb, db, lb) in zip(a, b))
+
+
+def async_path(torch, kernels, np):
+    """Main path 9 on ResNet18 (``ASYNC_KW``, ASYNC_ROUNDS rounds): the
+    buffer checks (``check_async_log``: exactly once, version staleness, a
+    carried entry, no pinned stack), K1-K3 twice a vectorized step, K = 0
+    against the vectorized runtime (``async_k0_check``), the rounds again
+    from the seed to the bit (checkpointing every ASYNC_EVERY rounds: the
+    straight run of ``async_resume``), then the kill and resume."""
+    import tempfile
+    took = {}
+    t0 = time.perf_counter()
+    with nhsic_shapes_seen() as seen:
+        server, rounds, log, counts = async_cnn_run(torch, kernels, np)
+    took["rounds"] = time.perf_counter() - t0
+    buffer = check_async_log(log, server.runtime.state, "async ResNet18")
+    for r in rounds:
+        print(f"  round {r['round_idx']} (stage {r['stage']}): loss "
+              f"{r['mean_loss']:.4f}, sim {r['sim_time']:.3f} s, version "
+              f"{r['server_version']}, {r['seconds']:.3f} s; "
+              f"{ {k: r['async'][k] for k in ('delivered', 'n_uploads', 'n_carried', 'n_pending', 'staleness')} if r['async'] else 'nothing delivered'}",
+              flush=True)
+    print(f"  buffer: {buffer}", flush=True)
+    t1 = time.perf_counter()
+    k0 = async_k0_check(torch, server, log["first"])
+    took["k0"] = time.perf_counter() - t1
+    print(f"  K = 0 against vectorized (stage {k0['stage']}): cohort losses "
+          f"the same bits; update {k0['rel']:.2e} of the largest (bar "
+          f"{k0['bar']:.1e}; vectorized at params x (1 + 1e-7) "
+          f"{k0['vectorized_eps_rel']:.2e})", flush=True)
+    first = (_on("cpu", server.params), _buffer_on_host(server.runtime.state),
+             server.runtime.state.version, server.runtime.state.clock)
+    del server, log
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="neulite-async-") as tmp:
+        straight_dir = os.path.join(tmp, "straight")
+        t1 = time.perf_counter()
+        straight, again, log2, counts2 = async_cnn_run(
+            torch, kernels, np, checkpoint_dir=straight_dir, **ASYNC_CKPT)
+        took["repeat"] = time.perf_counter() - t1
+        state = straight.runtime.state
+        repeats = (_same_run(torch, rounds, first[0], again,
+                             _on("cpu", straight.params))
+                   and _same_buffer(torch, first[1], _buffer_on_host(state))
+                   and (first[2], first[3]) == (state.version, state.clock))
+        check(repeats, "async ResNet18: the rounds do not repeat bit for bit")
+        print(f"  the rounds again from the seed: the same losses, params "
+              f"and buffer, to the bit; save_state "
+              f"{[round(x, 3) for x in log2['save_seconds']]} s", flush=True)
+        t1 = time.perf_counter()
+        resume, rcounts = async_resume(torch, kernels, np, straight,
+                                       straight_dir, tmp)
+        resume["save_state_seconds"] = log2["save_seconds"]
+        took["resume"] = time.perf_counter() - t1
+        del straight
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_held(seen, "main path 9's ResNet18")
+    took["total"] = time.perf_counter() - t0
+    print(f"  main path 9 ResNet18 phases (s): "
+          f"{ {k: round(v, 1) for k, v in took.items()} }", flush=True)
+    return ({"rounds": rounds, "buffer": buffer, "k0": k0,
+             "repeats": repeats, "resume": resume, "seconds": took},
+            {n: counts[n] + counts2[n] + rcounts[n] for n in counts})
+
+
+def async_resume(torch, kernels, np, straight, straight_dir, tmp):
+    """Main path 9's kill and resume: a child (``resume_child(..,
+    "async")``) runs main path 9's ResNet18 checkpointing every
+    ASYNC_EVERY rounds and is killed as the first round opens whose last
+    checkpoint holds a pending entry; this process restores it and runs
+    to ASYNC_ROUNDS.  The checkpoint's ``async`` slot must be set, the
+    child's checkpoint equal the straight run's of its round, and the
+    resumed params, history, server version and clock, pending entries
+    (deltas to the bit), RNG, selector and batcher states equal the
+    straight run's; the straight run's last checkpoint, read on the CPU,
+    the bits of ``to_reference`` of the card's params and buffer."""
+    import signal
+    import subprocess
+
+    from repro_torch import bridge
+    from repro_torch.checkpoint import (checkpoint_step, latest_checkpoint,
+                                        load_checkpoint,
+                                        read_checkpoint_meta)
+    from repro_torch.federated.runtime import AsyncServerState
+    from repro_torch.federated.server import NeuLiteServer
+    out = {}
+    killed = os.path.join(tmp, "killed")
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, os.path.realpath(__file__), "--resume-child",
+         killed, "async"], capture_output=True, text=True, timeout=600)
+    out["child_seconds"] = time.perf_counter() - t0
+    check(child.returncode == -signal.SIGKILL,
+          f"the async resume child ended with {child.returncode}, not "
+          f"SIGKILL:\n{child.stdout[-3000:]}\n{child.stderr[-3000:]}")
+    path = latest_checkpoint(killed)
+    check(path is not None, "the killed async run left no checkpoint")
+    meta = read_checkpoint_meta(path)
+    out.update(checkpoint_step=checkpoint_step(path),
+               checkpoint_bytes=os.path.getsize(path)
+               + os.path.getsize(path + ".json"),
+               pending_stages=meta["async"]["stages"])
+    check(bool(meta["async"]["stages"]),
+          f"the resumed checkpoint's async slot is empty: {meta['async']}")
+    same_file = _npz_equal(np, path, os.path.join(straight_dir,
+                                                  os.path.basename(path)))
+    out["child_checkpoint_is_straight_runs"] = same_file
+    check(same_file, "the killed child's checkpoint differs from the "
+          "straight run's")
+    print(f"  child killed by SIGKILL after {out['child_seconds']:.1f} s; "
+          f"its checkpoint {os.path.basename(path)}: "
+          f"{out['checkpoint_bytes']} bytes, pending entries of stages "
+          f"{out['pending_stages']}", flush=True)
+
+    adapter, clients, flc, test = cnn_setup(checkpoint_dir=killed,
+                                            **ASYNC_CKPT, **ASYNC_KW)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    resumed = NeuLiteServer.restore(adapter, clients, flc, killed,
+                                    test_batcher=test)
+    torch.cuda.synchronize()
+    out["restore_seconds"] = time.perf_counter() - t1
+    check(len(resumed.runtime.state) == len(meta["async"]["stages"]),
+          "the restored buffer is not the checkpoint's")
+    log = watch_async(torch, np, resumed)
+    reset_all(kernels)
+    t1 = time.perf_counter()
+    resumed.run(ASYNC_ROUNDS - resumed.next_round)
+    torch.cuda.synchronize()
+    out["resumed_seconds"] = time.perf_counter() - t1
+    counts = read_all(kernels)
+    del resumed.runtime.run_stacked
+    steps = sum(r["vectorized_steps"] for r in log["rounds"])
+    check(steps > 0 and all(counts[n] == 2 * steps for n in STREAMING),
+          f"resumed async rounds: {counts}, expected 2 launches of each "
+          f"nHSIC kernel per vectorized step ({steps})")
+    sa, sb = straight.runtime.state, resumed.runtime.state
+    same = {
+        "params": all(torch.equal(a, b) for a, b in zip(
+            _leaves(straight.params), _leaves(resumed.params), strict=True)),
+        "history": _same_history(straight.history, resumed.history),
+        "version_clock": (sa.version, sa.clock) == (sb.version, sb.clock),
+        "buffer": _same_buffer(torch, _buffer_on_host(sa),
+                               _buffer_on_host(sb)),
+        "rng": (straight.rng.bit_generator.state
+                == resumed.rng.bit_generator.state),
+        "selector": (straight.selector.state_dict()
+                     == resumed.selector.state_dict()),
+        "batchers": all(
+            a.rng.bit_generator.state == b.rng.bit_generator.state
+            for a, b in zip(straight.batchers + [straight.test_batcher],
+                            resumed.batchers + [resumed.test_batcher]))}
+    out["resumed_equals_straight"] = same
+    check(all(same.values()), f"the resumed async run differs from the "
+          f"straight run: {same}")
+    last = latest_checkpoint(straight_dir)
+    lmeta = read_checkpoint_meta(last)
+    like = {"params": straight.params, "async": AsyncServerState.arrays_like(
+        adapter, straight.params, lmeta["async"])}
+    cpu, _ = load_checkpoint(last, like, device="cpu")
+    card = {"params": bridge.reference_layout(straight.params),
+            "async": sa.state_dict()[0]}
+    cpu_bits = all(torch.equal(a, b) for a, b in zip(
+        _leaves(cpu), _leaves(card), strict=True))
+    out.update(cpu_load_is_card_bits=cpu_bits,
+               last_pending_entries=len(lmeta["async"]["stages"]))
+    check(cpu_bits, "the async checkpoint read on the CPU differs from "
+          "to_reference of the card's params and buffer")
+    print(f"  restore {out['restore_seconds']:.3f} s; resumed rounds "
+          f"{checkpoint_step(path)}-{ASYNC_ROUNDS - 1} in "
+          f"{out['resumed_seconds']:.2f} s, {steps} vectorized steps, "
+          f"launches {counts}; resumed vs straight: {same}; "
+          f"{os.path.basename(last)} ({len(lmeta['async']['stages'])} "
+          f"pending) read on the CPU: the bits of to_reference of the "
+          f"card's params and buffer", flush=True)
+    del resumed
+    return out, counts
+
+
+def async_vit_path(torch, kernels, np):
+    """Main path 9 on ViT-12 at full width (main path 2's widths, C = 4,
+    ``ASYNC_KW``): ASYNC_VIT_ROUNDS rounds with an evaluation each; K1-K3
+    twice a vectorized step; K4 once a layer run per vectorized step (its
+    cohorts folded into the batch) and per evaluation batch; the buffer's
+    exactly-once and staleness checks; every nHSIC and K4 shape held."""
+    t0 = time.perf_counter()
+    server, test = vit_server(**ASYNC_KW)
+    server.test_batcher = test
+    plan, cfg = server.adapter.plan, server.adapter.cfg
+    n_eval = min(8, test.steps_per_epoch)
+    log = watch_async(torch, np, server)
+    with nhsic_shapes_seen() as seen, flash_shapes_seen() as fseen:
+        reset_all(kernels)
+        rounds = run_rounds(torch, server, kernels, ASYNC_VIT_ROUNDS,
+                            quiet=True)
+    counts = read_all(kernels)
+    del server.runtime.run_stacked
+    evals = n_eval * cfg.num_periods     # K4 in a round's evaluation
+
+    def per_step(a):
+        periods = plan.stage_ranges(a["stage"])[2][1]
+        return {**{n: 2 * a["vectorized_steps"] for n in STREAMING},
+                "flash_attention_fwd": a["vectorized_steps"] * periods
+                + evals}
+
+    async_launch_check(rounds, log, per_step, idle={
+        **{n: 0 for n in STREAMING}, "flash_attention_fwd": evals})
+    buffer = check_async_log(log, server.runtime.state, "async ViT-12",
+                             carried=False)
+    check(all(bool(torch.isfinite(p).all()) for p in _leaves(server.params))
+          and all(0.0 <= r["test_acc"] <= 1.0 for r in rounds),
+          "async ViT-12: a non-finite param or a bad accuracy")
+    check_held(seen, "main path 9's ViT-12")
+    check_flash_held(fseen, "main path 9's ViT-12")
+    seconds = time.perf_counter() - t0
+    for r in rounds:
+        print(f"  round {r['round_idx']} (stage {r['stage']}): loss "
+              f"{r['mean_loss']:.4f}, acc {r['test_acc']:.4f}, version "
+              f"{r['server_version']}, {r['seconds']:.3f} s, launches "
+              f"{ {n: r['launches'][n] for n in ('nhsic_rowsums', 'flash_attention_fwd')} }",
+              flush=True)
+    print(f"  buffer: {buffer}; {seconds:.1f} s", flush=True)
+    del server
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"rounds": rounds, "buffer": buffer, "seconds": seconds}, counts
+
+
+def async_example_phase(torch, kernels):
+    """``examples/async_fedbuff.py``'s ``main`` on the card at its own
+    size: the synchronous (vectorized) leg, then the async leg; prints the
+    simulated times and the speedup; K1-K3 launch alike, K4 never; every
+    nHSIC shape held."""
+    from repro_torch.examples import async_fedbuff
+    reset_all(kernels)
+    t0 = time.perf_counter()
+    with nhsic_shapes_seen() as seen, contextlib.redirect_stdout(sys.stderr):
+        res = async_fedbuff.main(device="cuda")
+    seconds = time.perf_counter() - t0
+    counts = read_all(kernels)
+    hist = res.pop("history")
+    check(len({counts[n] for n in STREAMING}) == 1
+          and counts["nhsic_rowsums"] > 0
+          and counts["flash_attention_fwd"] == 0,
+          f"the async example: launches {counts}")
+    check(res["sync_time"] > 0 and math.isfinite(res["speedup"])
+          and all(h.server_version is not None for h in hist),
+          f"the async example: {res}")
+    print(f"  simulated time: sync {res['sync_time']:.2f} s, async "
+          f"{res['async_time']:.2f} s, speedup {res['speedup']:.2f}x; "
+          f"accuracy sync {res['sync_acc']:.4f}, async "
+          f"{res['async_acc']:.4f}; lost rounds {res['lost_rounds']}, "
+          f"server version {res['server_version']}, still buffered "
+          f"{res['pending']}; launches {counts}; {seconds:.1f} s",
+          flush=True)
+    check_held(seen, "the async example")
+    return dict(res, seconds=seconds, launches=counts), counts
+
+
+def async_throughput_phase(torch, kernels):
+    """``fl_round_throughput``'s async mode at the reference's sizes and
+    its population mode at ASYNC_POPULATIONS (ASYNC_POP_ROUNDS timed
+    rounds each); rows added to BENCH_FL_OUT.  Every delivery flushed or
+    pending; every nHSIC shape held."""
+    from repro_torch.benchmarks import fl_round_throughput as flr
+    reset_all(kernels)
+    t0 = time.perf_counter()
+    with nhsic_shapes_seen() as seen:
+        rows = flr.run_async("cuda", BENCH_FL_OUT)
+        t1 = time.perf_counter()
+        pop = flr.run_population("cuda", BENCH_FL_OUT, ASYNC_POPULATIONS,
+                                 rounds=ASYNC_POP_ROUNDS)
+    took = {"async": t1 - t0, "population": time.perf_counter() - t1}
+    counts = read_all(kernels)
+    for r in rows:
+        check(r["n_uploads"] + r["n_pending"] == r["cohorts"] * r["rounds"]
+              and r["server_version"] * r["buffer_size"] == r["n_uploads"]
+              and math.isfinite(r["speedup"]) and r["speedup"] > 0,
+              f"async throughput row: {r}")
+    check(all(r["rounds_per_s"] > 0 for r in pop), f"population rows {pop}")
+    check(counts["nhsic_rowsums"] > 0, f"throughput modes: {counts}")
+    check_held(seen, "the throughput's async and population modes")
+    print(f"  rows added to {os.path.relpath(BENCH_FL_OUT, ROOT)}; "
+          f"launches {counts}; phases (s) "
+          f"{ {k: round(v, 1) for k, v in took.items()} }", flush=True)
+    return {"async": rows, "population": pop, "seconds": took}, counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3834,6 +4395,15 @@ def main():
     print(f"  rows written to {os.path.relpath(BENCH_FL_OUT, ROOT)}",
           flush=True)
 
+    phase("main path 9: ResNet18 on the buffered-async runtime")
+    asy, acounts = async_path(torch, kernels, np)
+    phase("main path 9: ViT-12 on the buffered-async runtime")
+    asy["vit12"], avcounts = async_vit_path(torch, kernels, np)
+    phase("main path 9: the async example")
+    asy["example"], aecounts = async_example_phase(torch, kernels)
+    phase("main path 9: the throughput's async and population modes")
+    asy["throughput"], atcounts = async_throughput_phase(torch, kernels)
+
     phase("main path 7: Tables 1 and 2 at full width")
     tables, tabcounts = tables_path(torch, kernels, np)
     phase("Fig. 7: stage step against full step")
@@ -3855,7 +4425,9 @@ def main():
                "kernels_bench": bcounts,
                **{a: z["launches"] for a, z in zoo.items()},
                **{f"{a}_vectorized": v["launches"] for a, v in vec.items()},
-               "fl_round_throughput": tcounts, "tables": tabcounts,
+               "fl_round_throughput": tcounts, "async_resnet18": acounts,
+               "async_vit12": avcounts, "async_example": aecounts,
+               "async_throughput": atcounts, "tables": tabcounts,
                "fig7": f7counts, "fig6": fcounts, "resume": rescounts,
                "fig2": f2counts, "fig5": f5counts, "fig8": f8counts,
                "quickstart": qcounts}
@@ -3952,7 +4524,7 @@ def main():
                    "fl_round_throughput": throughput, "tables": tables,
                    "fig7": fig7_rows, "fig6": fig6_out, "resume": resume,
                    "fig2": fig2_out, "fig5": fig5_out, "fig8": fig8_out,
-                   "quickstart": quick_out,
+                   "quickstart": quick_out, "async": asy,
                    "kernels": out_kernels, "device": device}, f, indent=1)
     phase("done")
     print(smi, flush=True)
@@ -3963,5 +4535,5 @@ def main():
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--resume-child"]:
-        sys.exit(resume_child(sys.argv[2]))
+        sys.exit(resume_child(*sys.argv[2:4]))
     sys.exit(main())

@@ -1,5 +1,5 @@
-"""FL round throughput of the port's client runtimes (port of the cohort
-mode of ``benchmarks/fl_round_throughput.py``, its ``bench``).
+"""FL round throughput of the port's client runtimes (port of the cohort,
+async and population modes of ``benchmarks/fl_round_throughput.py``).
 
 One NeuLite round = C cohorts x E local steps + the Eq. 1 aggregation.
 Rounds/s of one stage-t round on the same pre-built cohort stack (data
@@ -23,21 +23,44 @@ and C = 16.  nHSIC runs through the kernels.  Each time is the median of
 around each round.  Every round captures its graphs anew and drops them
 after its last local step, as a server's round does.
 
+``--runtime async`` reports instead the buffered-async (FedBuff) server
+over ``--rounds`` stateful rounds at the reference's sizes (C = 16, B = 4,
+E = 2, stage 1, K = 3C/4 unless ``--buffer``): cohorts deliver at
+``steps / speed`` under the fleet's speed mix (``sample_devices``), the
+server flushes every K arrivals, stragglers carry into the next round;
+the simulated time (round open to last flush) against the synchronous
+barrier (the slowest cohort), the carried and pending entries, the server
+version, the flushed tree's trainable bytes and each round's wall
+seconds.
+
+``--population N ...`` sweeps the population instead: full NeuLite rounds
+(vectorized runtime, nHSIC through the kernels) at a fixed cohort of 8
+over the streaming ``Fleet`` and ``ProceduralClients`` of N devices;
+rounds/s after a warm-up of one round a stage, the Python heap's peak
+(``tracemalloc``) over building a server and one round, and the process's
+``ru_maxrss``: what must stay flat when opening a round is O(cohort).
+
   PYTHONPATH=src python -m repro_torch.benchmarks.fl_round_throughput \
       --out chiprun_out/bench_fl_round.json
 
-On the card only: the times are the card's.  The population, async and
-model-parallel modes of the reference's script wait for the port's
-streaming fleet, async runtime and sharded runtime.
+Every mode adds its rows to ``--out`` beside the rows already there.  On
+the card only: the times are the card's.  The sharded and model-parallel
+modes of the reference's script wait for the port's sharded runtime.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
+import os
+import statistics
+import time
 
+import numpy as np
 import torch
 
-from repro_torch.benchmarks.common import timeit, write_bench_json
+from repro_torch.benchmarks.common import (device_meta, timeit,
+                                          write_bench_json)
 from repro_torch.common.device import resolve_device
 from repro_torch.common.tree import tree_leaves
 
@@ -48,6 +71,9 @@ SETTINGS = [("cnn", "reference", 16, 4, 2), ("vit", "reference", 16, 4, 2),
             ("vit", "full", 4, 32, 2), ("vit", "full", 16, 32, 2)]
 STAGE = 1
 SEED = 0
+# async mode: (model, cohorts, batch, local steps), the reference's sizes
+ASYNC_SETTINGS = [("cnn", 16, 4, 2), ("vit", 16, 4, 2)]
+POPULATIONS = (1e2, 1e4, 1e6)
 
 
 def _config(kind: str, scale: str):
@@ -112,6 +138,181 @@ def bench(kind: str, scale: str, num_cohorts: int, batch_size: int,
     return out
 
 
+def bench_async(kind: str, num_cohorts: int, batch_size: int,
+                local_steps: int, device: torch.device,
+                buffer_size: int = 0, rounds: int = 2) -> dict:
+    """Simulated speedup of ``rounds`` buffered-async rounds of one server
+    over the synchronous barrier, on one stage-``STAGE`` stack at the
+    reference's scale, as the reference's ``bench_async``."""
+    from repro_torch.federated import aggregation as agg
+    from repro_torch.federated.devices import sample_devices
+    from repro_torch.federated.runtime import AsyncBufferedRuntime
+    if buffer_size <= 0:
+        buffer_size = max(1, (3 * num_cohorts) // 4)
+    rounds = max(1, int(rounds))
+    adapter, params, opt, hp, stack = setup(kind, "reference", num_cohorts,
+                                            batch_size, local_steps, device)
+    # a heterogeneous fleet's speed mix (device tiers)
+    speeds = np.asarray([d.speed for d in
+                         sample_devices(SEED, num_cohorts, 1)])
+    sim_times = np.asarray(stack.num_batches, float) / speeds
+    sync_time = float(sim_times.max()) * rounds
+    runtime = AsyncBufferedRuntime(adapter, opt, hp, device,
+                                   buffer_size=buffer_size)
+    async_time, n_carried, n_uploads, seconds = 0.0, 0, 0, []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        new_tr, metrics = runtime.run_stacked(params, STAGE, stack,
+                                              sim_times=sim_times)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        async_time += metrics["sim_round_time"]
+        n_carried += metrics["n_carried"]
+        n_uploads += metrics["n_uploads"]
+    return {"model": kind, "cohorts": num_cohorts, "batch": batch_size,
+            "local_steps": local_steps, "stage": STAGE,
+            "buffer_size": buffer_size, "rounds": rounds,
+            "sync_time": sync_time, "async_time": async_time,
+            "speedup": sync_time / max(async_time, 1e-12),
+            "n_pending": metrics["n_pending"], "n_carried": n_carried,
+            "n_uploads": n_uploads,
+            "server_version": metrics["server_version"],
+            "trainable_bytes": agg.tree_bytes(new_tr),
+            "round_seconds": seconds}
+
+
+def bench_population(populations, device: torch.device,
+                     clients_per_round: int = 8, rounds: int = 8,
+                     selection: str = "random") -> list:
+    """Round cost against the population on the streaming fleet, as the
+    reference's ``bench_population``: per population a ``NeuLiteServer``
+    over ``Fleet`` and ``ProceduralClients``, one warm-up round a stage,
+    then ``rounds`` timed rounds at a fixed cohort; then a fresh server's
+    construction and one round under ``tracemalloc``."""
+    import gc
+    import resource
+    import tracemalloc
+
+    from repro_torch.core.memory import estimate_stage_memory
+    from repro_torch.core.progressive import make_adapter
+    from repro_torch.data.partition import ProceduralClients
+    from repro_torch.federated.devices import Fleet
+    from repro_torch.federated.server import FLConfig, NeuLiteServer
+
+    cfg, stages, _ = _config("cnn", "reference")
+    adapter = make_adapter(cfg, stages)
+    # budgets against the largest stage's need (this tiny config's stages
+    # exceed its full-model training): the top tier fits every stage
+    max_req = max(estimate_stage_memory(adapter, t, 4, seq=0).total
+                  for t in range(stages))
+    budget = int(max_req / 0.99) + 1
+    flc_kw = dict(clients_per_round=clients_per_round, local_epochs=1,
+                  batch_size=4, num_stages=stages, seed=SEED,
+                  runtime="vectorized", selection=selection,
+                  use_hsic_kernel=True)
+
+    def server(pop):
+        flc = FLConfig(n_devices=pop, **flc_kw)
+        # one cached client: every population derives each cohort's data
+        bank = ProceduralClients(SEED, pop, batch_size=flc.batch_size,
+                                 samples_per_client=16, cache_size=1)
+        return NeuLiteServer(adapter, bank, flc,
+                             fleet=Fleet(SEED, pop, budget), device=device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    rows = []
+    for pop in populations:
+        pop = int(pop)
+        srv = server(pop)
+        for r in range(stages):
+            srv.run_round(r)
+        sync()
+        t0 = time.perf_counter()
+        for r in range(stages, stages + rounds):
+            srv.run_round(r)
+        sync()
+        dt = (time.perf_counter() - t0) / rounds
+        del srv
+        gc.collect()
+        tracemalloc.start()
+        srv = server(pop)
+        srv.run_round(0)
+        sync()
+        _, peak = tracemalloc.get_traced_memory()
+        tracemalloc.stop()
+        del srv
+        gc.collect()
+        rows.append({
+            "population": pop, "clients_per_round": clients_per_round,
+            "selection": selection, "rounds": rounds,
+            "rounds_per_s": 1.0 / dt, "server_peak_mb": peak / 2 ** 20,
+            "ru_maxrss_mb": resource.getrusage(
+                resource.RUSAGE_SELF).ru_maxrss / 1024.0})
+    return rows
+
+
+def merge_bench_json(path, payload: dict, device: torch.device,
+                     **meta) -> str:
+    """``write_bench_json`` of ``payload`` beside the keys already in
+    ``path``, so that the async and population rows join the cohort mode's
+    file (which ``run`` starts afresh) and keep its meta.  A file written
+    on another device is started afresh too."""
+    doc = {}
+    if os.path.exists(path):
+        with open(path) as f:
+            doc = json.load(f)
+        old, here = doc.pop("meta", {}), device_meta(device)
+        if all(old.get(k) == v for k, v in here.items()):
+            meta = {**{k: v for k, v in old.items() if k not in here},
+                    **meta}
+        else:
+            doc = {}
+    doc.update(payload)
+    return write_bench_json(path, doc, device, **meta)
+
+
+def run_async(device=None, out=None, settings=ASYNC_SETTINGS,
+              buffer_size: int = 0, rounds: int = 2) -> list:
+    """``bench_async`` of each setting, printed and, with ``out``, added
+    to it under ``"async"``."""
+    device = resolve_device(device)
+    rows = []
+    for kind, C, B, E in settings:
+        row = bench_async(kind, C, B, E, device, buffer_size, rounds)
+        rows.append(row)
+        print(f"  async {kind} C={C} K={row['buffer_size']}: version "
+              f"{row['server_version']}, carried {row['n_carried']}, "
+              f"pending {row['n_pending']}, sync {row['sync_time']:.2f} s, "
+              f"async {row['async_time']:.2f} s (simulated), speedup "
+              f"{row['speedup']:.2f}x, trainable {row['trainable_bytes']} "
+              f"bytes, wall s/round "
+              f"{statistics.median(row['round_seconds']):.4f}", flush=True)
+    if out is not None:
+        merge_bench_json(out, {"async": rows}, device)
+    return rows
+
+
+def run_population(device=None, out=None, populations=POPULATIONS,
+                   rounds: int = 8, selection: str = "random") -> list:
+    """``bench_population``, printed and, with ``out``, added to it under
+    ``"population"``."""
+    device = resolve_device(device)
+    rows = bench_population(populations, device, rounds=rounds,
+                            selection=selection)
+    for row in rows:
+        print(f"  population {row['population']}: "
+              f"{row['rounds_per_s']:.2f} rounds/s, heap peak "
+              f"{row['server_peak_mb']:.2f} MB, maxrss "
+              f"{row['ru_maxrss_mb']:.0f} MB", flush=True)
+    if out is not None:
+        merge_bench_json(out, {"population": rows}, device)
+    return rows
+
+
 def run(device=None, out=None, iters: int = 3, settings=SETTINGS) -> list:
     """Every setting on ``device`` (the card by default): one row each,
     printed and, with ``out``, written with the device's name."""
@@ -142,8 +343,27 @@ def main():
     ap.add_argument("--out", default=None)
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--device", default=None)
+    ap.add_argument("--runtime", choices=["all", "async"], default="all",
+                    help="'async': the buffered-async server's simulated "
+                         "speedup")
+    ap.add_argument("--buffer", type=int, default=0,
+                    help="async buffer size K (0: 3/4 of the cohort)")
+    ap.add_argument("--rounds", type=int, default=2,
+                    help="async: stateful server rounds")
+    ap.add_argument("--population", type=float, nargs="+", default=None,
+                    metavar="N", help="sweep full rounds over these "
+                    "population sizes (e.g. 1e2 1e4 1e6)")
+    ap.add_argument("--selection", choices=["random", "tifl", "oort"],
+                    default="random", help="cohort policy of --population")
     args = ap.parse_args()
-    run(args.device, args.out, args.iters)
+    if args.population:
+        run_population(args.device, args.out, args.population,
+                       selection=args.selection)
+    elif args.runtime == "async":
+        run_async(args.device, args.out, buffer_size=args.buffer,
+                  rounds=args.rounds)
+    else:
+        run(args.device, args.out, args.iters)
 
 
 if __name__ == "__main__":

@@ -8,7 +8,10 @@ the surrogates' and VGG's ``"conv"``, a residual block's ``"conv1"``,
 ``"conv2"`` and ``"proj"``, a fire module's ``"squeeze"``, ``"e1"`` and
 ``"e3"``).  Every other leaf crosses unchanged, the transformer's stacked
 4-D attention weights (``wq`` (L, d, H, Dh), ``wo`` (L, H, Dh, d))
-included.  Both directions copy values exactly.
+included.  Both directions copy values exactly.  A stacked tree (the
+async buffer's deltas: an entry axis in front of each leaf) crosses with
+``lead=1``: a conv weight's last four axes are permuted, its leading ones
+kept.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import DeviceLike, resolve_device
+from repro_torch.common.tree import tree_map
 
 # keys of the CNN's conv param dicts (``models/cnn.py``: stem, surrogate
 # and VGG "conv", residual "conv1"/"conv2", 1x1 shortcut "proj", fire
@@ -36,35 +40,44 @@ def _map_with_conv(fn, tree, in_conv: bool = False):
     return fn(tree, False)
 
 
-def from_reference(np_tree, device: DeviceLike = None):
+def _perm(lead: int, to_port: bool):
+    """The permutation of a conv weight under ``lead`` leading axes: HWIO
+    -> OIHW (``to_port``) or back."""
+    tail = (3, 2, 0, 1) if to_port else (2, 3, 1, 0)
+    return (*range(lead), *(lead + a for a in tail))
+
+
+def from_reference(np_tree, device: DeviceLike = None, lead: int = 0):
     """A reference param tree (numpy arrays, anything ``np.asarray`` takes,
     or tensors in the reference's layout, such as ``load_checkpoint``
-    gives) -> the port's tensors on ``device``."""
+    gives) -> the port's tensors on ``device``; ``lead`` leading axes
+    (such as a stack of entries) in front of every leaf."""
     dev = resolve_device(device)
 
     def leaf(a, conv):
         t = (a.detach().clone() if torch.is_tensor(a)
              else torch.from_numpy(np.array(np.asarray(a), copy=True)))
         if conv:
-            t = t.permute(3, 2, 0, 1).contiguous()
+            t = t.permute(_perm(lead, True)).contiguous()
         return t.to(dev)
 
     return _map_with_conv(leaf, np_tree)
 
 
-def reference_layout(tree):
+def reference_permuted(tree, lead: int = 0):
+    """The port's tree as views in the reference's layout, on their own
+    device (meta tensors too)."""
+    return _map_with_conv(
+        lambda t, conv: t.permute(_perm(lead, False)) if conv else t, tree)
+
+
+def reference_layout(tree, lead: int = 0):
     """The port's param tree -> CPU tensors in the reference's layout, of
     any dtype (bf16 too, which numpy cannot hold)."""
-    def leaf(t, conv):
-        t = t.detach()
-        if conv:
-            t = t.permute(2, 3, 1, 0)
-        return t.cpu().contiguous()
-
-    return _map_with_conv(leaf, tree)
+    return tree_map(lambda t: t.detach().cpu().contiguous(),
+                    reference_permuted(tree, lead))
 
 
-def to_reference(tree):
+def to_reference(tree, lead: int = 0):
     """The port's param tree -> numpy arrays in the reference's layout."""
-    return _map_with_conv(lambda t, _: t.numpy().copy(),
-                          reference_layout(tree))
+    return tree_map(lambda t: t.numpy().copy(), reference_layout(tree, lead))

@@ -15,9 +15,16 @@ then takes the Eq. 1 weighted average of the trainable subtree.
                      replayed E times; then the Eq. 1 sum over the cohort
                      axis (``eq1_aggregate``), eager.
 
-The sharded and async runtimes come with later parts of the port.  A
-runtime builds its stage program at the start of a round and drops it
-(on the card its graphs and their memory) right after the round's last
+  AsyncBufferedRuntime
+                     FedBuff-style buffered-async server on a virtual
+                     clock: the vectorized runtime's local training, then
+                     a flush every K deliveries with per-entry staleness
+                     discounts; deliveries short of K wait in a persistent
+                     ``AsyncServerState`` buffer for a later round.
+
+The sharded runtime comes with a later part of the port.  A runtime
+builds its stage program at the start of a round and drops it (on the
+card its graphs and their memory) right after the round's last
 local step, so that Eq. 1, the evaluation and the next round reuse the
 graphs' memory as an eager round reuses its activations': every round
 captures anew.  A captured step reads the frozen prefix and
@@ -36,7 +43,9 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from repro_torch.common.device import to_device
+from repro_torch import bridge
+from repro_torch.common.device import (DeviceLike, resolve_device,
+                                      to_device)
 from repro_torch.common.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.core.curriculum import CurriculumHP
 from repro_torch.core.progressive import (Adapter, CapturedStep,
@@ -218,7 +227,10 @@ class RoundOutcome:
     cohort_losses: Any           # (C,) per-cohort mean local loss (device)
     num_batches: List[int]       # true local steps per cohort (sim time)
     num_samples: List[float]     # effective per-cohort sample counts
-    n_uploads: Optional[int] = None   # cohorts that delivered an update
+    n_uploads: Optional[int] = None   # updates aggregated this round (no
+                                      # step-0 crashes, no async pending)
+    sim_times: Optional[List[float]] = None   # per-cohort simulated seconds
+    round_sim_time: Optional[float] = None    # async: open to last flush
 
 
 class ClientRuntime:
@@ -263,21 +275,38 @@ class ClientRuntime:
     def _run_stack(self, t: int, trainable, frozen, stack: RoundStack):
         raise NotImplementedError
 
-    def run_stacked(self, params, t: int, stack: RoundStack):
-        """One round on a prepared stack -> (new_trainable, metrics)."""
+    def _lost_round_extras(self, stack: RoundStack,
+                           cohorts: Sequence[int]) -> dict:
+        """``RoundOutcome`` extras of an all-dropped (lost) round: the
+        async runtime reports its virtual clock, which such a round never
+        advanced."""
+        return {}
+
+    def run_stacked(self, params, t: int, stack: RoundStack, **kw):
+        """One round on a prepared stack -> (new_trainable, metrics);
+        ``kw`` goes to the runtime's ``_run_stack``."""
         if float(np.sum(stack.weights)) <= 0:
             raise ValueError("round has zero total aggregation weight")
         frozen, trainable = self.adapter.split_stage(params, t)
-        return self._run_stack(t, trainable, frozen, stack)
+        return self._run_stack(t, trainable, frozen, stack, **kw)
 
-    def _lost_round(self, params, t: int, num_batches, num_samples):
+    def _round_from_stack(self, params, t: int, stack: RoundStack,
+                          cohorts: Sequence[int]):
+        """One prepared stack -> (new_trainable, metrics, extras); the
+        extras merge into the ``RoundOutcome``."""
+        new_trainable, metrics = self.run_stacked(params, t, stack)
+        return new_trainable, metrics, {}
+
+    def _lost_round(self, params, t: int, num_batches, num_samples,
+                    **extras):
         _, trainable = self.adapter.split_stage(params, t)
         return RoundOutcome(
             params=params, trainable=trainable,
             mean_loss=torch.tensor(float("nan"), device=self.device),
             cohort_losses=torch.zeros(len(num_batches), device=self.device),
             num_batches=list(num_batches),
-            num_samples=[float(n) for n in num_samples], n_uploads=0)
+            num_samples=[float(n) for n in num_samples], n_uploads=0,
+            **extras)
 
     def run_round(self, params, t: int, batchers: Sequence[Batcher],
                   cohorts: Sequence[int], local_epochs: int,
@@ -291,16 +320,20 @@ class ClientRuntime:
             stack = truncate_step_mask(stack, faults)
         if float(np.sum(stack.weights)) <= 0:        # all cohorts dropped
             return self._lost_round(params, t, stack.num_batches,
-                                    stack.weights)
-        new_trainable, metrics = self.run_stacked(params, t, stack)
+                                    stack.weights,
+                                    **self._lost_round_extras(stack,
+                                                              cohorts))
+        new_trainable, metrics, extras = self._round_from_stack(
+            params, t, stack, cohorts)
+        extras.setdefault("n_uploads", int(np.count_nonzero(
+            np.asarray(stack.weights) > 0)))
         return RoundOutcome(
             params=self.adapter.merge_stage(params, new_trainable, t),
             trainable=new_trainable,
             mean_loss=metrics["mean_local_loss"],
             cohort_losses=metrics["cohort_losses"],
             num_batches=list(stack.num_batches),
-            num_samples=[float(w) for w in stack.weights],
-            n_uploads=int(np.count_nonzero(np.asarray(stack.weights) > 0)))
+            num_samples=[float(w) for w in stack.weights], **extras)
 
 
 class SequentialRuntime(ClientRuntime):
@@ -399,30 +432,459 @@ class VectorizedRuntime(ClientRuntime):
             return step
         return self._stage_program(t, build)
 
-    def _run_stack(self, t, trainable, frozen, stack: RoundStack):
+    def _train_cohorts(self, t, trainable, frozen, stack: RoundStack):
+        """Every cohort's E masked local steps from ``trainable``:
+        (locals_ (C, ...), losses (C,)), the graphs released after the
+        last step (the carried locals_ stay valid)."""
         step = self._step(t)
         batches = to_device(stack.batches, self.device)
         locals_, losses = _local_training(
             lambda o, p, b, k: step(o, p, frozen, b, trainable, k),
             self.optimizer, trainable, batches, stack.step_mask)
-        self.release()      # the carried locals_ stay valid
+        self.release()
+        return locals_, losses
+
+    def _run_stack(self, t, trainable, frozen, stack: RoundStack):
+        locals_, losses = self._train_cohorts(t, trainable, frozen, stack)
         new_trainable, mean_loss = eq1_aggregate(locals_, stack.weights,
                                                  losses)
         return new_trainable, {"mean_local_loss": mean_loss,
                                "cohort_losses": losses}
 
 
+# =========================================================================== #
+# buffered-async (FedBuff-style) backend
+# =========================================================================== #
+@dataclasses.dataclass
+class FlushPlan:
+    """Arrival-order schedule of buffered-async flushes.
+
+    flushes    : delivery-index arrays, one per server flush, in arrival
+                 order (staleness is computed per entry at flush time by
+                 ``AsyncServerState.schedule``)
+    pending    : deliveries still in the buffer when the round closes
+    round_time : simulated time of the last flush (0.0 when nothing
+                 flushed): the round ends there, not at the slowest
+                 straggler
+    """
+    flushes: List[np.ndarray]
+    pending: np.ndarray
+    round_time: float
+
+
+def plan_flushes(sim_times: Sequence[float], buffer_size: int) -> FlushPlan:
+    """FedBuff flushes on a virtual clock: deliveries arrive at
+    ``sim_times`` and the server flushes every ``buffer_size`` arrivals (0:
+    one synchronous flush of everything).  Arrivals after the last full
+    buffer stay pending, so fewer than ``buffer_size`` arrivals flush
+    nothing.  Ties break by position (a stable sort)."""
+    t = np.asarray(sim_times, np.float64)
+    if t.ndim != 1 or t.size == 0:
+        raise ValueError(f"sim_times must be a non-empty 1-D sequence; "
+                         f"got shape {t.shape}")
+    if t.min() < 0:
+        raise ValueError(f"negative sim_time {t.min()}")
+    order = np.argsort(t, kind="stable")
+    C = t.size
+    K = C if buffer_size <= 0 else int(buffer_size)
+    n_full = C // K
+    flushes = [order[j * K:(j + 1) * K] for j in range(n_full)]
+    pending = order[n_full * K:]
+    round_time = float(t[flushes[-1][-1]]) if flushes else 0.0
+    return FlushPlan(flushes=flushes, pending=pending,
+                     round_time=round_time)
+
+
+@dataclasses.dataclass
+class BufferEntry:
+    """One delivered, not yet flushed client delta in the async buffer; it
+    is aggregated exactly once, however many rounds later."""
+    delta: Any            # f32 trainable-subtree delta against the pull
+    weight: float         # Eq. 1 sample weight (completed-step scaled)
+    loss: Any             # the client's mean local loss (0-d tensor)
+    pulled_version: int   # server version when the client pulled params
+    arrival_time: float   # absolute virtual-clock delivery time
+    stage: int            # progressive stage the delta trains
+    cohort: int           # cohort index within its round
+
+
+@dataclasses.dataclass
+class Flush:
+    """One server flush: its entries, each entry's staleness (server
+    versions since its pull), the version it updates and its time."""
+    entries: List[BufferEntry]
+    staleness: np.ndarray
+    version: int
+    time: float
+
+
+class AsyncServerState:
+    """The buffered-async server's state across rounds.
+
+    entries : deliveries waiting for a flush
+    version : server parameter version, one bump per flush; an entry's
+              staleness at its flush is ``version - pulled_version``
+    clock   : absolute virtual time of the last flush
+    """
+
+    def __init__(self):
+        self.entries: List[BufferEntry] = []
+        self.version: int = 0
+        self.clock: float = 0.0
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def evict_stale(self, max_staleness: Optional[int]) -> List[BufferEntry]:
+        """Drop (and return) the entries more than ``max_staleness``
+        versions behind (``None``: none), checked at round open."""
+        if max_staleness is None:
+            return []
+        keep, evicted = [], []
+        for e in self.entries:
+            dest = (evicted if self.version - e.pulled_version
+                    > max_staleness else keep)
+            dest.append(e)
+        self.entries = keep
+        return evicted
+
+    def drop_retired_stages(self, current_stage: int) -> List[BufferEntry]:
+        """Drop (and return) the entries of stages before
+        ``current_stage``: under a schedule that never revisits a stage
+        they can never flush."""
+        keep = [e for e in self.entries if e.stage >= current_stage]
+        dropped = [e for e in self.entries if e.stage < current_stage]
+        self.entries = keep
+        return dropped
+
+    def schedule(self, new_entries: Sequence[BufferEntry], buffer_size: int,
+                 stage: int) -> List[Flush]:
+        """Admit a round's deliveries and plan its flushes: pending entries
+        of ``stage`` merge with the new ones in delivery order, other
+        stages' entries stay untouched.  Every flush bumps ``version``;
+        flushed entries leave the buffer."""
+        eligible = [e for e in self.entries if e.stage == stage]
+        held = [e for e in self.entries if e.stage != stage]
+        eligible.extend(new_entries)
+        if not eligible:
+            return []
+        plan = plan_flushes([e.arrival_time for e in eligible], buffer_size)
+        flushes = []
+        for idx in plan.flushes:
+            group = [eligible[i] for i in idx]
+            staleness = np.asarray(
+                [self.version - e.pulled_version for e in group], int)
+            flushes.append(Flush(entries=group, staleness=staleness,
+                                 version=self.version,
+                                 time=float(group[-1].arrival_time)))
+            self.version += 1
+        self.entries = held + [eligible[i] for i in plan.pending]
+        if flushes:
+            self.clock = max(self.clock, flushes[-1].time)
+        return flushes
+
+    # the checkpoint's "async" slot, in the reference's format and layout
+    def state_dict(self):
+        """``(arrays, meta)``: per stage, the stacked f32 deltas (CPU
+        tensors in the reference's layout, the conv weights' last four
+        axes permuted, ``bridge.reference_layout(lead=1)``) and per-entry
+        ``weight`` (f64), ``loss`` (f32), ``pulled_version`` (i64),
+        ``arrival_time`` (f64) and ``cohort`` (i64); ``meta`` the version,
+        the clock and the buffer order as a per-entry stage list (flush
+        planning breaks ties by position).  Every delta must be
+        materialised, as it is between rounds."""
+        for e in self.entries:
+            if e.delta is None:
+                raise ValueError(
+                    "cannot serialize AsyncServerState mid-round: a buffer "
+                    "entry has no materialized delta")
+        order = [int(e.stage) for e in self.entries]
+        arrays = {}
+        for t in sorted(set(order)):
+            es = [e for e in self.entries if e.stage == t]
+            arrays[f"stage_{t}"] = {
+                "delta": bridge.reference_layout(
+                    tree_map(lambda *xs: torch.stack(xs).float(),
+                             *[e.delta for e in es]), lead=1),
+                "weight": torch.tensor([e.weight for e in es],
+                                       dtype=torch.float64),
+                "loss": torch.stack([torch.as_tensor(e.loss).reshape(())
+                                     .float().cpu() for e in es]),
+                "pulled_version": torch.tensor(
+                    [e.pulled_version for e in es], dtype=torch.int64),
+                "arrival_time": torch.tensor([e.arrival_time for e in es],
+                                             dtype=torch.float64),
+                "cohort": torch.tensor([e.cohort for e in es],
+                                       dtype=torch.int64),
+            }
+        meta = {"version": int(self.version), "clock": float(self.clock),
+                "stages": order}
+        return arrays, meta
+
+    @classmethod
+    def arrays_like(cls, adapter, params, meta):
+        """A template of ``state_dict``'s arrays for ``load_checkpoint``:
+        meta tensors (no storage) shaped as the reference lays out each
+        stage's trainable subtree under the entry axis."""
+        counts: Dict[int, int] = {}
+        for t in meta["stages"]:
+            counts[int(t)] = counts.get(int(t), 0) + 1
+        def empty(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        like = {}
+        for t, n in sorted(counts.items()):
+            trainable = adapter.split_stage(params, t)[1]
+            like[f"stage_{t}"] = {
+                "delta": bridge.reference_permuted(tree_map(
+                    lambda x, n=n: empty((n, *x.shape), torch.float32),
+                    trainable), lead=1),
+                "weight": empty(n, torch.float64),
+                "loss": empty(n, torch.float32),
+                "pulled_version": empty(n, torch.int64),
+                "arrival_time": empty(n, torch.float64),
+                "cohort": empty(n, torch.int64)}
+        return like
+
+    @classmethod
+    def from_state_dict(cls, meta, arrays, device: DeviceLike = None
+                        ) -> "AsyncServerState":
+        """The buffer ``state_dict`` saved: the same entries in the same
+        order, version and clock, each delta in the port's layout on
+        ``device`` in storage of its own, each loss a 0-d tensor there."""
+        dev = resolve_device(device)
+        state = cls()
+        state.version = int(meta["version"])
+        state.clock = float(meta["clock"])
+        stages = {k: dict(g, delta=bridge.from_reference(g["delta"], dev,
+                                                         lead=1),
+                          loss=torch.as_tensor(g["loss"]).to(dev))
+                  for k, g in arrays.items()}
+        cursor: Dict[int, int] = {}
+        for s in meta["stages"]:
+            s = int(s)
+            i = cursor.get(s, 0)
+            cursor[s] = i + 1
+            g = stages[f"stage_{s}"]
+            state.entries.append(BufferEntry(
+                delta=tree_map(lambda x, i=i: x[i].clone(), g["delta"]),
+                weight=float(g["weight"][i]),
+                loss=g["loss"][i].clone(),
+                pulled_version=int(g["pulled_version"][i]),
+                arrival_time=float(g["arrival_time"][i]),
+                stage=s, cohort=int(g["cohort"][i])))
+        return state
+
+
+class AsyncBufferedRuntime(VectorizedRuntime):
+    """FedBuff-style buffered-async server on a simulated clock (port of
+    the reference's ``AsyncBufferedRuntime`` without its mesh).
+
+    Each ``run_round`` opens at the server's virtual clock and version:
+    the cohorts pull the round's params (``pulled_version``), train as the
+    vectorized runtime's cohorts do (one captured cohort step, replayed E
+    times, its graphs released after the last), and deliver their deltas
+    ``num_batches / speed`` later.  The server flushes every K deliveries
+    (``buffer_size``; 0: everything delivered this round): Eq. 1 over the
+    flushed deltas, each weight scaled by its own staleness discount (true
+    versions behind), times ``server_lr``; every flush bumps the version.
+    Deliveries after the last full buffer stay in the persistent
+    ``AsyncServerState`` and flush in a later round of their stage; a
+    pending delta is a copy with storage of its own, so that it does not
+    keep the round's (C, ...) stack alive.  Cohorts of weight 0 never
+    deliver.  ``max_staleness`` evicts entries more than that many
+    versions behind at round open (off by default).  The round's simulated
+    time runs from its open to its last flush (0 when nothing flushed).
+    With K = C a fresh server's one flush at staleness 0 is the
+    vectorized round.  ``mesh`` and ``model_parallel != 1`` (the
+    reference's 2-D rounds) wait for the sharded runtime."""
+
+    name = "async"
+
+    def __init__(self, adapter: Adapter, optimizer, hp: CurriculumHP,
+                 device: torch.device, capture: bool = True, *,
+                 buffer_size: int = 0,
+                 staleness_schedule: str = "polynomial",
+                 staleness_alpha: float = 0.5, server_lr: float = 1.0,
+                 client_speeds=None, max_staleness: Optional[int] = None,
+                 mesh=None, model_parallel: int = 1):
+        if mesh is not None or model_parallel != 1:
+            raise ValueError(
+                f"AsyncBufferedRuntime with mesh={mesh!r}, model_parallel="
+                f"{model_parallel}: the sharded runtime is not yet ported")
+        super().__init__(adapter, optimizer, hp, device, capture)
+        agg.staleness_discount(np.zeros(1), staleness_schedule,
+                               staleness_alpha)    # validate eagerly
+        self.buffer_size = int(buffer_size)
+        self.staleness_schedule = staleness_schedule
+        self.staleness_alpha = float(staleness_alpha)
+        self.server_lr = float(server_lr)
+        self.client_speeds = client_speeds
+        self.max_staleness = (None if max_staleness is None
+                              else int(max_staleness))
+        self.state = AsyncServerState()
+
+    @property
+    def model_shards(self) -> int:
+        return 1
+
+    def reset_state(self):
+        """A fresh server: empty buffer, version 0, clock 0."""
+        self.state = AsyncServerState()
+
+    def load_server_state(self, state: AsyncServerState):
+        """Install a restored ``AsyncServerState``."""
+        self.state = state
+
+    def cohort_sim_times(self, stack: RoundStack,
+                         cohorts: Optional[Sequence[int]] = None
+                         ) -> np.ndarray:
+        """Simulated delivery durations: completed steps / client speed.
+        ``client_speeds`` is a ``{client_id: speed}`` dict or anything with
+        ``speeds(ids)`` (the streaming ``Fleet``)."""
+        steps = np.asarray(stack.num_batches, np.float64)
+        if self.client_speeds is None or cohorts is None:
+            return steps
+        if hasattr(self.client_speeds, "speeds"):
+            speeds = np.asarray(self.client_speeds.speeds(list(cohorts)),
+                                np.float64)
+        else:
+            speeds = np.asarray([self.client_speeds.get(c, 1.0)
+                                 for c in cohorts], np.float64)
+        return steps / np.maximum(speeds, 1e-9)
+
+    def _run_stack(self, t, trainable, frozen, stack: RoundStack, *,
+                   sim_times: Optional[Sequence[float]] = None):
+        """One buffered-async round (through ``run_stacked``); advances
+        the server's buffer, version and clock (``reset_state`` for a fresh
+        server).  ``sim_times`` are per-cohort delivery durations from the
+        round's open (default: the step counts, unit speed).  Metrics add
+        ``staleness`` (per cohort of this stack, -1 pending or crashed),
+        ``n_pending``, ``n_uploads``, ``n_carried``, ``n_evicted``,
+        ``server_version`` and ``sim_round_time``."""
+        C = stack.num_cohorts
+        weights = np.asarray(stack.weights, np.float64)
+        times = np.asarray(self.cohort_sim_times(stack)
+                           if sim_times is None else sim_times, np.float64)
+        locals_, losses = self._train_cohorts(t, trainable, frozen, stack)
+        # deltas against the pull-time params, in f32
+        deltas = tree_map(lambda loc, base: loc.float() - base.float(),
+                          locals_, trainable)
+        del locals_
+        active = np.flatnonzero(weights > 0)    # weight 0: never delivers
+        round_open = self.state.clock
+        pulled = self.state.version
+        evicted = self.state.evict_stale(self.max_staleness)
+        # this round's deliveries read the stacked deltas (one gather a
+        # flush); the pending tail copies its own slice below
+        new_entries = [
+            BufferEntry(delta=None, weight=float(weights[i]), loss=losses[i],
+                        pulled_version=pulled,
+                        arrival_time=round_open + float(times[i]),
+                        stage=t, cohort=int(i))
+            for i in active]
+        new_ids = {id(e) for e in new_entries}
+        flushes = self.state.schedule(new_entries, self.buffer_size, t)
+        for e in self.state.entries:
+            if e.delta is None:               # this round's pending tail
+                e.delta = tree_map(lambda x, i=e.cohort: x[i].clone(),
+                                   deltas)
+                e.loss = e.loss.clone()
+
+        new_tr = tree_map(lambda b: b.float(), trainable)
+        staleness = np.full(C, -1, int)
+        eff_w, flushed_losses, n_flushed, n_carried = [], [], 0, 0
+        for fl in flushes:
+            # fresh deliveries (one gather from the stacked deltas) before
+            # carried ones, as the reference stacks them: Eq. 1 commutes,
+            # but its f32 sums do not reassociate exactly
+            pairs = list(zip(fl.entries, fl.staleness))
+            fresh = [(e, s) for e, s in pairs if id(e) in new_ids]
+            carried = [(e, s) for e, s in pairs if id(e) not in new_ids]
+            parts = []
+            if fresh:
+                pos = torch.as_tensor([e.cohort for e, _ in fresh],
+                                      device=self.device)
+                parts.append(tree_map(lambda x: x[pos], deltas))
+            if carried:
+                parts.append(tree_map(lambda *xs: torch.stack(xs),
+                                      *[e.delta for e, _ in carried]))
+            stacked = parts[0] if len(parts) == 1 else tree_map(
+                lambda a, b: torch.cat([a, b]), *parts)
+            ordered = fresh + carried
+            update, d = agg.buffered_flush_average(
+                stacked, [e.weight for e, _ in ordered],
+                [s for _, s in ordered], schedule=self.staleness_schedule,
+                alpha=self.staleness_alpha)
+            del stacked
+            new_tr = tree_map(lambda b, u: b + self.server_lr * u.float(),
+                              new_tr, update)
+            for (e, s), di in zip(ordered, d):
+                n_flushed += 1
+                n_carried += id(e) not in new_ids
+                if id(e) in new_ids:
+                    staleness[e.cohort] = int(s)
+                eff_w.append(e.weight * float(di))
+                flushed_losses.append(e.loss)
+        new_trainable = tree_map(lambda b, ref: b.to(ref.dtype), new_tr,
+                                 trainable)
+        if n_flushed:
+            w = torch.from_numpy(
+                (np.asarray(eff_w) / np.sum(eff_w)).astype(np.float32))
+            mean_loss = (torch.stack(flushed_losses)
+                         * w.to(self.device)).sum()
+        else:
+            # deliveries only buffered: params unchanged, nothing averaged
+            mean_loss = torch.tensor(float("nan"), device=self.device)
+        return new_trainable, {
+            "mean_local_loss": mean_loss,
+            "cohort_losses": losses,
+            "staleness": staleness,
+            "n_pending": len(self.state),
+            "n_uploads": n_flushed,
+            "n_carried": n_carried,
+            "n_evicted": len(evicted),
+            "server_version": self.state.version,
+            "sim_round_time": (max(0.0, flushes[-1].time - round_open)
+                               if flushes else 0.0)}
+
+    def _round_from_stack(self, params, t, stack, cohorts):
+        sim_times = self.cohort_sim_times(stack, cohorts)
+        new_trainable, metrics = self.run_stacked(params, t, stack,
+                                                  sim_times=sim_times)
+        return new_trainable, metrics, {
+            "sim_times": [float(x) for x in sim_times],
+            "round_sim_time": float(metrics["sim_round_time"]),
+            "n_uploads": metrics["n_uploads"]}
+
+    def _lost_round_extras(self, stack, cohorts):
+        # nothing delivered, nothing flushed, the clock never advanced:
+        # not the synchronous straggler time of a barrier never held
+        return {"round_sim_time": 0.0,
+                "sim_times": [0.0] * stack.num_cohorts}
+
+
 RUNTIMES = {"sequential": SequentialRuntime,
-            "vectorized": VectorizedRuntime}
-NOT_PORTED = ("sharded", "async")
+            "vectorized": VectorizedRuntime,
+            "async": AsyncBufferedRuntime}
+NOT_PORTED = ("sharded",)
 
 
 def make_runtime(spec: Union[str, ClientRuntime], adapter: Adapter,
-                 optimizer, hp: CurriculumHP,
-                 device: torch.device) -> ClientRuntime:
-    """Resolve a runtime name (``FLConfig.runtime``) or pass an
-    already-constructed ``ClientRuntime`` through unchanged."""
+                 optimizer, hp: CurriculumHP, device: torch.device,
+                 **kwargs) -> ClientRuntime:
+    """Resolve a runtime name (``FLConfig.runtime``) into a runtime built
+    with ``kwargs``, or pass an already-constructed ``ClientRuntime``
+    through unchanged (constructor kwargs beside an instance raise: they
+    would be dropped)."""
     if isinstance(spec, ClientRuntime):
+        if kwargs:
+            raise ValueError(
+                f"make_runtime got an already-constructed "
+                f"{type(spec).__name__} AND constructor kwargs "
+                f"{sorted(kwargs)} — those would be silently ignored; "
+                f"configure the instance directly or pass the runtime "
+                f"name instead")
         return spec
     if spec in NOT_PORTED:
         raise ValueError(f"runtime {spec!r} is not yet ported; the port has "
@@ -432,4 +894,4 @@ def make_runtime(spec: Union[str, ClientRuntime], adapter: Adapter,
     except KeyError:
         raise ValueError(f"unknown runtime {spec!r}; the port has "
                          f"{sorted(RUNTIMES)}") from None
-    return cls(adapter, optimizer, hp, device)
+    return cls(adapter, optimizer, hp, device, **kwargs)

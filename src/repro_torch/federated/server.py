@@ -12,14 +12,15 @@
 round reads the device once, for its losses; ``evaluate`` reads it once.
 On a CUDA device the server makes cuDNN deterministic (deterministic
 algorithms, no autotuning), so a run repeats bit for bit, as the
-reference's rounds do.  The port has the sequential and vectorized
-runtimes and the random, TiFL and Oort policies; the async and sharded
-runtimes come with later parts.
+reference's rounds do.  The port has the sequential, vectorized and
+buffered-async (FedBuff) runtimes and the random, TiFL and Oort policies;
+the sharded runtime comes with a later part.
 
 Crash safety: ``save_state`` checkpoints the complete round-loop state in
 the reference's format (params in the reference's layout, through the
-bridge), so ``restore`` resumes a killed run bit for bit, and a checkpoint
-written by either package restores in the other.
+bridge; the async runtime's pending buffer too), so ``restore`` resumes a
+killed run bit for bit, and a checkpoint written by either package
+restores in the other.
 """
 from __future__ import annotations
 
@@ -42,7 +43,9 @@ from repro_torch.data.loader import Batcher
 from repro_torch.federated import aggregation as agg
 from repro_torch.federated.client import dropout_prob, sample_fault_steps
 from repro_torch.federated.devices import Fleet, MaterializedFleet
-from repro_torch.federated.runtime import ClientRuntime, make_runtime
+from repro_torch.federated.runtime import (AsyncBufferedRuntime,
+                                           AsyncServerState, ClientRuntime,
+                                           make_runtime)
 from repro_torch.federated.selection import SelectionPolicy, make_policy
 from repro_torch.optim.optimizers import sgd
 
@@ -69,7 +72,19 @@ class FLConfig:
     alpha: float = 1.0                  # Dirichlet concentration
     selection: str = "random"           # round-open cohort policy
     seed: int = 0
-    runtime: str = "sequential"
+    runtime: str = "sequential"         # sequential | vectorized | async
+    model_parallel: int = 1             # the reference's 2-D rounds: only
+                                        # 1 until the sharded runtime lands
+    # buffered-async (FedBuff) rounds; used when runtime == "async"
+    buffer_size: int = 0                # flush every K deliveries (0: all
+                                        # of a round's, synchronous); the
+                                        # rest stay buffered for later
+    staleness_schedule: str = "polynomial"   # constant | polynomial
+    staleness_alpha: float = 0.5        # d(s) = (1 + s)^-alpha
+    server_lr: float = 1.0              # scale on each flushed update
+    max_staleness: Optional[int] = None  # evict buffered deltas more than
+                                         # this many versions behind at
+                                         # round open (None: never)
     dropout_schedule: str = "none"      # none | constant | ramp
     dropout_rate: float = 0.0           # per-client fault probability
     # crash safety: periodic exact server checkpoints (run())
@@ -127,9 +142,17 @@ class NeuLiteServer:
                                lambda2_max=flc.lambda2, mu=flc.mu,
                                enabled=flc.curriculum,
                                use_hsic_kernel=flc.use_hsic_kernel)
-        self.runtime = make_runtime(
-            runtime if runtime is not None else flc.runtime, adapter,
-            self.optimizer, self.hp, self.device)
+        spec = runtime if runtime is not None else flc.runtime
+        rt_kwargs = {}
+        if spec == "async":
+            rt_kwargs = dict(buffer_size=flc.buffer_size,
+                             staleness_schedule=flc.staleness_schedule,
+                             staleness_alpha=flc.staleness_alpha,
+                             server_lr=flc.server_lr,
+                             max_staleness=flc.max_staleness,
+                             model_parallel=flc.model_parallel)
+        self.runtime = make_runtime(spec, adapter, self.optimizer, self.hp,
+                                    self.device, **rt_kwargs)
         self.test_batcher = test_batcher
         if isinstance(client_datasets, (list, tuple)):
             self.batchers = [Batcher(ds, flc.batch_size, seed=flc.seed + i,
@@ -153,6 +176,10 @@ class NeuLiteServer:
         self.selector = (selection_policy if selection_policy is not None
                          else make_policy(flc.selection))
         self._devices = None
+        if (isinstance(self.runtime, AsyncBufferedRuntime)
+                and self.runtime.client_speeds is None):
+            # the fleet's speeds drive the virtual clock (O(1) state)
+            self.runtime.client_speeds = self.fleet
         self.history: List[RoundResult] = []
         self.next_round: int = 0
 
@@ -168,7 +195,11 @@ class NeuLiteServer:
     def devices(self, profiles):
         # given profiles (Table 2 reuses a smaller model's budgets) must
         # reach selection: they replace the fleet, not only this view
-        self.fleet = MaterializedFleet(profiles)
+        new_fleet = MaterializedFleet(profiles)
+        if (isinstance(self.runtime, AsyncBufferedRuntime)
+                and self.runtime.client_speeds is self.fleet):
+            self.runtime.client_speeds = new_fleet
+        self.fleet = new_fleet
         self._devices = list(profiles)
 
     def _seq_len(self) -> int:
@@ -184,6 +215,12 @@ class NeuLiteServer:
     def run_round(self, r: int) -> RoundResult:
         flc = self.flc
         t = self.schedule.stage(r)
+        state = getattr(self.runtime, "state", None)
+        if state is not None and not getattr(self.schedule,
+                                             "revisits_stages", True):
+            # a monotone schedule never returns to an earlier stage: its
+            # pending async deltas could never flush
+            state.drop_retired_stages(t)
         req = self.stage_mem_requirement(t)
         selected, n_feasible = self.selector.select(
             self.rng, self.fleet, flc.clients_per_round, req, r)
@@ -207,8 +244,14 @@ class NeuLiteServer:
             losses = torch.cat([out.mean_loss.reshape(1).float(),
                                 out.cohort_losses.float()]).cpu().numpy()
             mean_loss = float(losses[0])
-            speeds = self.fleet.speeds(selected)
-            sim_times = [nb / s for s, nb in zip(speeds, out.num_batches)]
+            if out.round_sim_time is not None:
+                # async: open to the last flush (0 when it only buffered),
+                # never the slowest straggler
+                sim_times = [out.round_sim_time]
+            else:
+                speeds = self.fleet.speeds(selected)
+                sim_times = [nb / s
+                             for s, nb in zip(speeds, out.num_batches)]
             self.selector.observe(selected, losses[1:1 + len(selected)], r)
         else:
             upload, mean_loss, sim_times = 0, float("nan"), []
@@ -224,7 +267,9 @@ class NeuLiteServer:
                          n_feasible=n_feasible, mean_loss=mean_loss,
                          upload_bytes=upload,
                          sim_time=float(max(sim_times)) if sim_times else 0.0,
-                         test_acc=acc)
+                         test_acc=acc, server_version=getattr(
+                             getattr(self.runtime, "state", None),
+                             "version", None))
         self.history.append(rr)
         self.next_round = r + 1
         return rr
@@ -269,8 +314,10 @@ class NeuLiteServer:
         resume point; the reference's format, so its ``load_state`` reads
         it.  A round keeps no graph or optimizer state across rounds (each
         captures anew and makes its SGD state), so none is saved.  The
-        ``async`` slot, the reference's async buffer, is ``None``.
-        ``step`` defaults to ``next_round``, ``keep`` to
+        ``async`` slot holds the async runtime's pending buffer
+        (``AsyncServerState.state_dict``: stacked deltas in the
+        reference's layout and per-entry metadata), ``None`` on the
+        synchronous runtimes.  ``step`` defaults to ``next_round``, ``keep`` to
         ``flc.keep_checkpoints``."""
         meta = {
             "format": self._STATE_FORMAT,
@@ -285,6 +332,10 @@ class NeuLiteServer:
             "batcher_rngs": None,
             "test_batcher_rng": None,
         }
+        tree = {"params": bridge.reference_layout(self.params)}
+        state = getattr(self.runtime, "state", None)
+        if state is not None:
+            tree["async"], meta["async"] = state.state_dict()
         if isinstance(self.batchers, (list, tuple)):
             meta["batcher_rngs"] = [b.rng.bit_generator.state
                                     for b in self.batchers]
@@ -293,8 +344,8 @@ class NeuLiteServer:
             meta["test_batcher_rng"] = (
                 self.test_batcher.rng.bit_generator.state)
         return save_checkpoint(
-            directory, self.next_round if step is None else step,
-            {"params": bridge.reference_layout(self.params)}, meta=meta,
+            directory, self.next_round if step is None else step, tree,
+            meta=meta,
             keep=self.flc.keep_checkpoints if keep is None else keep)
 
     def load_state(self, path: str) -> None:
@@ -315,10 +366,12 @@ class NeuLiteServer:
                     f"checkpoint/server mismatch on {key}: saved "
                     f"{meta.get(key)!r}, this server has {have!r} — "
                     f"rebuild the server with the run's original config")
-        if meta["async"] is not None:
+        if meta["async"] is not None and not hasattr(self.runtime,
+                                                     "load_server_state"):
             raise ValueError(
-                f"{path!r} holds an async runtime's buffer: the async "
-                f"runtime is not yet ported")
+                f"{path!r} holds an async runtime's buffer, but this "
+                f"server's {self.runtime.name} runtime has no buffer to "
+                f"restore it into")
         batcher_rngs = meta["batcher_rngs"]
         if batcher_rngs is not None and (
                 not isinstance(self.batchers, (list, tuple))
@@ -329,9 +382,15 @@ class NeuLiteServer:
                 f"checkpoint carries {len(batcher_rngs)} client batcher RNG "
                 f"states but this server holds {held} materialized "
                 f"batchers")
-        tree, _ = load_checkpoint(path, {"params": self.params},
-                                  device="cpu")
+        like = {"params": self.params}
+        if meta["async"] is not None:
+            like["async"] = AsyncServerState.arrays_like(
+                self.adapter, self.params, meta["async"])
+        tree, _ = load_checkpoint(path, like, device="cpu")
         self.params = bridge.from_reference(tree["params"], self.device)
+        if meta["async"] is not None:
+            self.runtime.load_server_state(AsyncServerState.from_state_dict(
+                meta["async"], tree["async"], self.device))
         self.rng.bit_generator.state = meta["rng"]
         self.schedule.load_state_dict(meta["schedule"])
         self.selector.load_state_dict(meta["selector"])

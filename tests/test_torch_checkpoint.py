@@ -386,13 +386,16 @@ def test_restore_rejects_plain_param_checkpoint(data, tmp_path):
 
 
 def test_restore_rejects_an_async_buffer(data, tmp_path):
+    """A server whose runtime keeps no buffer refuses a checkpoint that
+    holds one."""
     srv = _port_server(data)
     path = srv.save_state(str(tmp_path))
     doc = json.loads(open(path + ".json").read())
     doc["meta"]["async"] = {"version": 3, "entries": []}
     with open(path + ".json", "w") as f:
         json.dump(doc, f)
-    with pytest.raises(ValueError, match="async.*not yet ported"):
+    with pytest.raises(ValueError, match="async runtime's buffer.*"
+                                         "sequential runtime has no buffer"):
         _port_restore(data, path, srv.flc)
 
 

@@ -100,6 +100,18 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     path = save_checkpoint(str(tmp_path), 0, {"w": torch.zeros(2)})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_checkpoint(path, {"w": torch.zeros(2)}, device=None)
+    from repro_torch.benchmarks import fl_round_throughput
+    from repro_torch.examples import async_fedbuff
+    from repro_torch.federated.runtime import AsyncServerState
+    for run in (lambda: async_fedbuff.main(rounds=1),
+                lambda: async_fedbuff.checkpointed_run(str(tmp_path), 1),
+                lambda: fl_round_throughput.run_async(rounds=1),
+                lambda: fl_round_throughput.run_population(
+                    populations=(1e2,), rounds=1),
+                lambda: AsyncServerState.from_state_dict(
+                    {"version": 0, "clock": 0.0, "stages": []}, {})):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run()
 
 
 def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
@@ -208,9 +220,13 @@ def test_unported_archs_and_runtimes_raise():
     from repro_torch.models.cnn import CNNConfig, build_units
     with pytest.raises(ValueError, match="alexnet"):
         build_units(CNNConfig(name="a", arch="alexnet"))
-    for name in ("sharded", "async"):
-        with pytest.raises(ValueError, match="not yet ported.*sequential"):
-            make_runtime(name, None, None, None, torch.device("cpu"))
+    from repro_torch.federated.runtime import AsyncBufferedRuntime
+    with pytest.raises(ValueError, match="not yet ported.*sequential"):
+        make_runtime("sharded", None, None, None, torch.device("cpu"))
+    # the async runtime is ported: the name builds it
+    assert isinstance(make_runtime("async", None, None, None,
+                                   torch.device("cpu")),
+                      AsyncBufferedRuntime)
     # every policy of the reference is ported: an unknown name raises and
     # lists all three
     with pytest.raises(ValueError,

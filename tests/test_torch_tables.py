@@ -28,7 +28,8 @@ from repro_torch import bridge
 from repro_torch.benchmarks import fig7_time, table1_accuracy, table2_complexity
 from repro_torch.core.progressive import make_adapter as t_make_adapter
 from repro_torch.federated.devices import Fleet, MaterializedFleet
-from repro_torch.federated.runtime import SequentialRuntime
+from repro_torch.federated.runtime import (AsyncBufferedRuntime,
+                                           SequentialRuntime)
 from repro_torch.federated.selection import OortPolicy, TiFLPolicy
 from repro_torch.federated.server import FLConfig as TFLConfig
 from repro_torch.federated.server import NeuLiteServer as TServer
@@ -160,9 +161,11 @@ def test_fleet_policy_and_runtime_arguments(clients):
     assert (a.n_feasible, a.n_selected) == (b.n_feasible, b.n_selected)
     vec = _port_server(clients, runtime="vectorized")
     assert vec.runtime.name == "vectorized"
-    for name in ("sharded", "async"):
-        with pytest.raises(ValueError, match="not yet ported"):
-            _port_server(clients, runtime=name)
+    with pytest.raises(ValueError, match="not yet ported"):
+        _port_server(clients, runtime="sharded")
+    asy = _port_server(clients, runtime="async")
+    assert isinstance(asy.runtime, AsyncBufferedRuntime)
+    assert asy.runtime.client_speeds is asy.fleet
     assert isinstance(_port_server(clients, fl={"selection": "tifl"})
                       .selector, TiFLPolicy)
 
