@@ -183,12 +183,37 @@
    read on the CPU the bits of ``to_reference`` of the card's params and
    buffer.  ViT-12 at full width on the async runtime (C = 4, K = 3, 6
    rounds, an evaluation each): K1-K3 twice a vectorized step, K4 once a
-   layer run per vectorized step and per evaluation batch.  The example
-   (``examples/async_fedbuff.py``) at its own size, its simulated sync and
-   async times and speedup printed; ``fl_round_throughput``'s async mode
+   layer run per vectorized step and per evaluation batch.  The example's
+   first two legs (``examples/async_fedbuff.py``, at its own size; its
+   third leg runs in main path 10), its simulated sync and async times
+   and speedup printed; ``fl_round_throughput``'s async mode
    at the reference's sizes and its population mode at 10^2, 10^4 and
    10^6 clients (rows added to ``chiprun_out/bench_fl_round.json``).
    Every nHSIC and K4 shape held; each part's seconds printed.
+
+18. Main path 10, after main path 9: rounds on a mesh of ranks
+   (``runtime="sharded"``, ``launch/mesh.py``), main path 1's server
+   throughout.  10a ``resnet18-sharded-1x1``: this process's one-rank
+   NCCL mesh, 4 rounds (one a stage), each round's params, cohort losses
+   and mean loss the bits of a vectorized run of the same server, K1-K3
+   twice a vectorized step, the group destroyed after.  10b
+   ``resnet18-sharded-2x1``: two children of this script (``--mesh-child``:
+   gloo, the ranks sharing the card, the kernels loaded), 4 rounds and one
+   3-cohort round (a cohort padded); the ranks the same bits and 10a's
+   stacks, each round against the vectorized round from its own start
+   params on the same stack at main path 6's bar (TOL of the largest
+   update, or 10x the vectorized round's own movement under a 1e-7
+   change), K1-K3 twice a vectorized step on each rank.  10c
+   ``resnet18-async-sharded-2x1``: main path 9's async server in that
+   world, 8 rounds: the host numbers of main path 9's run to the last
+   one, the round after 0, 2, 4 and 6 rounds replayed here by the
+   one-process async runtime from the world's state at that bar, the
+   round-4 checkpoint restored here to the world's bits.  10d
+   ``resnet18-sharded-2x2``: a world of 4 (data 2 x model 2), 4 rounds,
+   10b's checks and ``held_trainable_bytes`` below 0.65 of 10a's at every
+   stage; in that world the throughput's ``--model-parallel 2`` rows
+   (added to ``chiprun_out/bench_fl_round.json``) and the example's third
+   leg.
 
 Each main path is driven with the launch counts set to 0 just before it
 and read just after.  Prints the card's name and power limit, a JSON line
@@ -3780,7 +3805,7 @@ def watch_async(torch, np, server):
     log = {"rounds": [], "flushes": [], "flushed": [], "first": None}
     run = rt.run_stacked
 
-    def recorded(params, t, stack, *, sim_times=None):
+    def recorded(params, t, stack, *, sim_times=None, **kw):
         state, v0 = rt.state, rt.state.version
         schedule = state.schedule
 
@@ -3798,7 +3823,7 @@ def watch_async(torch, np, server):
             log["first"] = (tree_map(torch.clone, params), t, stack)
         state.schedule = planned
         try:
-            out = run(params, t, stack, sim_times=sim_times)
+            out = run(params, t, stack, sim_times=sim_times, **kw)
         finally:
             del state.schedule
         m = out[1]
@@ -4019,7 +4044,8 @@ def async_path(torch, kernels, np):
     print(f"  main path 9 ResNet18 phases (s): "
           f"{ {k: round(v, 1) for k, v in took.items()} }", flush=True)
     return ({"rounds": rounds, "buffer": buffer, "k0": k0,
-             "repeats": repeats, "resume": resume, "seconds": took},
+             "repeats": repeats, "resume": resume, "seconds": took,
+             "final_params": first[0]},
             {n: counts[n] + counts2[n] + rcounts[n] for n in counts})
 
 
@@ -4187,15 +4213,16 @@ def async_vit_path(torch, kernels, np):
 
 
 def async_example_phase(torch, kernels):
-    """``examples/async_fedbuff.py``'s ``main`` on the card at its own
-    size: the synchronous (vectorized) leg, then the async leg; prints the
-    simulated times and the speedup; K1-K3 launch alike, K4 never; every
-    nHSIC shape held."""
+    """``examples/async_fedbuff.py``'s first two legs on the card at its
+    own size (``one_process_legs``: the synchronous (vectorized) leg, then
+    the async leg; its third leg runs in main path 10's world of 4);
+    prints the simulated times and the speedup; K1-K3 launch alike, K4
+    never; every nHSIC shape held."""
     from repro_torch.examples import async_fedbuff
     reset_all(kernels)
     t0 = time.perf_counter()
     with nhsic_shapes_seen() as seen, contextlib.redirect_stdout(sys.stderr):
-        res = async_fedbuff.main(device="cuda")
+        res = async_fedbuff.one_process_legs(device="cuda")
     seconds = time.perf_counter() - t0
     counts = read_all(kernels)
     hist = res.pop("history")
@@ -4244,6 +4271,569 @@ def async_throughput_phase(torch, kernels):
           f"launches {counts}; phases (s) "
           f"{ {k: round(v, 1) for k, v in took.items()} }", flush=True)
     return {"async": rows, "population": pop, "seconds": took}, counts
+
+
+# --------------------------------------------------------------------------- #
+# main path 10: rounds on a mesh of ranks
+# --------------------------------------------------------------------------- #
+MESH_ROUNDS = 4               # 10a, 10b, 10d: one round a stage
+MESH_CHILD_TIMEOUT = 900
+MESH_HELD_BAR = 0.65          # the reference's bar (tests/test_runtime.py)
+# 10c: a one-process async round replayed from the world's state after
+# these many rounds (a fresh server, then its checkpoints)
+ASYNC_REPLAYS = (0, 2, 4, 6)
+
+
+def _digest(tree):
+    """sha256 of a tree's leaves' bytes, in leaf order."""
+    import hashlib
+    h = hashlib.sha256()
+    for x in _leaves(tree):
+        h.update(x.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _stack_digest(stack):
+    """A round's cohorts' weights, step counts and step mask, hashed."""
+    from repro_torch.federated.runtime import _round_digest
+    return _round_digest(stack, None).tolist()
+
+
+def mesh_record(server):
+    """Per round, as the runtime runs it: its start params, stage and stack
+    (the params on the host), the new trainable (on the host), the cohort
+    and mean losses, its vectorized steps and ``held_trainable_bytes``."""
+    seen = []
+    run = server.runtime.run_stacked
+
+    def recorded(params, t, stack, **kw):
+        out = run(params, t, stack, **kw)
+        seen.append(dict(start=_on("cpu", params), t=t, stack=stack,
+                         new=_on("cpu", out[0]),
+                         cohort_losses=out[1]["cohort_losses"].cpu(),
+                         mean_loss=out[1]["mean_local_loss"].cpu(),
+                         steps=stack.max_steps, held=getattr(
+                             server.runtime, "held_trainable_bytes", None)))
+        return out
+
+    server.runtime.run_stacked = recorded
+    return seen
+
+
+def _against_vectorized(torch, rt, start, t, stack, new):
+    """A round on a mesh (``new``, from ``start`` on ``stack``) against the
+    vectorized runtime's round from the same params on the same stack, at
+    main path 6's bar: TOL of the vectorized round's largest update, or
+    10x its own movement under a 1e-7 relative change of its start where
+    that exceeds TOL / 10.  Returns (rel, bar, movement)."""
+    from repro_torch.common.tree import tree_map
+    on = _on(rt.device, start)
+    ref, _ = rt.run_stacked(on, t, stack)
+    moved, _ = rt.run_stacked(tree_map(lambda p: p * (1 + 1e-7), on), t,
+                              stack)
+    ref, moved = _on("cpu", ref), _on("cpu", moved)
+    _, begin = rt.adapter.split_stage(start, t)
+    sens = _update_rel(moved, ref, begin)
+    bar = max(TOL, 10 * sens) if sens > TOL / 10 else TOL
+    return _update_rel(new, ref, begin), bar, sens
+
+
+def three_cohort_stack(server):
+    """10b's padded round: clients 0-2 of main path 1's fleet, one epoch,
+    their batchers seeded afresh (the same stack in every process)."""
+    from repro_torch.data.loader import Batcher, stack_round
+    batchers = [Batcher(server.batchers[c].ds, server.flc.batch_size,
+                        seed=SEED + c, kind="image") for c in range(3)]
+    return stack_round(batchers, range(3), local_epochs=1)
+
+
+def mesh_1x1_path(torch, kernels, np):
+    """10a, ``resnet18-sharded-1x1``: main path 1's server with
+    ``runtime="sharded"`` on this process's one-rank NCCL mesh, MESH_ROUNDS
+    rounds, against a vectorized run of the same server: every round's
+    params, cohort losses and mean loss the same bits, K1-K3 twice a
+    vectorized step.  Returns the rows (the held bytes of each stage) and
+    the vectorized rounds' stacks; destroys the process group."""
+    import torch.distributed as dist
+    out = {}
+    vec = cnn_server(np, quiet=True, runtime="vectorized")
+    vseen = mesh_record(vec)
+    vrounds = run_rounds(torch, vec, kernels, MESH_ROUNDS, quiet=True)
+    del vec.runtime.run_stacked
+    sh = cnn_server(np, quiet=True, runtime="sharded")
+    mesh = sh.runtime.mesh
+    out["mesh"] = dict(mesh.shape, backend=mesh.backend)
+    check(mesh.shape == {"data": 1, "model": 1} and mesh.backend == "nccl",
+          f"10a: a one-rank NCCL mesh expected, got {out['mesh']}")
+    sseen = mesh_record(sh)
+    reset_all(kernels)
+    srounds = run_rounds(torch, sh, kernels, MESH_ROUNDS, quiet=True)
+    counts = read_all(kernels)
+    del sh.runtime.run_stacked
+    rows = []
+    for r, (v, s, vr, sr) in enumerate(zip(vseen, sseen, vrounds,
+                                           srounds)):
+        bits = (all(torch.equal(a, b) for a, b in zip(
+            _leaves(v["new"]), _leaves(s["new"]), strict=True))
+            and torch.equal(v["cohort_losses"], s["cohort_losses"])
+            and torch.equal(v["mean_loss"], s["mean_loss"]))
+        rows.append(dict(round=r, stage=s["t"], bits=bits,
+                         vectorized_seconds=vr["seconds"],
+                         sharded_seconds=sr["seconds"], steps=s["steps"],
+                         launches=sr["launches"],
+                         held_trainable_bytes=s["held"]))
+        print(f"  round {r} (stage {s['t']}): sharded {sr['seconds']:.3f} "
+              f"s/round, vectorized {vr['seconds']:.3f}; the same bits: "
+              f"{bits}; held {s['held']} bytes", flush=True)
+        check(bits, f"10a round {r}: the 1x1 sharded round is not the "
+              f"vectorized round's bits")
+        check(all(sr["launches"][n] == 2 * s["steps"] for n in STREAMING),
+              f"10a round {r}: launches {sr['launches']}, expected 2 a "
+              f"vectorized step ({s['steps']})")
+    check(all(torch.equal(a, b) for a, b in zip(
+        _leaves(vec.params), _leaves(sh.params), strict=True)),
+          "10a: the servers' params differ after the rounds")
+    out["rounds"] = rows
+    dist.destroy_process_group()
+    stacks = [v["stack"] for v in vseen]
+    del vec, sh, vseen, sseen
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, stacks, counts
+
+
+def _run_children(kind, world, directory):
+    """``world`` children of this script (``--mesh-child``), started
+    together and waited for; each rank's JSON result and the seconds."""
+    import subprocess
+    procs, logs = [], []
+    for rank in range(world):
+        log = open(os.path.join(directory, f"{kind}_rank{rank}.log"), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.realpath(__file__), "--mesh-child",
+             directory, str(rank), str(world), kind], stdout=log,
+            stderr=subprocess.STDOUT))
+    t0 = time.perf_counter()
+    try:
+        codes = [p.wait(timeout=MESH_CHILD_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    seconds = time.perf_counter() - t0
+    if any(codes):
+        tails = []
+        for rank in range(world):
+            with open(os.path.join(directory,
+                                   f"{kind}_rank{rank}.log")) as f:
+                tails.append(f"--- rank {rank}:\n{f.read()[-3000:]}")
+        raise SmokeError(f"{kind} children exited with {codes}:\n"
+                         + "\n".join(tails))
+    results = []
+    for rank in range(world):
+        with open(os.path.join(directory, f"{kind}_rank{rank}.json")) as f:
+            results.append(json.load(f))
+    return results, seconds
+
+
+def _child_rounds(torch, kernels, server, n):
+    """``n`` rounds of a mesh child's server, recorded: per round its
+    stage, vectorized steps, K1-K3 launches, seconds, held bytes, the
+    digests of its stack and new trainable and its losses; and each
+    round's (start params, new trainable) on the host."""
+    seen = mesh_record(server)
+    reset_all(kernels)
+    rounds = run_rounds(torch, server, kernels, n, quiet=True)
+    del server.runtime.run_stacked
+    rows = [dict(stage=s["t"], steps=s["steps"], launches=r["launches"],
+                 seconds=r["seconds"], held=s["held"],
+                 stack=_stack_digest(s["stack"]), digest=_digest(s["new"]),
+                 cohort_losses=s["cohort_losses"].tolist(),
+                 mean_loss=float(s["mean_loss"]))
+            for s, r in zip(seen, rounds)]
+    return rows, [(s["start"], s["new"]) for s in seen]
+
+
+def _host_numbers(rounds):
+    """What a run's host decides, round by round: cohorts' counts,
+    feasibility, upload bytes, simulated time, version, whether the round
+    flushed (its loss is NaN where not), and the async log's deliveries,
+    flushes and staleness."""
+    keys = ("round_idx", "stage", "n_selected", "n_feasible",
+            "upload_bytes", "sim_time", "server_version")
+    log = ("vectorized_steps", "cohorts", "delivered", "staleness",
+           "n_uploads", "n_pending", "n_carried", "n_evicted",
+           "server_version", "sim_round_time")
+    return [dict({k: r[k] for k in keys},
+                 lost=math.isnan(r["mean_loss"]),
+                 log=None if r["async"] is None
+                 else {k: r["async"][k] for k in log})
+            for r in rounds]
+
+
+def mesh_child(directory, rank, world, kind):
+    """One rank of main path 10's worlds, in its own process (the ranks
+    sharing the card over gloo; the kernels the parent built, loaded):
+    ``"2x1"`` runs 10b (main path 1's server on the sharded runtime,
+    MESH_ROUNDS rounds, then one 3-cohort round) and 10c (main path 9's
+    async server, ASYNC_ROUNDS rounds, checkpointing every ASYNC_EVERY);
+    ``"2x2"`` runs 10d (the same server with ``model_parallel=2``), the
+    throughput's model-parallel rows and the example's third leg.  Rank 0
+    writes the rounds' params; every rank its JSON."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch.distributed as dist
+
+    from repro_torch.kernels.build import library_path
+    from repro_torch.kernels.flash_attention import kernel as fkernel
+    from repro_torch.kernels.hsic_gram import kernel
+    from repro_torch.kernels.slstm_scan import kernel as skernel
+    from repro_torch.launch.mesh import init_rank
+    rank, world = int(rank), int(world)
+    kernels = (kernel, fkernel, skernel)
+    card_settings(torch)
+    for k in kernels:
+        if not library_path(k.SOURCE).exists():
+            print(f"mesh child: {k.SOURCE} is not built", file=sys.stderr)
+            return 3
+        k.library()
+    device = init_rank(rank, world, "cuda", os.path.join(directory,
+                                                         "store"))
+    out = {"rank": rank}
+    saved = {}
+    t0 = time.perf_counter()
+    if kind == "2x1":
+        server = cnn_server(np, quiet=True, runtime="sharded")
+        out["mesh"] = dict(server.runtime.mesh.shape)
+        out["rounds"], saved["rounds"] = _child_rounds(
+            torch, kernels, server, MESH_ROUNDS)
+        stack = three_cohort_stack(server)
+        params = server.adapter.init_params(SEED, server.device)
+        reset_all(kernels)
+        new, m = server.runtime.run_stacked(params, 1, stack)
+        out["pad"] = dict(digest=_digest(new), launches=read_all(kernels),
+                          steps=stack.max_steps,
+                          cohort_losses=m["cohort_losses"].tolist())
+        saved["pad"] = _on("cpu", new)
+        del server, new
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["seconds_10b"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        server = cnn_server(np, quiet=True, checkpoint_dir=os.path.join(
+            directory, "async_ckpt"), **ASYNC_CKPT, **ASYNC_KW)
+        out["async_mesh"] = dict(server.runtime.mesh.shape)
+        log = watch_async(torch, np, server)
+        rounds, saved["async"] = [], []
+        for _ in range(ASYNC_ROUNDS):
+            rounds += run_rounds(torch, server, kernels, 1, quiet=True)
+            saved["async"].append(_on("cpu", server.params))
+        del server.runtime.run_stacked
+        async_launch_check(rounds, log, lambda a: {
+            n: 2 * a["vectorized_steps"] for n in STREAMING})
+        out["async"] = dict(
+            host=_host_numbers(rounds),
+            launches={n: sum(r["launches"][n] for r in rounds)
+                      for n in rounds[0]["launches"]},
+            buffer=check_async_log(log, server.runtime.state,
+                                   "10c async ResNet18"),
+            digest=_digest(server.params),
+            seconds=[r["seconds"] for r in rounds])
+        out["seconds_10c"] = time.perf_counter() - t1
+    else:
+        from repro_torch.benchmarks import fl_round_throughput as flr
+        from repro_torch.examples import async_fedbuff
+        server = cnn_server(np, quiet=True, runtime="sharded",
+                            model_parallel=2)
+        out["mesh"] = dict(server.runtime.mesh.shape)
+        out["rounds"], saved["rounds"] = _child_rounds(
+            torch, kernels, server, MESH_ROUNDS)
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["seconds_10d"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        out["throughput"] = [flr.bench_model_parallel(
+            device, kind_, 2, C, B, E, iters=2)
+            for kind_, C, B, E in flr.ASYNC_SETTINGS]
+        out["seconds_throughput"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        reset_all(kernels)
+        out["example"] = async_fedbuff.mesh_leg(
+            device, int(os.environ.get("FEDBUFF_ROUNDS", "6")),
+            async_fedbuff.N_TRAIN, async_fedbuff.N_TEST)
+        out["example"]["launches"] = read_all(kernels)
+        out["seconds_example"] = time.perf_counter() - t1
+    if rank == 0:
+        torch.save(saved, os.path.join(directory, f"{kind}_params.pt"))
+    with open(os.path.join(directory, f"{kind}_rank{rank}.json"),
+              "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _world_rounds_check(torch, name, results, saved, stacks, rt):
+    """A world's rounds: every rank the same bits and the stacks of 10a's
+    run, each round against the vectorized round from its own start
+    params on the same stack (``_against_vectorized``), K1-K3 twice a
+    vectorized step on each rank."""
+    rows = []
+    for r, ((start, new), stack) in enumerate(zip(saved, stacks)):
+        mine = results[0]["rounds"][r]
+        rel, bar, sens = _against_vectorized(torch, rt, start,
+                                             mine["stage"], stack, new)
+        row = dict(round=r, stage=mine["stage"], rel=rel, bar=bar,
+                   vectorized_eps_rel=sens,
+                   ranks_same=len({res["rounds"][r]["digest"]
+                                   for res in results}) == 1,
+                   stack_is_10a=all(res["rounds"][r]["stack"]
+                                    == _stack_digest(stack)
+                                    for res in results),
+                   launches_ok=all(
+                       res["rounds"][r]["launches"][n]
+                       == 2 * res["rounds"][r]["steps"]
+                       for res in results for n in STREAMING),
+                   seconds=[res["rounds"][r]["seconds"] for res in results],
+                   held_trainable_bytes=mine["held"])
+        rows.append(row)
+        print(f"  round {r} (stage {row['stage']}): {rel:.2e} of the "
+              f"largest update off the vectorized round from the same "
+              f"params (bar {bar:.1e}); s/round by rank "
+              f"{[round(x, 3) for x in row['seconds']]}; held "
+              f"{row['held_trainable_bytes']} bytes; ranks the same bits: "
+              f"{row['ranks_same']}", flush=True)
+        check(row["ranks_same"] and row["stack_is_10a"],
+              f"{name} round {r}: the ranks differ, or the stack is not "
+              f"10a's: {row}")
+        check(rel <= bar, f"{name} round {r}: {rel:.2e} of the largest "
+              f"update off the vectorized round (bar {bar:.1e})")
+        check(row["launches_ok"], f"{name} round {r}: K1-K3 not twice a "
+              f"vectorized step on every rank: "
+              f"{[res['rounds'][r]['launches'] for res in results]}")
+    return rows
+
+
+def _sum_launches(rows):
+    total = {}
+    for row in rows:
+        for n, c in row["launches"].items():
+            total[n] = total.get(n, 0) + c
+    return total
+
+
+def _child_counts(results, *parts):
+    """K1-K7 launches of a world's main-path runs, summed over ranks."""
+    total = {}
+    for res in results:
+        for part in parts:
+            for n, c in part(res).items():
+                total[n] = total.get(n, 0) + c
+    return total
+
+
+def _async_replay(torch, np, directory, k, world_after):
+    """10c's round k + 1 replayed in this process (the one-process async
+    runtime) from the world's state after k rounds (a fresh server, or
+    the world's round-k checkpoint), against the world's params after it
+    at main path 6's bar (its own movement from params x (1 + 1e-7))."""
+    from repro_torch.checkpoint import checkpoint_path
+    from repro_torch.common.tree import tree_map
+    from repro_torch.federated.server import NeuLiteServer
+
+    def server():
+        if k == 0:
+            return cnn_server(np, quiet=True, **ASYNC_KW)
+        adapter, clients, flc, test = cnn_setup(**ASYNC_KW)
+        return NeuLiteServer.restore(adapter, clients, flc, checkpoint_path(
+            os.path.join(directory, "async_ckpt"), k), test_batcher=test)
+
+    srv = server()
+    check(srv.runtime.mesh is None and srv.next_round == k,
+          f"10c replay {k}: not a one-process async server at round {k}")
+    start = _on("cpu", srv.params)
+    srv.run(1)
+    new = _on("cpu", srv.params)
+    srv = server()
+    srv.params = tree_map(lambda p: p * (1 + 1e-7), srv.params)
+    srv.run(1)
+    sens = _update_rel(_on("cpu", srv.params), new, start)
+    bar = max(TOL, 10 * sens) if sens > TOL / 10 else TOL
+    rel = _update_rel(world_after[k], new, start)
+    return dict(after=k, rel=rel, bar=bar, one_process_eps_rel=sens)
+
+
+def mesh_2x1_path(torch, kernels, np, stacks, rt, asy, directory):
+    """10b, ``resnet18-sharded-2x1``, and 10c,
+    ``resnet18-async-sharded-2x1``, in one world of 2 (``mesh_child``).
+    10b: the ranks the same bits, each round within main path 6's bar of
+    the vectorized round from its own start, K1-K3 twice a vectorized
+    step on each rank; the 3-cohort round (one cohort padded) likewise.
+    10c: the host numbers of main path 9's run to the last one, the ranks
+    the same bits, the rounds after ASYNC_REPLAYS replayed in one process
+    within the bar, and the round-4 checkpoint restored here giving the
+    world's round-4 params and buffer to the bit."""
+    from repro_torch.checkpoint import checkpoint_path
+    from repro_torch.federated.server import NeuLiteServer
+    results, seconds = _run_children("2x1", 2, directory)
+    saved = torch.load(os.path.join(directory, "2x1_params.pt"))
+    check(results[0]["mesh"] == {"data": 2, "model": 1},
+          f"10b: mesh {results[0]['mesh']}")
+    out = {"seconds": seconds, "mesh": results[0]["mesh"],
+           "child_seconds": {k: results[0][k] for k in ("seconds_10b",
+                                                        "seconds_10c")},
+           "rounds": _world_rounds_check(torch, "10b", results,
+                                         saved["rounds"], stacks, rt)}
+    server = cnn_server(np, quiet=True, runtime="vectorized")
+    stack = three_cohort_stack(server)
+    params = _on("cpu", server.adapter.init_params(SEED, "cpu"))
+    del server
+    rel, bar, sens = _against_vectorized(torch, rt, params, 1, stack,
+                                         saved["pad"])
+    pad = [res["pad"] for res in results]
+    out["pad"] = dict(rel=rel, bar=bar, vectorized_eps_rel=sens,
+                      cohort_losses=pad[0]["cohort_losses"])
+    check(len({p["digest"] for p in pad}) == 1 and rel <= bar
+          and len(pad[0]["cohort_losses"]) == 3
+          and all(p["launches"][n] == 2 * p["steps"] for p in pad
+                  for n in STREAMING),
+          f"10b: the 3-cohort round: {out['pad']}, {pad}")
+    print(f"  3 cohorts on 2 ranks (one padded): {rel:.2e} of the largest "
+          f"update off the vectorized round (bar {bar:.1e}), cohort losses "
+          f"{pad[0]['cohort_losses']}", flush=True)
+    # 10c against main path 9 and the one-process runtime
+    a = results[0]["async"]
+    want = _host_numbers(asy["rounds"])
+    same_host = all(res["async"]["host"] == want for res in results)
+    out["async"] = dict(mesh=results[0]["async_mesh"], host_same=same_host,
+                        buffer=a["buffer"],
+                        ranks_same=len({r["async"]["digest"]
+                                        for r in results}) == 1,
+                        seconds=a["seconds"])
+    print(f"  10c: mesh {results[0]['async_mesh']}; host numbers equal main "
+          f"path 9's: {same_host}; buffer {a['buffer']}; s/round "
+          f"{[round(x, 3) for x in a['seconds']]}", flush=True)
+    check(same_host, f"10c: the host numbers differ from main path 9's: "
+          f"{[res['async']['host'] for res in results]} against {want}")
+    check(out["async"]["ranks_same"], "10c: the ranks' params differ")
+    replays = [_async_replay(torch, np, directory, k, saved["async"])
+               for k in ASYNC_REPLAYS]
+    out["async"]["replays"] = replays
+    shown = ", ".join(f"after {r['after']}: {r['rel']:.2e} (bar "
+                      f"{r['bar']:.1e})" for r in replays)
+    print(f"  10c: a round replayed in one process from the world's "
+          f"state, against the world's: {shown}", flush=True)
+    check(all(r["rel"] <= r["bar"] for r in replays),
+          f"10c: a replayed round off the world's: {replays}")
+    adapter, clients, flc, test = cnn_setup(**ASYNC_KW)
+    restored = NeuLiteServer.restore(
+        adapter, clients, flc, checkpoint_path(os.path.join(
+            directory, "async_ckpt"), 4), test_batcher=test)
+    restore_bits = (
+        all(torch.equal(x.cpu(), y) for x, y in zip(
+            _leaves(restored.params), _leaves(saved["async"][3]),
+            strict=True))
+        and restored.runtime.mesh is None
+        and restored.runtime.state.version
+        == a["host"][3]["server_version"])
+    out["async"]["round4_restored_bits"] = restore_bits
+    check(restore_bits, "10c: the world-2 run's round-4 checkpoint, restored "
+          "in one process, is not its round-4 params")
+    print("  10c: the round-4 checkpoint restored in this process: the "
+          "world's round-4 params to the bit", flush=True)
+    del restored, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = _child_counts(results, lambda r: _sum_launches(r["rounds"]),
+                           lambda r: r["pad"]["launches"],
+                           lambda r: r["async"]["launches"])
+    return out, counts
+
+
+def mesh_2x2_path(torch, kernels, np, stacks, rt, held_1x1, directory):
+    """10d, ``resnet18-sharded-2x2``: a world of 4 (data 2 x model 2,
+    ``mesh_child``): the ranks the same bits, each round within the bar of
+    the vectorized round from its own start, ``held_trainable_bytes``
+    below MESH_HELD_BAR of 10a's at every stage, K1-K3 twice a vectorized
+    step on each rank; then, in that world, the throughput's
+    ``--model-parallel 2`` rows (added to BENCH_FL_OUT) and the example's
+    third leg."""
+    from repro_torch.benchmarks import fl_round_throughput as flr
+    results, seconds = _run_children("2x2", 4, directory)
+    saved = torch.load(os.path.join(directory, "2x2_params.pt"))
+    check(results[0]["mesh"] == {"data": 2, "model": 2},
+          f"10d: mesh {results[0]['mesh']}")
+    rows = _world_rounds_check(torch, "10d", results, saved["rounds"],
+                               stacks, rt)
+    for row, whole in zip(rows, held_1x1):
+        row["held_1x1"] = whole
+        row["held_ratio"] = row["held_trainable_bytes"] / whole
+        check(row["held_ratio"] < MESH_HELD_BAR,
+              f"10d round {row['round']}: held {row['held_ratio']:.3f} of "
+              f"10a's (bar {MESH_HELD_BAR})")
+    print(f"  held against 10a: "
+          f"{[round(r['held_ratio'], 4) for r in rows]}", flush=True)
+    tput = results[0]["throughput"]
+    flr.merge_bench_json(BENCH_FL_OUT, {"model_parallel": tput},
+                         torch.device("cuda"))
+    for row in tput:
+        base = row["rows"]["replicated"]["held_trainable_bytes"]
+        for name, r in row["rows"].items():
+            print(f"  throughput {row['model']} mesh {row['mesh']} {name}: "
+                  f"{r['rounds_per_s']:.2f} rounds/s, held "
+                  f"{r['held_trainable_bytes']} bytes "
+                  f"({r['held_trainable_bytes'] / base:.3f}x)", flush=True)
+    ex = results[0]["example"]
+    check(ex["mesh"] == {"data": 2, "model": 2}
+          and 0.0 <= ex["acc"] <= 1.0 and ex["server_version"] > 0,
+          f"10d: the example's third leg: {ex}")
+    print(f"  the example's third leg: mesh {ex['mesh']}, acc "
+          f"{ex['acc']:.4f}, simulated {ex['sim_time']:.1f} s, server "
+          f"version {ex['server_version']}", flush=True)
+    out = {"seconds": seconds, "rounds": rows, "throughput": tput,
+           "example": ex,
+           "child_seconds": {k: results[0][k] for k in (
+               "seconds_10d", "seconds_throughput", "seconds_example")}}
+    return out, _child_counts(results, lambda r: _sum_launches(r["rounds"]))
+
+
+def mesh_path(torch, kernels, np, asy):
+    """Main path 10: 10a in this process, then 10b and 10c in a world of 2
+    and 10d in a world of 4, all on this card; each part's seconds."""
+    import tempfile
+    took, out = {}, {}
+    t0 = time.perf_counter()
+    out["1x1"], stacks, counts = mesh_1x1_path(torch, kernels, np)
+    took["10a"] = time.perf_counter() - t0
+    held = [row["held_trainable_bytes"] for row in out["1x1"]["rounds"]]
+    # the one-process reference of 10b-10d's rounds
+    rt = cnn_server(np, quiet=True, runtime="vectorized").runtime
+    with tempfile.TemporaryDirectory(prefix="neulite-mesh-") as tmp:
+        t1 = time.perf_counter()
+        d2 = os.path.join(tmp, "2x1")
+        os.makedirs(d2)
+        out["2x1"], c2 = mesh_2x1_path(torch, kernels, np, stacks, rt, asy,
+                                       d2)
+        took["10b+10c"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        d4 = os.path.join(tmp, "2x2")
+        os.makedirs(d4)
+        out["2x2"], c4 = mesh_2x2_path(torch, kernels, np, stacks, rt, held,
+                                       d4)
+        took["10d"] = time.perf_counter() - t1
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    took["total"] = time.perf_counter() - t0
+    out["seconds"] = took
+    print(f"  main path 10 parts (s): "
+          f"{ {k: round(v, 1) for k, v in took.items()} }", flush=True)
+    return out, {"mesh_1x1": counts, "mesh_2x1": c2, "mesh_2x2": c4}
 
 
 def main():
@@ -4404,6 +4994,10 @@ def main():
     phase("main path 9: the throughput's async and population modes")
     asy["throughput"], atcounts = async_throughput_phase(torch, kernels)
 
+    phase("main path 10: rounds on a mesh of ranks")
+    mesh, mcounts = mesh_path(torch, kernels, np, asy)
+    del asy["final_params"]
+
     phase("main path 7: Tables 1 and 2 at full width")
     tables, tabcounts = tables_path(torch, kernels, np)
     phase("Fig. 7: stage step against full step")
@@ -4430,7 +5024,9 @@ def main():
                "async_throughput": atcounts, "tables": tabcounts,
                "fig7": f7counts, "fig6": fcounts, "resume": rescounts,
                "fig2": f2counts, "fig5": f5counts, "fig8": f8counts,
-               "quickstart": qcounts}
+               "quickstart": qcounts,
+               **{p: {n: c.get(n, 0) for n in xcounts}
+                  for p, c in mcounts.items()}}
     launches = {n: sum(c[n] for c in by_path.values()) for n in xcounts}
     sources = {n: os.path.relpath(k.SOURCE, ROOT) for k in kernels
                for n in k.LAUNCHES}
@@ -4524,7 +5120,7 @@ def main():
                    "fl_round_throughput": throughput, "tables": tables,
                    "fig7": fig7_rows, "fig6": fig6_out, "resume": resume,
                    "fig2": fig2_out, "fig5": fig5_out, "fig8": fig8_out,
-                   "quickstart": quick_out, "async": asy,
+                   "quickstart": quick_out, "async": asy, "mesh": mesh,
                    "kernels": out_kernels, "device": device}, f, indent=1)
     phase("done")
     print(smi, flush=True)
@@ -4536,4 +5132,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--resume-child"]:
         sys.exit(resume_child(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--mesh-child"]:
+        sys.exit(mesh_child(*sys.argv[2:6]))
     sys.exit(main())

@@ -12,6 +12,9 @@ made once, before timing), for:
   vectorized           ``VectorizedRuntime``: one step of all C cohorts
                        (``torch.func.vmap``) captured, E replays of it,
                        then the Eq. 1 sum
+  sharded              ``ShardedRuntime`` on this process's one-rank mesh:
+                       the vectorized round, then Eq. 1 as one all-reduce
+                       per leaf over one rank
 
 at the reference's settings (ResNet18 at width 0.0625 on 8x8 images, a
 ViT of 4 layers at d_model 64 on 16x16 images; 4 stages, C = 16, B = 4,
@@ -33,6 +36,14 @@ barrier (the slowest cohort), the carried and pending entries, the server
 version, the flushed tree's trainable bytes and each round's wall
 seconds.
 
+``--model-parallel K`` spawns instead a world of max(4, 2K) ranks
+(``launch.mesh.spawn_world``; on one card they share it, over gloo) and
+reports, on the reference's settings, rounds/s of the replicated
+vectorized round on every rank beside the sharded round on the (W/K, K)
+mesh, and each one's ``held_trainable_bytes`` (one copy of the stage's
+trainable tree as a rank holds it); with ``--runtime async`` the async
+mode runs the same way on that mesh.
+
 ``--population N ...`` sweeps the population instead: full NeuLite rounds
 (vectorized runtime, nHSIC through the kernels) at a fixed cohort of 8
 over the streaming ``Fleet`` and ``ProceduralClients`` of N devices;
@@ -44,8 +55,8 @@ rounds/s after a warm-up of one round a stage, the Python heap's peak
       --out chiprun_out/bench_fl_round.json
 
 Every mode adds its rows to ``--out`` beside the rows already there.  On
-the card only: the times are the card's.  The sharded and model-parallel
-modes of the reference's script wait for the port's sharded runtime.
+the card only: the times are the card's.  Ranks sharing one card time
+gloo on one card, not NCCL across cards.
 """
 from __future__ import annotations
 
@@ -64,7 +75,8 @@ from repro_torch.benchmarks.common import (device_meta, timeit,
 from repro_torch.common.device import resolve_device
 from repro_torch.common.tree import tree_leaves
 
-VARIANTS = ("sequential-eager", "sequential-captured", "vectorized")
+VARIANTS = ("sequential-eager", "sequential-captured", "vectorized",
+            "sharded")
 # (model, scale, cohorts, batch, local steps)
 SETTINGS = [("cnn", "reference", 16, 4, 2), ("vit", "reference", 16, 4, 2),
             ("cnn", "full", 4, 32, 2), ("cnn", "full", 16, 32, 2),
@@ -120,6 +132,7 @@ def bench(kind: str, scale: str, num_cohorts: int, batch_size: int,
           local_steps: int, device: torch.device, iters: int = 3) -> dict:
     """Rounds/s of each of ``VARIANTS`` on one stage-``STAGE`` round."""
     from repro_torch.federated.runtime import (SequentialRuntime,
+                                               ShardedRuntime,
                                                VectorizedRuntime)
     adapter, params, opt, hp, stack = setup(kind, scale, num_cohorts,
                                             batch_size, local_steps, device)
@@ -127,7 +140,8 @@ def bench(kind: str, scale: str, num_cohorts: int, batch_size: int,
         "sequential-eager": SequentialRuntime(adapter, opt, hp, device,
                                               capture=False),
         "sequential-captured": SequentialRuntime(adapter, opt, hp, device),
-        "vectorized": VectorizedRuntime(adapter, opt, hp, device)}
+        "vectorized": VectorizedRuntime(adapter, opt, hp, device),
+        "sharded": ShardedRuntime(adapter, opt, hp, device)}
     out = {}
     for name, runtime in runtimes.items():
         def one_round(rt=runtime):
@@ -138,12 +152,87 @@ def bench(kind: str, scale: str, num_cohorts: int, batch_size: int,
     return out
 
 
+def bench_model_parallel(device: torch.device, kind: str,
+                         model_parallel: int, num_cohorts: int,
+                         batch_size: int, local_steps: int,
+                         iters: int = 3) -> dict:
+    """Per rank of a world: the replicated vectorized round (every rank
+    the whole round, no collective) against the sharded round on the
+    (W/K, K) mesh, as the reference's ``bench_model_parallel``: rounds/s
+    (the ranks meet at a barrier before each timed round) and
+    ``held_trainable_bytes``."""
+    from repro_torch.federated.runtime import (ShardedRuntime,
+                                               VectorizedRuntime)
+    from repro_torch.launch import sharding
+    adapter, params, opt, hp, stack = setup(kind, "reference", num_cohorts,
+                                            batch_size, local_steps, device)
+    sharded = ShardedRuntime(adapter, opt, hp, device,
+                             model_parallel=model_parallel)
+    runtimes = {"replicated": VectorizedRuntime(adapter, opt, hp, device),
+                f"model-sharded x{sharded.model_shards}": sharded}
+    trainable = adapter.split_stage(params, STAGE)[1]
+    out = {}
+    for name, rt in runtimes.items():
+        def one_round(rt=rt):
+            sharded.mesh.barrier()
+            new, metrics = rt.run_stacked(params, STAGE, stack)
+            return tree_leaves(new)[0], metrics["mean_local_loss"]
+
+        rps = 1.0 / timeit(one_round, warmup=1, iters=iters)
+        held = getattr(rt, "held_trainable_bytes", None)
+        out[name] = {"rounds_per_s": rps, "held_trainable_bytes":
+                     sharding.per_device_nbytes(trainable)
+                     if held is None else held}
+    return {"model": kind, "cohorts": num_cohorts, "batch": batch_size,
+            "local_steps": local_steps, "stage": STAGE,
+            "mesh": dict(sharded.mesh.shape),
+            "backend": sharded.mesh.backend, "rows": out}
+
+
+def _rank_threads(device: torch.device):
+    """One torch thread a rank on the CPU, where the ranks share the
+    cores; the default on the card."""
+    return 1 if device.type == "cpu" else None
+
+
+def world_size(model_parallel: int) -> int:
+    """The world the model-parallel modes spawn: max(4, 2K) ranks."""
+    return max(4, 2 * int(model_parallel))
+
+
+def run_model_parallel(device=None, out=None, model_parallel: int = 2,
+                       settings=ASYNC_SETTINGS, iters: int = 3) -> list:
+    """``bench_model_parallel`` of each setting in a spawned world of
+    ``world_size(model_parallel)`` ranks; rank 0's rows, printed and, with
+    ``out``, added to it under ``"model_parallel"``."""
+    from repro_torch.launch.mesh import spawn_world
+    device = resolve_device(device)
+    rows = []
+    for kind, C, B, E in settings:
+        row = spawn_world(bench_model_parallel, world_size(model_parallel),
+                          device, kind, model_parallel, C, B, E, iters,
+                          threads=_rank_threads(device))[0]
+        rows.append(row)
+        base = row["rows"]["replicated"]["held_trainable_bytes"]
+        for name, r in row["rows"].items():
+            print(f"  {kind} C={C} mesh {row['mesh']} {name}: "
+                  f"{r['rounds_per_s']:.2f} rounds/s, held "
+                  f"{r['held_trainable_bytes']} bytes "
+                  f"({r['held_trainable_bytes'] / base:.2f}x)", flush=True)
+    if out is not None:
+        merge_bench_json(out, {"model_parallel": rows}, device)
+    return rows
+
+
 def bench_async(kind: str, num_cohorts: int, batch_size: int,
                 local_steps: int, device: torch.device,
-                buffer_size: int = 0, rounds: int = 2) -> dict:
+                buffer_size: int = 0, rounds: int = 2,
+                model_parallel: int = 1) -> dict:
     """Simulated speedup of ``rounds`` buffered-async rounds of one server
     over the synchronous barrier, on one stage-``STAGE`` stack at the
-    reference's scale, as the reference's ``bench_async``."""
+    reference's scale, as the reference's ``bench_async``; in a world of
+    ranks (or with ``model_parallel > 1``) on the mesh, with the held
+    trainable bytes of a rank."""
     from repro_torch.federated import aggregation as agg
     from repro_torch.federated.devices import sample_devices
     from repro_torch.federated.runtime import AsyncBufferedRuntime
@@ -158,7 +247,8 @@ def bench_async(kind: str, num_cohorts: int, batch_size: int,
     sim_times = np.asarray(stack.num_batches, float) / speeds
     sync_time = float(sim_times.max()) * rounds
     runtime = AsyncBufferedRuntime(adapter, opt, hp, device,
-                                   buffer_size=buffer_size)
+                                   buffer_size=buffer_size,
+                                   model_parallel=model_parallel)
     async_time, n_carried, n_uploads, seconds = 0.0, 0, 0, []
     for _ in range(rounds):
         t0 = time.perf_counter()
@@ -179,6 +269,9 @@ def bench_async(kind: str, num_cohorts: int, batch_size: int,
             "n_uploads": n_uploads,
             "server_version": metrics["server_version"],
             "trainable_bytes": agg.tree_bytes(new_tr),
+            "model_shards": runtime.model_shards,
+            "mesh": None if runtime.mesh is None else dict(runtime.mesh.shape),
+            "held_trainable_bytes": runtime.held_trainable_bytes,
             "round_seconds": seconds}
 
 
@@ -275,24 +368,43 @@ def merge_bench_json(path, payload: dict, device: torch.device,
     return write_bench_json(path, doc, device, **meta)
 
 
+def _bench_async_rank(device, kind, num_cohorts, batch_size, local_steps,
+                      buffer_size, rounds, model_parallel):
+    """``bench_async`` on one rank of a spawned world."""
+    return bench_async(kind, num_cohorts, batch_size, local_steps, device,
+                       buffer_size, rounds, model_parallel)
+
+
 def run_async(device=None, out=None, settings=ASYNC_SETTINGS,
-              buffer_size: int = 0, rounds: int = 2) -> list:
+              buffer_size: int = 0, rounds: int = 2,
+              model_parallel: int = 1) -> list:
     """``bench_async`` of each setting, printed and, with ``out``, added
-    to it under ``"async"``."""
+    to it under ``"async"`` (``"async_model_parallel"`` with
+    ``model_parallel > 1``: rank 0's rows of a spawned world of
+    ``world_size(model_parallel)`` ranks)."""
+    from repro_torch.launch.mesh import spawn_world
     device = resolve_device(device)
     rows = []
     for kind, C, B, E in settings:
-        row = bench_async(kind, C, B, E, device, buffer_size, rounds)
+        if model_parallel > 1:
+            row = spawn_world(_bench_async_rank, world_size(model_parallel),
+                              device, kind, C, B, E, buffer_size, rounds,
+                              model_parallel,
+                              threads=_rank_threads(device))[0]
+        else:
+            row = bench_async(kind, C, B, E, device, buffer_size, rounds)
         rows.append(row)
         print(f"  async {kind} C={C} K={row['buffer_size']}: version "
               f"{row['server_version']}, carried {row['n_carried']}, "
               f"pending {row['n_pending']}, sync {row['sync_time']:.2f} s, "
               f"async {row['async_time']:.2f} s (simulated), speedup "
               f"{row['speedup']:.2f}x, trainable {row['trainable_bytes']} "
-              f"bytes, wall s/round "
+              f"bytes, mesh {row['mesh']} held "
+              f"{row['held_trainable_bytes']} bytes, wall s/round "
               f"{statistics.median(row['round_seconds']):.4f}", flush=True)
     if out is not None:
-        merge_bench_json(out, {"async": rows}, device)
+        key = "async_model_parallel" if model_parallel > 1 else "async"
+        merge_bench_json(out, {key: rows}, device)
     return rows
 
 
@@ -355,13 +467,21 @@ def main():
                     "population sizes (e.g. 1e2 1e4 1e6)")
     ap.add_argument("--selection", choices=["random", "tifl", "oort"],
                     default="random", help="cohort policy of --population")
+    ap.add_argument("--model-parallel", type=int, default=1, metavar="K",
+                    help="the sharded round on a (W/K, K) mesh of "
+                         "W = max(4, 2K) spawned ranks against the "
+                         "replicated round (with --runtime async: the "
+                         "async mode on that mesh)")
     args = ap.parse_args()
     if args.population:
         run_population(args.device, args.out, args.population,
                        selection=args.selection)
     elif args.runtime == "async":
         run_async(args.device, args.out, buffer_size=args.buffer,
-                  rounds=args.rounds)
+                  rounds=args.rounds, model_parallel=args.model_parallel)
+    elif args.model_parallel > 1:
+        run_model_parallel(args.device, args.out, args.model_parallel,
+                           iters=args.iters)
     else:
         run(args.device, args.out, args.iters)
 

@@ -85,6 +85,11 @@ def _fsync_write(directory: str, suffix: str, write_fn) -> str:
     return tmp
 
 
+def checkpoint_path(directory: str, step: int) -> str:
+    """Where ``save_checkpoint`` writes step ``step`` in ``directory``."""
+    return os.path.join(directory, f"ckpt_{step:08d}.npz")
+
+
 def save_checkpoint(directory: str, step: int, tree,
                     meta: Optional[dict] = None, keep: int = 3) -> str:
     """Atomically write ``ckpt_<step>.npz`` (and its ``.json`` sidecar) of
@@ -102,7 +107,7 @@ def save_checkpoint(directory: str, step: int, tree,
             dtypes[p] = name
 
     map_with_path(visit, tree)
-    path = os.path.join(directory, f"ckpt_{step:08d}.npz")
+    path = checkpoint_path(directory, step)
     sidecar = {_STORE_KEY: {"version": _STORE_VERSION, "dtypes": dtypes},
                "meta": meta}
     tmp_npz = _fsync_write(directory, ".npz.tmp",

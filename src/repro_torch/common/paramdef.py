@@ -1,8 +1,13 @@
 """Parameter-definition trees (port of ``repro.common.paramdef``).
 
-A ``ParamDef`` describes one parameter leaf: shape, dtype and initializer.
-Model builders return trees of them, from which ``init_params`` makes the
-tensors and ``nbytes`` / ``nparams`` count without allocating.  The memory
+A ``ParamDef`` describes one parameter leaf: shape, dtype, its logical
+sharding spec and initializer.  Model builders return trees of them, from
+which ``init_params`` makes the tensors and ``nbytes`` / ``nparams`` count
+without allocating.  ``spec`` names, per dim, the mesh axis that dim may
+split over (``"model"``) or ``None``, as the reference's ``PartitionSpec``
+does; ``launch.sharding.fit_spec`` fits it to a concrete mesh.  A conv
+weight is OIHW here and HWIO in the reference, so its ``"model"`` sits on
+axis 0 where the reference's sits on axis 3.  The memory
 model, and through it the fleet's feasibility draw, depends on ``nbytes``,
 which gives the reference's byte counts exactly.
 
@@ -26,12 +31,16 @@ from repro_torch.common.tree import tree_leaves, tree_map
 class ParamDef:
     shape: tuple
     dtype: torch.dtype = torch.float32
+    spec: tuple = ()              # logical mesh axis per dim (trailing None
+                                  # dims dropped), as the reference's
     init: str = "normal"          # normal | zeros | ones | embed
     scale: Optional[float] = None  # stddev override (default fan-in)
 
     def with_prefix(self, n: int) -> "ParamDef":
-        """Prepend a stacked layer axis of size ``n``."""
-        return dataclasses.replace(self, shape=(n, *self.shape))
+        """Prepend a stacked layer axis of size ``n`` (unsharded)."""
+        return dataclasses.replace(self, shape=(n, *self.shape),
+                                   spec=(None, *self.spec) if self.spec
+                                   else ())
 
     def __getitem__(self, idx) -> "ParamDef":
         """Slice the leading (stacked) axis, as ``tensor[s:e]`` does, so

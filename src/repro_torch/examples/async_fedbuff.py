@@ -29,8 +29,11 @@ restores the newest checkpoint instead of starting afresh;
 server version, pending buffer and round history equal, to the bit,
 those of the final checkpoint in ``other_dir`` (an uninterrupted run).
 
-The reference's third leg (the async server on a 2-D data x model mesh)
-waits for the port's sharded runtime.
+The third leg runs the async server with ``model_parallel=2`` in a
+spawned world of 4 ranks (``launch.mesh.spawn_world``: a data 2 x model 2
+mesh; on one card the ranks share it over gloo, on the CPU they use gloo)
+and prints the mesh shape, the accuracy, the simulated seconds and the
+server version.
 """
 import dataclasses
 import math
@@ -46,6 +49,7 @@ from repro_torch.data.loader import Batcher
 from repro_torch.data.partition import dirichlet_partition
 from repro_torch.data.synthetic import make_image_dataset
 from repro_torch.federated.server import FLConfig, NeuLiteServer
+from repro_torch.launch.mesh import spawn_world
 from repro_torch.models.cnn import CNNConfig
 
 # the reference's sizes
@@ -55,14 +59,20 @@ BASE = dict(n_devices=12, clients_per_round=6, local_epochs=1,
 ASYNC = dict(runtime="async", buffer_size=4,
              staleness_schedule="polynomial", staleness_alpha=0.5,
              dropout_schedule="constant", dropout_rate=0.15)
+# the third leg: the async server on a (data 2, model 2) mesh of 4 ranks
+MESH_WORLD = 4
+ASYNC_MESH = dict(runtime="async", buffer_size=4,
+                  staleness_schedule="polynomial", staleness_alpha=0.5,
+                  model_parallel=2)
 
 
-def setup():
-    """(client datasets, test dataset, model config) of the example."""
-    ds = make_image_dataset(0, N_TRAIN, num_classes=10,
-                            image_size=IMAGE_SIZE)
-    test = make_image_dataset(1, N_TEST, num_classes=10,
-                              image_size=IMAGE_SIZE)
+def setup(n_train=None, n_test=None):
+    """(client datasets, test dataset, model config) of the example
+    (``N_TRAIN`` / ``N_TEST`` images unless given)."""
+    ds = make_image_dataset(0, N_TRAIN if n_train is None else n_train,
+                            num_classes=10, image_size=IMAGE_SIZE)
+    test = make_image_dataset(1, N_TEST if n_test is None else n_test,
+                              num_classes=10, image_size=IMAGE_SIZE)
     parts = dirichlet_partition(0, ds.labels, BASE["n_devices"], alpha=1.0)
     ccfg = CNNConfig(name="resnet18", arch="resnet18", num_classes=10,
                      image_size=IMAGE_SIZE, width_mult=WIDTH)
@@ -151,9 +161,33 @@ def checkpointed_run(ckpt: str, rounds: int, kill_at: int = -1,
     return srv
 
 
-def main(device=None, rounds=None) -> dict:
-    """The synchronous (vectorized) leg, then the async leg; returns their
-    simulated times, the speedup and the async server's end state."""
+def mesh_leg(device, rounds: int, n_train: int, n_test: int) -> dict:
+    """One rank of the third leg: the async server with ``ASYNC_MESH`` on
+    the world's (data, model) mesh; its mesh shape, final accuracy,
+    simulated seconds and server version."""
+    clients, test, ccfg = setup(n_train, n_test)
+    srv = _server(FLConfig(**BASE, **ASYNC_MESH), clients, test, ccfg,
+                  device)
+    hist = srv.run(rounds, log_every=2)
+    return {"mesh": dict(srv.mesh.shape), "acc": hist[-1].test_acc,
+            "sim_time": sum(h.sim_time for h in hist),
+            "server_version": srv.runtime.state.version,
+            "held_trainable_bytes": srv.runtime.held_trainable_bytes}
+
+
+def mesh_world(device=None, rounds: int = 6) -> dict:
+    """The third leg in a spawned world of ``MESH_WORLD`` ranks (the card
+    unless ``device="cpu"``); rank 0's ``mesh_leg``."""
+    device = resolve_device(device)
+    # on the CPU one torch thread a rank: the ranks share the cores
+    return spawn_world(mesh_leg, MESH_WORLD, device, rounds, N_TRAIN,
+                       N_TEST, threads=1 if device.type == "cpu" else None)[0]
+
+
+def one_process_legs(device=None, rounds=None) -> dict:
+    """The synchronous (vectorized) leg, then the async leg, in this
+    process; returns their simulated times, the speedup and the async
+    server's end state."""
     device = resolve_device(device)
     rounds = int(os.environ.get("FEDBUFF_ROUNDS", "6")
                  if rounds is None else rounds)
@@ -178,12 +212,28 @@ def main(device=None, rounds=None) -> dict:
           f"speedup {sync_time / max(async_time, 1e-9):.2f}x")
     print(f"async final acc {hist[-1].test_acc:.3f} (lost rounds: {lost}, "
           f"server version {state.version}, still buffered {len(state)})")
-    print("\n(async x sharded: the sharded runtime is not yet ported)")
     return {"sync_time": sync_time, "async_time": async_time,
             "speedup": sync_time / max(async_time, 1e-9),
             "sync_acc": sync_acc, "async_acc": hist[-1].test_acc,
             "lost_rounds": lost, "server_version": state.version,
             "pending": len(state), "history": hist}
+
+
+def main(device=None, rounds=None) -> dict:
+    """The three legs: ``one_process_legs``, then the async server on a
+    (data 2, model 2) mesh in a spawned world (``mesh_world``); returns
+    the first two legs' numbers and the third's under ``"mesh_leg"``."""
+    device = resolve_device(device)
+    rounds = int(os.environ.get("FEDBUFF_ROUNDS", "6")
+                 if rounds is None else rounds)
+    out = one_process_legs(device, rounds)
+    print("\n== async x sharded (model_parallel=2, a world of "
+          f"{MESH_WORLD}) ==", flush=True)
+    leg = mesh_world(device, rounds)
+    print(f"2-D async on mesh {leg['mesh']}: acc {leg['acc']:.3f}, "
+          f"simulated {leg['sim_time']:.1f}s, server version "
+          f"{leg['server_version']}", flush=True)
+    return dict(out, mesh_leg=leg)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""Client runtimes for one NeuLite FL round (port of the sequential and
-vectorized parts of ``repro.federated.runtime``).
+"""Client runtimes for one NeuLite FL round (port of
+``repro.federated.runtime``).
 
 One round (paper Alg. 1, lines 4-10) splits the stage-t params, runs E
 local steps on each selected client with no cross-client communication,
@@ -14,17 +14,24 @@ then takes the Eq. 1 weighted average of the trainable subtree.
                      card captured once per (stage, C, batch shape) and
                      replayed E times; then the Eq. 1 sum over the cohort
                      axis (``eq1_aggregate``), eager.
+  ShardedRuntime     the vectorized round over a ``(data, model)`` mesh of
+                     ``torch.distributed`` ranks (``launch.mesh``), every
+                     rank running the same server: each data rank trains
+                     its block of the cohort axis, and Eq. 1 is one
+                     all-reduce over "data" per leaf.  With a model axis
+                     each rank holds only its ``fit_spec`` shard of the
+                     stage's trainable state between local steps.
 
   AsyncBufferedRuntime
                      FedBuff-style buffered-async server on a virtual
                      clock: the vectorized runtime's local training, then
                      a flush every K deliveries with per-entry staleness
                      discounts; deliveries short of K wait in a persistent
-                     ``AsyncServerState`` buffer for a later round.
+                     ``AsyncServerState`` buffer for a later round; on a
+                     mesh its local training is the sharded runtime's.
 
-The sharded runtime comes with a later part of the port.  A runtime
-builds its stage program at the start of a round and drops it (on the
-card its graphs and their memory) right after the round's last
+A runtime builds its stage program at the start of a round and drops it
+(on the card its graphs and their memory) right after the round's last
 local step, so that Eq. 1, the evaluation and the next round reuse the
 graphs' memory as an eager round reuses its activations': every round
 captures anew.  A captured step reads the frozen prefix and
@@ -42,6 +49,7 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import bridge
 from repro_torch.common.device import (DeviceLike, resolve_device,
@@ -55,6 +63,7 @@ from repro_torch.data.loader import (Batcher, RoundStack, stack_round,
                                      truncate_step_mask)
 from repro_torch.federated import aggregation as agg
 from repro_torch.federated.client import local_steps
+from repro_torch.launch import sharding
 from repro_torch.optim.optimizers import apply_updates
 
 
@@ -453,6 +462,278 @@ class VectorizedRuntime(ClientRuntime):
 
 
 # =========================================================================== #
+# the (data, model) mesh of ranks
+# =========================================================================== #
+def resolve_round_mesh(mesh, model_parallel: int, device: torch.device,
+                       model_axis: str = "model"):
+    """Build (``launch.mesh.make_host_mesh`` on ``device``) or validate an
+    explicit round mesh: one whose ``model_axis`` size contradicts
+    ``model_parallel`` raises, since it would run with the mesh's
+    sharding, not the request."""
+    if mesh is None:
+        from repro_torch.launch.mesh import make_host_mesh
+        return make_host_mesh(model_parallel, device)
+    if (model_parallel != 1
+            and dict(mesh.shape).get(model_axis, 1) != model_parallel):
+        raise ValueError(
+            f"model_parallel={model_parallel} contradicts the explicit "
+            f"mesh (shape {dict(mesh.shape)}): pass one or the other "
+            f"— a mesh whose '{model_axis}' axis disagrees would "
+            f"silently run with the mesh's sharding, not the request")
+    return mesh
+
+
+def pad_cohorts(stack: RoundStack, shards: int) -> RoundStack:
+    """``stack`` with its cohort axis padded to a multiple of ``shards``
+    by zero-weight, fully masked cohorts of zero data (exact no-ops on
+    every path); ``stack`` itself where none is needed."""
+    pad = (-stack.num_cohorts) % shards
+    if not pad:
+        return stack
+    return RoundStack(
+        batches=tree_map(lambda x: np.concatenate(
+            [x, np.zeros((pad, *x.shape[1:]), x.dtype)]), stack.batches),
+        step_mask=np.concatenate([np.asarray(stack.step_mask, bool),
+                                  np.zeros((pad, stack.max_steps), bool)]),
+        weights=np.concatenate([np.asarray(stack.weights),
+                                np.zeros(pad, np.asarray(
+                                    stack.weights).dtype)]),
+        num_batches=list(stack.num_batches) + [0] * pad)
+
+
+def _cohort_block(stack: RoundStack, start: int, stop: int) -> RoundStack:
+    return RoundStack(batches=tree_map(lambda x: x[start:stop],
+                                       stack.batches),
+                      step_mask=np.asarray(stack.step_mask)[start:stop],
+                      weights=np.asarray(stack.weights)[start:stop],
+                      num_batches=list(stack.num_batches[start:stop]))
+
+
+def _round_digest(stack: RoundStack, cohorts) -> np.ndarray:
+    """A fixed-size digest of what every rank must agree on before a
+    round: its cohorts, their Eq. 1 weights, step counts and step mask."""
+    import hashlib
+    h = hashlib.sha256()
+    for part in (np.asarray(-1 if cohorts is None else list(cohorts),
+                            np.int64),
+                 np.asarray(stack.weights, np.float64),
+                 np.asarray(stack.num_batches, np.int64),
+                 np.asarray(stack.step_mask, bool)):
+        h.update(part.tobytes())
+        h.update(str(part.shape).encode())
+    return np.frombuffer(h.digest(), np.int64).copy()
+
+
+class ShardedRuntime(VectorizedRuntime):
+    """The vectorized round over a 2-D ``(data, model)`` mesh of ranks
+    (``launch.mesh.HostMesh``; the default ``make_host_mesh`` lays the
+    world out, one rank on one card being the degenerate 1x1 mesh).  Every
+    rank runs the same server: selection, batch stacking and all host
+    state come from numpy and the seed, so every rank holds the same
+    ``RoundStack``, and once a round every rank checks every rank's
+    cohorts and weights against rank 0's (one all-gather of a digest: a
+    rank whose host state drifted makes every rank raise rather than
+    average the wrong clients).
+
+    The cohort axis, padded to a multiple of the data size
+    (``pad_cohorts``), splits over ``axis``: each data rank copies its
+    contiguous block of the host stack to its device and trains it with
+    the vectorized runtime's captured cohort step.  Eq. 1 normalises the
+    weights by the global total on the host, sums this rank's cohorts in
+    f32 and all-reduces each leaf over "data" (eager, after the last
+    replay; no collective runs inside ``vmap`` or a captured graph); the
+    losses all-reduce as a zero (C_pad,) vector with this rank's block
+    written in.  At data size 1 a round gives the vectorized runtime's
+    bits.
+
+    With a model axis of k > 1 (``model_parallel=k`` or an explicit 2-D
+    mesh) each rank holds, between local steps, only its ``fit_spec``
+    shard (``launch.sharding``) of the stage's trainable leaves, of the
+    per-cohort SGD momentum and of the per-cohort local weights
+    (``held_trainable_bytes``: one copy of the trainable tree as this rank
+    holds it); the frozen prefix and the round's start (the server's
+    params) stay whole.  A step all-gathers its operands over "model",
+    runs (on the card, replays) the whole step and keeps this rank's slice
+    of its outputs; Eq. 1 reduces the shards over "data" and one
+    all-gather over "model" returns the aggregate whole, so the server's
+    params stay whole between rounds on every rank.  Unlike the
+    reference, whose GSPMD program also splits the step's compute and
+    returns the aggregate model-sharded, the port splits storage only:
+    each rank computes the whole step (tensor-parallel layers are not
+    ported)."""
+
+    name = "sharded"
+
+    def __init__(self, adapter: Adapter, optimizer, hp: CurriculumHP,
+                 device: torch.device, capture: bool = True, *, mesh=None,
+                 axis: str = "data", model_axis: str = "model",
+                 model_parallel: int = 1):
+        super().__init__(adapter, optimizer, hp, device, capture)
+        self.mesh = resolve_round_mesh(mesh, model_parallel, device,
+                                       model_axis)
+        self.axis = axis
+        self.model_axis = model_axis
+        self._placements: Dict[int, Any] = {}
+        self.held_trainable_bytes: Optional[int] = None
+
+    @property
+    def data_shards(self) -> int:
+        return self.mesh.shape[self.axis]
+
+    @property
+    def model_shards(self) -> int:
+        return dict(self.mesh.shape).get(self.model_axis, 1)
+
+    def placements(self, t: int):
+        """Stage t's trainable ``launch.sharding.Placement`` tree."""
+        if t not in self._placements:
+            defs = self.adapter.split_stage(self.adapter.defs, t)[1]
+            self._placements[t] = sharding.tree_placements(defs, self.mesh)
+        return self._placements[t]
+
+    def shard_trainable(self, t: int, tree, lead: int = 0):
+        """This rank's model shards of a stage-t trainable tree (``lead``
+        leading axes in front of every leaf)."""
+        return tree_map(lambda x, p: sharding.shard(
+            x, None if p.model_dim is None else p.model_dim + lead,
+            self.mesh, self.model_axis), tree, self.placements(t))
+
+    def unshard_trainable(self, t: int, tree, lead: int = 0):
+        """A stage-t trainable tree whole from every rank's shards (a
+        collective: every rank calls it)."""
+        return tree_map(lambda x, p: sharding.unshard(
+            x, None if p.model_dim is None else p.model_dim + lead,
+            self.mesh, self.model_axis), tree, self.placements(t))
+
+    def _check_same_round(self, stack: RoundStack, cohorts) -> None:
+        """Every rank's round digest (``_round_digest``) against rank 0's,
+        gathered on every rank, so that every rank refuses a drifted round
+        before its first collective (a broadcast would tell only the
+        drifted rank, and the others would wait in the round's
+        all-reduce)."""
+        digests = self.mesh.gather_host(_round_digest(stack, cohorts))
+        drifted = [r for r in range(len(digests))
+                   if not np.array_equal(digests[r], digests[0])]
+        if drifted:
+            raise RuntimeError(
+                f"ranks {drifted} disagree with rank 0 on the round's "
+                f"cohorts, weights or step mask: their host state drifted "
+                f"(this rank {self.mesh.rank}: cohorts "
+                f"{None if cohorts is None else list(cohorts)}, weights "
+                f"{np.asarray(stack.weights).tolist()})")
+
+    def _train_block(self, t, trainable, frozen, stack: RoundStack,
+                     cohorts=None):
+        """This rank's block of the padded cohort axis, trained:
+        (padded stack, start, stop, locals_ (block, ...) as held, losses
+        (block,), the stage's trainable as held)."""
+        self._check_same_round(stack, cohorts)
+        padded = pad_cohorts(stack, self.data_shards)
+        start, stop = sharding.block(padded.num_cohorts, self.data_shards,
+                                     self.mesh.index(self.axis))
+        mine = _cohort_block(padded, start, stop)
+        if self.model_shards == 1:
+            locals_, losses = self._train_cohorts(t, trainable, frozen, mine)
+            held = trainable
+        else:
+            held = self.shard_trainable(t, trainable)
+            locals_, losses = self._train_sharded(t, held, trainable,
+                                                  frozen, mine)
+        self.held_trainable_bytes = sharding.per_device_nbytes(held)
+        return padded, start, stop, locals_, losses, held
+
+    def _train_sharded(self, t, held, trainable, frozen, stack: RoundStack):
+        """``_train_cohorts`` with the carried state model-sharded: before
+        each step the cohorts' local weights and momentum are gathered
+        over "model" into the step's operands; after it each rank keeps
+        its slice (a copy: the step's outputs are its graph's buffers)."""
+        step = self._step(t)
+        batches = to_device(stack.batches, self.device)
+        mask = torch.as_tensor(np.asarray(stack.step_mask, bool),
+                               device=self.device)
+        C, E = mask.shape
+        init = self.optimizer.init(held)
+        local = tree_map(lambda p: p.expand(C, *p.shape), held)
+        opt_state = tree_map(lambda v: v.expand(C, *v.shape), init)
+
+        def opt_map(fn, state):
+            # the SGD state: "mu" shaped as the trainable tree, "step" whole
+            return dict(state, mu=None if state["mu"] is None
+                        else fn(state["mu"]))
+
+        total = torch.zeros(C, device=self.device)
+        for e in range(E):
+            batch = tree_map(lambda x: x[:, e].contiguous(), batches)
+            opt_state, local, metrics = step(
+                opt_map(lambda m: self.unshard_trainable(t, m, lead=1),
+                        opt_state),
+                self.unshard_trainable(t, local, lead=1), frozen, batch,
+                trainable, mask[:, e])
+            local = self.shard_trainable(t, local, lead=1)
+            opt_state = opt_map(
+                lambda m: self.shard_trainable(t, m, lead=1),
+                dict(opt_state, step=opt_state["step"].clone()))
+            total = total + metrics["loss"]
+        self.release()
+        return local, total / torch.clamp(mask.sum(1), min=1)
+
+    def _all_cohorts(self, block, start, n_padded, n):
+        """A (block, ...) tensor of this rank's cohorts as the (n, ...)
+        tensor of every rank's: written into zeros, all-reduced over
+        "data" (exact: every entry sums one value and zeros), the padding
+        trimmed."""
+        out = torch.zeros((n_padded, *block.shape[1:]), dtype=block.dtype,
+                          device=block.device)
+        out[start:start + block.shape[0]] = block
+        return self.mesh.all_reduce(out, self.axis)[:n]
+
+    def cohort_deltas(self, t, trainable, frozen, stack: RoundStack,
+                      cohorts=None):
+        """Every cohort's f32 delta against the pull on every rank:
+        ``(deltas (C, ...) as held, losses (C,), the trainable as held)``
+        (model shards stay shards); the buffered-async runtime's local
+        training on a mesh."""
+        padded, start, _, locals_, losses, held = self._train_block(
+            t, trainable, frozen, stack, cohorts)
+        C, n = stack.num_cohorts, padded.num_cohorts
+        deltas = tree_map(lambda loc, base: self._all_cohorts(
+            loc.float() - base.float(), start, n, C), locals_, held)
+        return deltas, self._all_cohorts(losses, start, n, C), held
+
+    def _run_stack(self, t, trainable, frozen, stack: RoundStack,
+                   cohorts=None):
+        padded, start, stop, locals_, losses, _ = self._train_block(
+            t, trainable, frozen, stack, cohorts)
+        w = np.asarray(padded.weights, np.float64)
+        total = w.sum()
+        if not np.isfinite(total) or total <= 0:
+            raise ValueError(f"aggregation needs a positive finite weight "
+                             f"sum; got {total}")
+        wn = torch.from_numpy((w / total).astype(np.float32)).to(self.device)
+        mine = wn[start:stop]
+
+        def eq1(leaf, p):
+            part = torch.einsum("c...,c->...", leaf.float(), mine)
+            whole = sharding.unshard(self.mesh.all_reduce(part, self.axis),
+                                     p.model_dim, self.mesh,
+                                     self.model_axis)
+            return whole.to(leaf.dtype)
+
+        new_trainable = tree_map(eq1, locals_, self.placements(t))
+        C = stack.num_cohorts
+        cohort_losses = self._all_cohorts(losses, start, padded.num_cohorts,
+                                          C)
+        mean_loss = (cohort_losses * wn[:C]).sum()
+        return new_trainable, {"mean_local_loss": mean_loss,
+                               "cohort_losses": cohort_losses}
+
+    def _round_from_stack(self, params, t, stack, cohorts):
+        new_trainable, metrics = self.run_stacked(params, t, stack,
+                                                  cohorts=cohorts)
+        return new_trainable, metrics, {}
+
+
+# =========================================================================== #
 # buffered-async (FedBuff-style) backend
 # =========================================================================== #
 @dataclasses.dataclass
@@ -678,7 +959,7 @@ class AsyncServerState:
 
 class AsyncBufferedRuntime(VectorizedRuntime):
     """FedBuff-style buffered-async server on a simulated clock (port of
-    the reference's ``AsyncBufferedRuntime`` without its mesh).
+    the reference's ``AsyncBufferedRuntime``).
 
     Each ``run_round`` opens at the server's virtual clock and version:
     the cohorts pull the round's params (``pulled_version``), train as the
@@ -696,8 +977,20 @@ class AsyncBufferedRuntime(VectorizedRuntime):
     versions behind at round open (off by default).  The round's simulated
     time runs from its open to its last flush (0 when nothing flushed).
     With K = C a fresh server's one flush at staleness 0 is the
-    vectorized round.  ``mesh`` and ``model_parallel != 1`` (the
-    reference's 2-D rounds) wait for the sharded runtime."""
+    vectorized round.
+
+    With ``mesh``, ``model_parallel != 1`` or in a world of more than one
+    rank (``torch.distributed``) the local training is the sharded
+    runtime's (``ShardedRuntime.cohort_deltas``, on ``make_host_mesh``'s
+    mesh unless one is given): each rank trains its block of cohorts,
+    writes its deltas into a zero (C, ...) stack and all-reduces it over
+    "data", so every rank holds every cohort's delta (model shards stay
+    shards).  From there the
+    flushes, the buffer and the checkpoint slot run as in one process,
+    the same on every rank: the host numbers (deliveries, flushes,
+    staleness, versions, clock) are those of the one-process runtime.  A
+    pending entry keeps this rank's model shard; ``checkpoint_state``
+    gathers it, ``load_server_state`` cuts it again."""
 
     name = "async"
 
@@ -707,12 +1000,16 @@ class AsyncBufferedRuntime(VectorizedRuntime):
                  staleness_schedule: str = "polynomial",
                  staleness_alpha: float = 0.5, server_lr: float = 1.0,
                  client_speeds=None, max_staleness: Optional[int] = None,
-                 mesh=None, model_parallel: int = 1):
-        if mesh is not None or model_parallel != 1:
-            raise ValueError(
-                f"AsyncBufferedRuntime with mesh={mesh!r}, model_parallel="
-                f"{model_parallel}: the sharded runtime is not yet ported")
+                 mesh=None, model_parallel: int = 1, axis: str = "data",
+                 model_axis: str = "model"):
         super().__init__(adapter, optimizer, hp, device, capture)
+        on_mesh = (mesh is not None or model_parallel != 1
+                   or (dist.is_initialized() and dist.get_world_size() > 1))
+        self._sharded = (ShardedRuntime(
+            adapter, optimizer, hp, device, capture, mesh=mesh, axis=axis,
+            model_axis=model_axis, model_parallel=model_parallel)
+            if on_mesh else None)
+        self.mesh = None if self._sharded is None else self._sharded.mesh
         agg.staleness_discount(np.zeros(1), staleness_schedule,
                                staleness_alpha)    # validate eagerly
         self.buffer_size = int(buffer_size)
@@ -726,15 +1023,45 @@ class AsyncBufferedRuntime(VectorizedRuntime):
 
     @property
     def model_shards(self) -> int:
-        return 1
+        return 1 if self._sharded is None else self._sharded.model_shards
+
+    @property
+    def held_trainable_bytes(self) -> Optional[int]:
+        """On a mesh, the sharded runtime's (one copy of the last round's
+        trainable tree as this rank holds it)."""
+        return (None if self._sharded is None
+                else self._sharded.held_trainable_bytes)
+
+    def release(self) -> None:
+        super().release()
+        if self._sharded is not None:
+            self._sharded.release()
 
     def reset_state(self):
         """A fresh server: empty buffer, version 0, clock 0."""
         self.state = AsyncServerState()
 
     def load_server_state(self, state: AsyncServerState):
-        """Install a restored ``AsyncServerState``."""
+        """Install a restored ``AsyncServerState``; on a model-sharded mesh
+        each entry's delta is cut to this rank's shard."""
+        if self.model_shards > 1:
+            for e in state.entries:
+                e.delta = self._sharded.shard_trainable(e.stage, e.delta)
         self.state = state
+
+    def checkpoint_state(self):
+        """The checkpoint's ``async`` slot, ``(arrays, meta)`` of
+        ``AsyncServerState.state_dict``, every delta whole: on a
+        model-sharded mesh each entry's shards are gathered (a collective:
+        every rank calls it)."""
+        if self.model_shards == 1:
+            return self.state.state_dict()
+        whole = AsyncServerState()
+        whole.version, whole.clock = self.state.version, self.state.clock
+        whole.entries = [dataclasses.replace(
+            e, delta=self._sharded.unshard_trainable(e.stage, e.delta))
+            for e in self.state.entries]
+        return whole.state_dict()
 
     def cohort_sim_times(self, stack: RoundStack,
                          cohorts: Optional[Sequence[int]] = None
@@ -754,7 +1081,8 @@ class AsyncBufferedRuntime(VectorizedRuntime):
         return steps / np.maximum(speeds, 1e-9)
 
     def _run_stack(self, t, trainable, frozen, stack: RoundStack, *,
-                   sim_times: Optional[Sequence[float]] = None):
+                   sim_times: Optional[Sequence[float]] = None,
+                   cohorts=None):
         """One buffered-async round (through ``run_stacked``); advances
         the server's buffer, version and clock (``reset_state`` for a fresh
         server).  ``sim_times`` are per-cohort delivery durations from the
@@ -766,11 +1094,17 @@ class AsyncBufferedRuntime(VectorizedRuntime):
         weights = np.asarray(stack.weights, np.float64)
         times = np.asarray(self.cohort_sim_times(stack)
                            if sim_times is None else sim_times, np.float64)
-        locals_, losses = self._train_cohorts(t, trainable, frozen, stack)
-        # deltas against the pull-time params, in f32
-        deltas = tree_map(lambda loc, base: loc.float() - base.float(),
-                          locals_, trainable)
-        del locals_
+        if self._sharded is None:
+            locals_, losses = self._train_cohorts(t, trainable, frozen,
+                                                  stack)
+            # deltas against the pull-time params, in f32
+            deltas = tree_map(lambda loc, base: loc.float() - base.float(),
+                              locals_, trainable)
+            del locals_
+            base = trainable
+        else:
+            deltas, losses, base = self._sharded.cohort_deltas(
+                t, trainable, frozen, stack, cohorts)
         active = np.flatnonzero(weights > 0)    # weight 0: never delivers
         round_open = self.state.clock
         pulled = self.state.version
@@ -791,7 +1125,7 @@ class AsyncBufferedRuntime(VectorizedRuntime):
                                    deltas)
                 e.loss = e.loss.clone()
 
-        new_tr = tree_map(lambda b: b.float(), trainable)
+        new_tr = tree_map(lambda b: b.float(), base)
         staleness = np.full(C, -1, int)
         eff_w, flushed_losses, n_flushed, n_carried = [], [], 0, 0
         for fl in flushes:
@@ -827,7 +1161,9 @@ class AsyncBufferedRuntime(VectorizedRuntime):
                 eff_w.append(e.weight * float(di))
                 flushed_losses.append(e.loss)
         new_trainable = tree_map(lambda b, ref: b.to(ref.dtype), new_tr,
-                                 trainable)
+                                 base)
+        if self._sharded is not None:
+            new_trainable = self._sharded.unshard_trainable(t, new_trainable)
         if n_flushed:
             w = torch.from_numpy(
                 (np.asarray(eff_w) / np.sum(eff_w)).astype(np.float32))
@@ -851,7 +1187,8 @@ class AsyncBufferedRuntime(VectorizedRuntime):
     def _round_from_stack(self, params, t, stack, cohorts):
         sim_times = self.cohort_sim_times(stack, cohorts)
         new_trainable, metrics = self.run_stacked(params, t, stack,
-                                                  sim_times=sim_times)
+                                                  sim_times=sim_times,
+                                                  cohorts=cohorts)
         return new_trainable, metrics, {
             "sim_times": [float(x) for x in sim_times],
             "round_sim_time": float(metrics["sim_round_time"]),
@@ -866,8 +1203,8 @@ class AsyncBufferedRuntime(VectorizedRuntime):
 
 RUNTIMES = {"sequential": SequentialRuntime,
             "vectorized": VectorizedRuntime,
+            "sharded": ShardedRuntime,
             "async": AsyncBufferedRuntime}
-NOT_PORTED = ("sharded",)
 
 
 def make_runtime(spec: Union[str, ClientRuntime], adapter: Adapter,
@@ -886,9 +1223,6 @@ def make_runtime(spec: Union[str, ClientRuntime], adapter: Adapter,
                 f"configure the instance directly or pass the runtime "
                 f"name instead")
         return spec
-    if spec in NOT_PORTED:
-        raise ValueError(f"runtime {spec!r} is not yet ported; the port has "
-                         f"{sorted(RUNTIMES)}")
     try:
         cls = RUNTIMES[spec]
     except KeyError:

@@ -12,9 +12,16 @@
 round reads the device once, for its losses; ``evaluate`` reads it once.
 On a CUDA device the server makes cuDNN deterministic (deterministic
 algorithms, no autotuning), so a run repeats bit for bit, as the
-reference's rounds do.  The port has the sequential, vectorized and
-buffered-async (FedBuff) runtimes and the random, TiFL and Oort policies;
-the sharded runtime comes with a later part.
+reference's rounds do.  The port has the sequential, vectorized, sharded
+and buffered-async (FedBuff) runtimes and the random, TiFL and Oort
+policies.
+
+On a mesh of ranks (``runtime="sharded"``, or ``"async"`` with
+``model_parallel > 1`` or in a world of more than one rank) every rank runs the same server (SPMD): the same
+seed gives every rank the same params, cohorts and stacks, every rank
+evaluates the same params, ``save_state`` writes on rank 0 only (then
+waits at a barrier) and ``restore`` reads on every rank; ``run`` prints on
+rank 0.
 
 Crash safety: ``save_state`` checkpoints the complete round-loop state in
 the reference's format (params in the reference's layout, through the
@@ -31,8 +38,9 @@ import numpy as np
 import torch
 
 from repro_torch import bridge
-from repro_torch.checkpoint import (latest_checkpoint, load_checkpoint,
-                                    read_checkpoint_meta, save_checkpoint)
+from repro_torch.checkpoint import (checkpoint_path, latest_checkpoint,
+                                    load_checkpoint, read_checkpoint_meta,
+                                    save_checkpoint)
 from repro_torch.common.device import DeviceLike, resolve_device, to_device
 from repro_torch.core.curriculum import CurriculumHP
 from repro_torch.core.memory import (estimate_full_memory,
@@ -72,9 +80,10 @@ class FLConfig:
     alpha: float = 1.0                  # Dirichlet concentration
     selection: str = "random"           # round-open cohort policy
     seed: int = 0
-    runtime: str = "sequential"         # sequential | vectorized | async
-    model_parallel: int = 1             # the reference's 2-D rounds: only
-                                        # 1 until the sharded runtime lands
+    runtime: str = "sequential"         # sequential | vectorized |
+                                        # sharded | async
+    model_parallel: int = 1             # sharded / async: model axis of
+                                        # the (data, model) mesh
     # buffered-async (FedBuff) rounds; used when runtime == "async"
     buffer_size: int = 0                # flush every K deliveries (0: all
                                         # of a round's, synchronous); the
@@ -151,6 +160,8 @@ class NeuLiteServer:
                              server_lr=flc.server_lr,
                              max_staleness=flc.max_staleness,
                              model_parallel=flc.model_parallel)
+        elif spec == "sharded":
+            rt_kwargs = dict(model_parallel=flc.model_parallel)
         self.runtime = make_runtime(spec, adapter, self.optimizer, self.hp,
                                     self.device, **rt_kwargs)
         self.test_batcher = test_batcher
@@ -182,6 +193,15 @@ class NeuLiteServer:
             self.runtime.client_speeds = self.fleet
         self.history: List[RoundResult] = []
         self.next_round: int = 0
+
+    @property
+    def mesh(self):
+        """The runtime's mesh of ranks, ``None`` in one process."""
+        return getattr(self.runtime, "mesh", None)
+
+    @property
+    def is_rank0(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
 
     @property
     def devices(self):
@@ -286,7 +306,7 @@ class NeuLiteServer:
         start = self.next_round
         for r in range(start, start + rounds):
             rr = self.run_round(r)
-            if log_every and (r % log_every == 0):
+            if log_every and (r % log_every == 0) and self.is_rank0:
                 print(f"round {r:4d} stage {rr.stage} "
                       f"loss {rr.mean_loss:.4f} acc {rr.test_acc} "
                       f"feasible {rr.n_feasible}/{self.flc.n_devices}")
@@ -316,9 +336,11 @@ class NeuLiteServer:
         captures anew and makes its SGD state), so none is saved.  The
         ``async`` slot holds the async runtime's pending buffer
         (``AsyncServerState.state_dict``: stacked deltas in the
-        reference's layout and per-entry metadata), ``None`` on the
-        synchronous runtimes.  ``step`` defaults to ``next_round``, ``keep`` to
-        ``flc.keep_checkpoints``."""
+        reference's layout and per-entry metadata; on a model-sharded
+        mesh gathered whole), ``None`` on the synchronous runtimes.
+        ``step`` defaults to ``next_round``, ``keep`` to
+        ``flc.keep_checkpoints``.  On a mesh every rank calls it, rank 0
+        writes, and every rank returns the path after a barrier."""
         meta = {
             "format": self._STATE_FORMAT,
             "state_version": self._STATE_VERSION,
@@ -332,10 +354,11 @@ class NeuLiteServer:
             "batcher_rngs": None,
             "test_batcher_rng": None,
         }
-        tree = {"params": bridge.reference_layout(self.params)}
+        tree = {}
         state = getattr(self.runtime, "state", None)
         if state is not None:
-            tree["async"], meta["async"] = state.state_dict()
+            # a collective on a model-sharded mesh: every rank gathers
+            tree["async"], meta["async"] = self.runtime.checkpoint_state()
         if isinstance(self.batchers, (list, tuple)):
             meta["batcher_rngs"] = [b.rng.bit_generator.state
                                     for b in self.batchers]
@@ -343,10 +366,17 @@ class NeuLiteServer:
                                                      "rng"):
             meta["test_batcher_rng"] = (
                 self.test_batcher.rng.bit_generator.state)
-        return save_checkpoint(
-            directory, self.next_round if step is None else step, tree,
-            meta=meta,
-            keep=self.flc.keep_checkpoints if keep is None else keep)
+        step = self.next_round if step is None else step
+        if self.is_rank0:
+            tree["params"] = bridge.reference_layout(self.params)
+            path = save_checkpoint(
+                directory, step, tree, meta=meta,
+                keep=self.flc.keep_checkpoints if keep is None else keep)
+        else:
+            path = checkpoint_path(directory, step)
+        if self.mesh is not None:
+            self.mesh.barrier()
+        return path
 
     def load_state(self, path: str) -> None:
         """Install the state ``save_state`` (of either package) wrote.  The

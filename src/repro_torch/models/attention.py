@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.common.paramdef import ParamDef
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import MODEL_AXIS, apply_rope
 
 NEG_INF = -1e30
 
@@ -45,8 +45,10 @@ def gqa_defs(cfg: ModelConfig) -> dict:
     d, H, KV = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     Dh = cfg.resolved_head_dim
     dt = cfg.param_dtype
-    return {"wq": ParamDef((d, H, Dh), dt), "wk": ParamDef((d, KV, Dh), dt),
-            "wv": ParamDef((d, KV, Dh), dt), "wo": ParamDef((H, Dh, d), dt)}
+    return {"wq": ParamDef((d, H, Dh), dt, (None, MODEL_AXIS)),
+            "wk": ParamDef((d, KV, Dh), dt, (None, MODEL_AXIS)),
+            "wv": ParamDef((d, KV, Dh), dt, (None, MODEL_AXIS)),
+            "wo": ParamDef((H, Dh, d), dt, (MODEL_AXIS,))}
 
 
 def _project(x, w):

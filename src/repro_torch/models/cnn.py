@@ -42,7 +42,9 @@ class CNNConfig:
 # primitive layers
 # --------------------------------------------------------------------------- #
 def conv_defs(cin: int, cout: int, k: int = 3) -> dict:
-    return {"w": ParamDef((cout, cin, k, k), scale=(2.0 / (k * k * cin)) ** 0.5)}
+    # OIHW: the reference's "model" on HWIO's O (axis 3) sits on axis 0
+    return {"w": ParamDef((cout, cin, k, k), spec=("model",),
+                          scale=(2.0 / (k * k * cin)) ** 0.5)}
 
 
 def resolve_conv_impl(impl: str, device) -> str:
@@ -125,8 +127,8 @@ def groupnorm(params, x, groups: int = 8, eps: float = 1e-5):
 
 
 def linear_defs(cin: int, cout: int) -> dict:
-    return {"w": ParamDef((cin, cout)),
-            "b": ParamDef((cout,), init="zeros")}
+    return {"w": ParamDef((cin, cout), spec=(None, "model")),
+            "b": ParamDef((cout,), spec=("model",), init="zeros")}
 
 
 def linear(params, x):

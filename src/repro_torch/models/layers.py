@@ -11,6 +11,10 @@ import torch.nn.functional as F
 
 from repro_torch.common.paramdef import ParamDef
 
+# the logical mesh axis a parameter dim may split over (heads, d_ff,
+# vocab), as the reference's ``MODEL_AXIS``
+MODEL_AXIS = "model"
+
 
 # --------------------------------------------------------------------------- #
 # norms
@@ -51,10 +55,11 @@ def apply_rope(x, positions, theta: float = 10_000.0):
 # MLPs
 # --------------------------------------------------------------------------- #
 def mlp_defs(d_model: int, d_ff: int, dtype, act: str = "swiglu") -> dict:
-    defs = {"w_up": ParamDef((d_model, d_ff), dtype),
-            "w_down": ParamDef((d_ff, d_model), dtype)}
+    defs = {"w_up": ParamDef((d_model, d_ff), dtype, (None, MODEL_AXIS)),
+            "w_down": ParamDef((d_ff, d_model), dtype, (MODEL_AXIS,))}
     if act == "swiglu":
-        defs["w_gate"] = ParamDef((d_model, d_ff), dtype)
+        defs["w_gate"] = ParamDef((d_model, d_ff), dtype,
+                                  (None, MODEL_AXIS))
     return defs
 
 
@@ -76,7 +81,8 @@ def mlp(params, x, act: str = "swiglu"):
 # embeddings / output heads
 # --------------------------------------------------------------------------- #
 def embedding_defs(vocab: int, d_model: int, dtype) -> dict:
-    return {"table": ParamDef((vocab, d_model), dtype, init="embed")}
+    return {"table": ParamDef((vocab, d_model), dtype, (MODEL_AXIS,),
+                              init="embed")}
 
 
 def embed(params, tokens):
@@ -84,7 +90,8 @@ def embed(params, tokens):
 
 
 def head_defs(d_model: int, vocab: int, dtype) -> dict:
-    return {"w_out": ParamDef((d_model, vocab), dtype)}
+    return {"w_out": ParamDef((d_model, vocab), dtype,
+                              (None, MODEL_AXIS))}
 
 
 def lm_head(params, x):

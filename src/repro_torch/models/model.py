@@ -23,9 +23,10 @@ from repro_torch.common.tree import tree_leaves, tree_map
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (cross_entropy, embed, embedding_defs,
-                                       gelu, head_defs, lm_head, mlp,
-                                       mlp_defs, rmsnorm, rmsnorm_defs)
+from repro_torch.models.layers import (MODEL_AXIS, cross_entropy, embed,
+                                       embedding_defs, gelu, head_defs,
+                                       lm_head, mlp, mlp_defs, rmsnorm,
+                                       rmsnorm_defs)
 
 
 # --------------------------------------------------------------------------- #
@@ -160,8 +161,9 @@ def surrogate_defs(cfg: ModelConfig, num_blocks: int) -> dict:
     """Output-module basic layers: one residual projection per replaced
     block, stacked over the T-1 replaceable blocks; stage t uses [t:]."""
     d, dt = cfg.d_model, cfg.param_dtype
-    base = {"norm": rmsnorm_defs(d, dt), "w": ParamDef((d, d), dt),
-            "wo": ParamDef((d, d), dt)}
+    base = {"norm": rmsnorm_defs(d, dt),
+            "w": ParamDef((d, d), dt, (None, MODEL_AXIS)),
+            "wo": ParamDef((d, d), dt, (MODEL_AXIS,))}
     return stack_defs(base, max(num_blocks - 1, 1))
 
 
@@ -179,7 +181,8 @@ def projector_defs(cfg: ModelConfig, out_dim: int = 64) -> dict:
     nHSIC(Y;Z) estimate."""
     d, dt = cfg.d_model, cfg.param_dtype
     hid = max(out_dim * 2, 128)
-    return {"w1": ParamDef((d, hid), dt), "w2": ParamDef((hid, hid), dt),
+    return {"w1": ParamDef((d, hid), dt, (None, MODEL_AXIS)),
+            "w2": ParamDef((hid, hid), dt, (MODEL_AXIS,)),
             "w3": ParamDef((hid, out_dim), dt)}
 
 

@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.common.paramdef import ParamDef
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import MODEL_AXIS
 
 
 # =========================================================================== #
@@ -50,17 +51,17 @@ def mlstm_defs(cfg: ModelConfig) -> dict:
     dt = cfg.param_dtype
     f32 = torch.float32
     return {
-        "w_up": ParamDef((d, 2 * d_in), dt),
-        "conv_w": ParamDef((d_in, 4), dt, scale=0.1),
-        "wq": ParamDef((d_in, H, Dh), dt),
-        "wk": ParamDef((d_in, H, Dh), dt),
-        "wv": ParamDef((d_in, H, Dh), dt),
-        "wi": ParamDef((d_in, H), f32, scale=0.02),
-        "wf": ParamDef((d_in, H), f32, scale=0.02),
-        "bi": ParamDef((H,), f32, init="zeros"),
-        "bf": ParamDef((H,), f32, init="ones"),
-        "out_norm": ParamDef((d_in,), dt, init="ones"),
-        "w_down": ParamDef((d_in, d), dt),
+        "w_up": ParamDef((d, 2 * d_in), dt, (None, MODEL_AXIS)),
+        "conv_w": ParamDef((d_in, 4), dt, (MODEL_AXIS,), scale=0.1),
+        "wq": ParamDef((d_in, H, Dh), dt, (None, MODEL_AXIS)),
+        "wk": ParamDef((d_in, H, Dh), dt, (None, MODEL_AXIS)),
+        "wv": ParamDef((d_in, H, Dh), dt, (None, MODEL_AXIS)),
+        "wi": ParamDef((d_in, H), f32, (None, MODEL_AXIS), scale=0.02),
+        "wf": ParamDef((d_in, H), f32, (None, MODEL_AXIS), scale=0.02),
+        "bi": ParamDef((H,), f32, (MODEL_AXIS,), init="zeros"),
+        "bf": ParamDef((H,), f32, (MODEL_AXIS,), init="ones"),
+        "out_norm": ParamDef((d_in,), dt, (MODEL_AXIS,), init="ones"),
+        "w_down": ParamDef((d_in, d), dt, (MODEL_AXIS,)),
     }
 
 
@@ -176,15 +177,16 @@ def slstm_defs(cfg: ModelConfig) -> dict:
     ff = -(-ff // 64) * 64
     return {
         # input projections for gates i, f, z, o
-        "w_in": ParamDef((4, d, H, Dh), f32, scale=0.02),
+        "w_in": ParamDef((4, d, H, Dh), f32, (None, None, MODEL_AXIS),
+                         scale=0.02),
         # block-diagonal recurrent projections (per head)
-        "r": ParamDef((4, H, Dh, Dh), f32, scale=0.02),
-        "b": ParamDef((4, H, Dh), f32, init="zeros"),
+        "r": ParamDef((4, H, Dh, Dh), f32, (None, MODEL_AXIS), scale=0.02),
+        "b": ParamDef((4, H, Dh), f32, (None, MODEL_AXIS), init="zeros"),
         "out_norm": ParamDef((d,), dt, init="ones"),
         # post-cell gated FFN (proj factor 4/3)
-        "ffn_gate": ParamDef((d, ff), dt),
-        "ffn_up": ParamDef((d, ff), dt),
-        "ffn_down": ParamDef((ff, d), dt),
+        "ffn_gate": ParamDef((d, ff), dt, (None, MODEL_AXIS)),
+        "ffn_up": ParamDef((d, ff), dt, (None, MODEL_AXIS)),
+        "ffn_down": ParamDef((ff, d), dt, (MODEL_AXIS,)),
     }
 
 

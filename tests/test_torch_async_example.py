@@ -33,7 +33,10 @@ def test_example_legs(small, capsys):
     res = ex.main("cpu", rounds=3)
     out = capsys.readouterr().out
     assert "== synchronous (vectorized) ==" in out
-    assert "sharded runtime is not yet ported" in out
+    assert "== async x sharded (model_parallel=2, a world of 4) ==" in out
+    leg = res["mesh_leg"]
+    assert leg["mesh"] == {"data": 2, "model": 2}
+    assert 0.0 <= leg["acc"] <= 1.0 and leg["server_version"] > 0
     hist = res["history"]
     assert len(hist) == 3 and all(h.server_version is not None
                                   for h in hist)

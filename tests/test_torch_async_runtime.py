@@ -17,6 +17,7 @@ bit.  One reference runtime serves every reference side, so that its
 stage programs compile once (the servers' stacks have its shapes).
 """
 import dataclasses
+from types import SimpleNamespace
 
 import jax
 import numpy as np
@@ -333,14 +334,21 @@ def test_refusals(setup):
         _port(t_ad).run_stacked(params, 0, zero)
     with pytest.raises(ValueError, match="staleness schedule"):
         _port(t_ad, staleness_schedule="warp")
-    for kw in (dict(model_parallel=2), dict(mesh="data x model")):
-        with pytest.raises(ValueError, match="sharded runtime is not yet"):
-            _port(t_ad, **kw)
-    with pytest.raises(ValueError, match="sharded runtime is not yet"):
-        NeuLiteServer(t_ad, setup[4], FLConfig(**FL, model_parallel=2),
-                      params=params, device="cpu")
-    with pytest.raises(ValueError, match="not yet ported"):
-        trt.make_runtime("sharded", t_ad, None, None, CPU)
+    # the mesh is ported: model_parallel=2 runs on the sharded runtime's
+    # mesh (in one process clamped to 1, with the reference's warning); an
+    # explicit mesh that contradicts model_parallel raises as there
+    with pytest.warns(UserWarning, match="clamping to 1"):
+        on_mesh = _port(t_ad, model_parallel=2)
+    assert on_mesh.mesh.shape == {"data": 1, "model": 1}
+    with pytest.raises(ValueError, match="contradicts the explicit mesh"):
+        _port(t_ad, model_parallel=2, mesh=SimpleNamespace(
+            axis_names=("data", "model"), shape={"data": 1, "model": 4}))
+    with pytest.warns(UserWarning, match="clamping to 1"):
+        srv = NeuLiteServer(t_ad, setup[4], FLConfig(**FL, model_parallel=2),
+                            params=params, device="cpu")
+    assert srv.runtime.model_shards == 1
+    assert isinstance(trt.make_runtime("sharded", t_ad, None, None, CPU),
+                      trt.ShardedRuntime)
     built = _port(t_ad)
     assert trt.make_runtime(built, t_ad, None, None, CPU) is built
     with pytest.raises(ValueError, match="AND constructor kwargs"):

@@ -103,13 +103,19 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     from repro_torch.benchmarks import fl_round_throughput
     from repro_torch.examples import async_fedbuff
     from repro_torch.federated.runtime import AsyncServerState
+    from repro_torch.launch.mesh import spawn_world
     for run in (lambda: async_fedbuff.main(rounds=1),
                 lambda: async_fedbuff.checkpointed_run(str(tmp_path), 1),
                 lambda: fl_round_throughput.run_async(rounds=1),
                 lambda: fl_round_throughput.run_population(
                     populations=(1e2,), rounds=1),
                 lambda: AsyncServerState.from_state_dict(
-                    {"version": 0, "clock": 0.0, "stages": []}, {})):
+                    {"version": 0, "clock": 0.0, "stages": []}, {}),
+                lambda: spawn_world(len, 2, None),
+                lambda: fl_round_throughput.run_model_parallel(),
+                lambda: fl_round_throughput.run_async(rounds=1,
+                                                      model_parallel=2),
+                lambda: async_fedbuff.mesh_world(rounds=1)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             run()
 
@@ -220,9 +226,12 @@ def test_unported_archs_and_runtimes_raise():
     from repro_torch.models.cnn import CNNConfig, build_units
     with pytest.raises(ValueError, match="alexnet"):
         build_units(CNNConfig(name="a", arch="alexnet"))
-    from repro_torch.federated.runtime import AsyncBufferedRuntime
-    with pytest.raises(ValueError, match="not yet ported.*sequential"):
-        make_runtime("sharded", None, None, None, torch.device("cpu"))
+    from repro_torch.federated.runtime import (AsyncBufferedRuntime,
+                                               ShardedRuntime)
+    # the sharded runtime is ported: the name builds it, on a one-rank mesh
+    sharded = make_runtime("sharded", None, None, None, torch.device("cpu"))
+    assert isinstance(sharded, ShardedRuntime)
+    assert sharded.mesh.shape == {"data": 1, "model": 1}
     # the async runtime is ported: the name builds it
     assert isinstance(make_runtime("async", None, None, None,
                                    torch.device("cpu")),

@@ -161,8 +161,10 @@ def test_fleet_policy_and_runtime_arguments(clients):
     assert (a.n_feasible, a.n_selected) == (b.n_feasible, b.n_selected)
     vec = _port_server(clients, runtime="vectorized")
     assert vec.runtime.name == "vectorized"
-    with pytest.raises(ValueError, match="not yet ported"):
-        _port_server(clients, runtime="sharded")
+    # the sharded runtime is ported: one process is a one-rank mesh
+    sharded = _port_server(clients, runtime="sharded")
+    assert sharded.runtime.name == "sharded"
+    assert sharded.mesh.shape == {"data": 1, "model": 1}
     asy = _port_server(clients, runtime="async")
     assert isinstance(asy.runtime, AsyncBufferedRuntime)
     assert asy.runtime.client_speeds is asy.fleet
