@@ -214,6 +214,30 @@
    stage; in that world the throughput's ``--model-parallel 2`` rows
    (added to ``chiprun_out/bench_fl_round.json``) and the example's third
    leg.
+19. Main path 11, after main path 10: serving (``models/model.py``'s
+   ``prefill`` and ``decode_step``, ``launch/serve.py``), TF32 off, every
+   check at TOL of its largest entry in f32, or 10x the plain side's own
+   movement under a random 1e-7 change of its params where that exceeds
+   TOL / 10; weights random from a seed.  11a ``qwen3-serve-full``:
+   qwen3-1.7b at full width (28 layers, d_model 2048, 16 heads over 8 kv
+   heads of 128, qk-norm, vocab 151936) in f32, B = 2, a 256-token
+   prompt: the prefill through K4 against the plain prefill (last logits,
+   every cache leaf), 16 greedy decode steps against the plain forward
+   over the whole sequence at each position, the greedy tokens again from
+   the seed to the bit; then ``serve.main`` at ``--full --batch 4
+   --prompt-len 512 --gen 64`` in the config's bf16: prefill ms, decode
+   ms/step, tokens/s and the allocator peak beside their bounds.  11b
+   ``h2o-serve-full-wrap``: h2o-danube-3-4b at full width (24 layers,
+   d_model 3840, 32 heads over 8 of 120, window 4096), f32, B = 1, a
+   4608-token prompt (the rolled windowed cache), 8 decode steps.  11c
+   ``xlstm-serve-full``: xlstm-1.3b, f32, B = 4, a 256-token prompt: each
+   sLSTM layer's final (c, n, m, h) through K5 against the plain scan's,
+   16 decode steps.  11d: ``examples/serve_decode.main()`` at its own
+   size, then its archs, qwen1.5-4b's smoke config (QKV bias) and
+   qwen3-1.7b's with 2 kv heads, each decoded against the plain forward
+   (the example's tokens the same bits).  K4 launches once a layer per
+   prefill, K5 once an sLSTM layer, neither in a decode step, K1-K3
+   never; every K4 and K5 shape held by the kernel phase.
 
 Each main path is driven with the launch counts set to 0 just before it
 and read just after.  Prints the card's name and power limit, a JSON line
@@ -348,10 +372,25 @@ FLASH_CASES += [(8, 64, 64, 4, 2, 32, True, 0, "float32"),
                 (128, 16, 16, 6, 6, 64, False, 0, "float32"),
                 (32, 16, 16, 6, 6, 16, False, 0, "float32"),
                 (128, 16, 16, 6, 6, 16, False, 0, "float32")]
+# main path 11's prefills: qwen3-1.7b (16 heads over 8 kv heads of 128) at
+# prompts of 256 and 512 in f32 and bf16; h2o-danube-3-4b (32 over 8 of
+# 120, window 4096) at a 4608-token prompt; the serving example's smoke
+# configs and qwen3-1.7b's with 2 kv heads (4 heads of 64, a 24-token
+# prompt, h2o-danube's window 64)
+FLASH_QWEN3 = (2, 256, 256, 16, 8, 128, True, 0, "float32")
+FLASH_SERVE = (4, 512, 512, 16, 8, 128, True, 0, "bfloat16")
+FLASH_H2O = (1, 4608, 4608, 32, 8, 120, True, 4096, "float32")
+FLASH_CASES += [FLASH_QWEN3, FLASH_QWEN3[:-1] + ("bfloat16",),
+                FLASH_SERVE[:-1] + ("float32",), FLASH_SERVE, FLASH_H2O,
+                (2, 24, 24, 4, 4, 64, True, 0, "float32"),
+                (2, 24, 24, 4, 4, 64, True, 64, "float32"),
+                (2, 24, 24, 4, 2, 64, True, 0, "float32")]
 # timed: the ViT-12 shape and the kernel benchmark's two attention rows
-# (kernels_bench.ATTN_SHAPES, causal f32)
+# (kernels_bench.ATTN_SHAPES, causal f32), then main path 11's bf16 serve
+# and h2o-danube prefills
 FLASH_TIMED = [FLASH_VIT, (2, 256, 256, 8, 2, 64, True, 0, "float32"),
-               (1, 1024, 1024, 8, 8, 64, True, 0, "float32")]
+               (1, 1024, 1024, 8, 8, 64, True, 0, "float32"), FLASH_SERVE,
+               FLASH_H2O]
 BF16_TOL = 2e-2
 
 # K5 forward and backward: (B, S, H, Dh, random_state0, gate_scale).  The
@@ -374,6 +413,10 @@ SLSTM_CASES = [SLSTM_MAIN,
                (64, 64, 4, 512, True, 1.0),
                (16, 64, 8, 512, True, 1.0),
                (2, 16, 16, 1024, True, 1.0)]
+# main path 11's prefills: xlstm-1.3b at batch 4, and the serving
+# example's xLSTM smoke config (4 heads of 64, a 24-token prompt)
+SLSTM_SERVE = (4, 256, 4, 512, False, 1.0)
+SLSTM_CASES += [SLSTM_SERVE, (2, 24, 4, 64, False, 1.0)]
 STATE = ("c", "n", "m", "h")
 
 # the paper's figures on the card: Fig. 2 at the reference's size and at
@@ -1037,7 +1080,8 @@ def flash_phase(torch, fkernel, fops, fref):
 
 def flash_timing(torch, fkernel, fref):
     """K4, its plain version and ``F.scaled_dot_product_attention`` (a
-    yardstick, timed here only) at FLASH_TIMED: event times of one call,
+    yardstick, timed here only; a window passed as its boolean mask) at
+    FLASH_TIMED: event times of one call,
     and the profiler's device time of K4 and of every kernel SDPA's call
     launches; their difference is the call's host share."""
     import torch.nn.functional as F
@@ -1050,10 +1094,15 @@ def flash_timing(torch, fkernel, fref):
         plain = time_ms(torch, lambda: fref.attention_ref(
             q, k, v, causal=causal, window=window))
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        # a window is a mask SDPA takes as an argument
+        mask = (fref.attention_mask(case[1], case[2], causal, window,
+                                    q.device) if window > 0 else None)
 
         def sdpa():
             return F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, enable_gqa=case[3] != case[4])
+                qt, kt, vt, attn_mask=mask,
+                is_causal=causal and mask is None,
+                enable_gqa=case[3] != case[4])
         lib = time_ms(torch, sdpa)
         dev = device_ms(torch, lambda: fkernel.flash_attention_fwd(
             q, k, v, causal=causal, window=window), ("flash_fwd_kernel",))
@@ -1179,10 +1228,10 @@ def slstm_phase(torch, skernel, sops, sref):
 
 
 def slstm_timing(torch, skernel, sops, sref):
-    """K5's forward and backward at the xlstm-1.3b shape: CUDA events,
-    the profiler's device time of the kernel, the plain version (for the
-    backward: autograd of the plain loop, its backward pass alone) and the
-    bound.  No single PyTorch call computes an sLSTM scan or its backward,
+    """K5's forward and backward at the xlstm-1.3b shape, and its forward
+    at main path 11's prefill: CUDA events, the profiler's device time of
+    the kernel, the plain version (for the backward: autograd of the plain
+    loop, its backward pass alone) and the bound.  No single PyTorch call computes an sLSTM scan or its backward,
     so there is no library time."""
     inputs = slstm_inputs(torch, SLSTM_MAIN)
     g_in, r, b, *st = inputs
@@ -1212,6 +1261,19 @@ def slstm_timing(torch, skernel, sops, sref):
         rows.append({"name": name, "shape": list(SLSTM_MAIN), "ms": ms,
                      "device_ms": dev, "plain_ms": plain, "library_ms": None,
                      "bound_ms": b_ms, "bound_by": b_by})
+    # the forward alone at main path 11's xlstm-1.3b prefill (no gradient)
+    inputs = slstm_inputs(torch, SLSTM_SERVE)
+    fn = lambda: skernel.slstm_scan_fwd(*inputs)       # noqa: E731
+    ms, dev = time_ms(torch, fn), device_ms(torch, fn, ("slstm_fwd_kernel",))
+    plain = time_ms(torch, lambda: sref.slstm_scan_ref(
+        *inputs[:3], dict(zip(STATE, inputs[3:]))), runs=5, warmup=1)
+    b_ms, b_by = bound_ms("slstm_scan_fwd", SLSTM_SERVE)
+    print(f"  time slstm_scan_fwd {SLSTM_SERVE}: kernel {ms:.4f} ms (device "
+          f"{fmt_ms(dev)}), plain {plain:.4f} ms, bound {b_ms:.3f} ms "
+          f"({b_by})", flush=True)
+    rows.append({"name": "slstm_scan_fwd", "shape": list(SLSTM_SERVE),
+                 "ms": ms, "device_ms": dev, "plain_ms": plain,
+                 "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
     return rows
 
 
@@ -2244,11 +2306,14 @@ def fig6_phase(torch, kernels):
         rows = fig6.run(device, FIG6_OUT)
     counts = read_all(kernels)
     print(f"  launches {counts}", flush=True)
-    for name, r in rows.items():
+    # the reference's granite-smoke row is analytic only (not gated)
+    measured = {n: r for n, r in rows.items()
+                if r.get("measured") != "not measured"}
+    for name, r in measured.items():
         check(all(math.isfinite(e["mean_loss"]) and e["num_batches"] == 2
                   for e in r["stages"] + [r["full"]]),
               f"{name}: a step did not take two finite-loss batches")
-    stage_steps = sum(2 * len(r["stages"]) for r in rows.values())
+    stage_steps = sum(2 * len(r["stages"]) for r in measured.values())
     check(all(counts[n] == 2 * stage_steps for n in STREAMING),
           f"expected 2 launches of each nHSIC kernel per stage step "
           f"({stage_steps} steps): {counts}")
@@ -2256,7 +2321,7 @@ def fig6_phase(torch, kernels):
                                       "slstm_scan_fwd", "slstm_scan_bwd")),
           f"a per-layer kernel never ran in the Fig. 6 phase: {counts}")
     check_held(seen, "the Fig. 6 phase")
-    failures = {name: r["failures"] for name, r in rows.items()
+    failures = {name: r["failures"] for name, r in measured.items()
                 if r["failures"]}
     check(not failures, f"a stage peaks at or above its full step: "
           f"{failures}")
@@ -4836,6 +4901,501 @@ def mesh_path(torch, kernels, np, asy):
     return out, {"mesh_1x1": counts, "mesh_2x1": c2, "mesh_2x2": c4}
 
 
+# --------------------------------------------------------------------------- #
+# main path 11: serving (prefill through K4 and K5, one-token decode)
+# --------------------------------------------------------------------------- #
+# 11a's f32 checks (batch, prompt, decode steps) and its bf16 serve run
+SERVE_QWEN3 = (2, 256, 16)
+SERVE_ARGV = ["--arch", "qwen3-1.7b", "--full", "--batch", "4",
+              "--prompt-len", "512", "--gen", "64"]
+SERVE_H2O = (1, 4608, 8)          # 11b: a prompt past the 4096 window
+SERVE_XLSTM = (4, 256, 16)        # 11c
+SERVE_SMOKE = (2, 24, 12)         # 11d: the serving example's size
+SERVE_SEED = 0
+
+
+@contextlib.contextmanager
+def slstm_shapes_seen():
+    """The set of K5 cases (B, S, H, Dh), as SLSTM_CASES lists them, that
+    the sLSTM scan op takes while the block runs."""
+    from repro_torch.kernels.slstm_scan import ops as sops
+    seen, scan = set(), sops.slstm_scan
+
+    def recorded(g_in, r, b, state0):
+        B, S, _, H, Dh = g_in.shape
+        seen.add((B, S, H, Dh))
+        return scan(g_in, r, b, state0)
+
+    sops.slstm_scan = recorded
+    try:
+        yield seen
+    finally:
+        sops.slstm_scan = scan
+
+
+def check_slstm_held(seen, where):
+    """Every K5 case of ``seen`` is one the kernel phase held."""
+    unheld = set(seen) - {c[:4] for c in SLSTM_CASES}
+    check(not unheld, f"sLSTM scan shapes of {where} that the kernel phase "
+          f"did not hold against the plain version: {unheld}")
+    print(f"  K5 took {len(seen)} shapes in {where}, each held in the "
+          f"kernel phase", flush=True)
+
+
+def serve_params(torch, cfg, noise=False):
+    """Random params of ``cfg`` drawn on the card from SERVE_SEED, as both
+    serving entry points draw them; with ``noise`` each entry times
+    (1 + 1e-7 n), n standard normal."""
+    from repro_torch.common.paramdef import init_params
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.models import model as M
+    params = init_params(SERVE_SEED, M.model_defs(cfg), "cuda",
+                         draw_on_device=True)
+    if noise:
+        gen = torch.Generator("cuda").manual_seed(SERVE_SEED + 1)
+        for p in tree_leaves(params):
+            p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=gen,
+                                          device=p.device, dtype=p.dtype))
+    return params
+
+
+def serve_prompt(torch, np, vocab, B, P):
+    """numpy's integers at SERVE_SEED, as both serving entry points draw
+    their prompts."""
+    rng = np.random.default_rng(SERVE_SEED)
+    return torch.from_numpy(rng.integers(0, vocab, (B, P))).cuda()
+
+
+def serve_greedy(torch, kernels, cfg, params, prompt, steps):
+    """Prefill, then ``steps`` greedy decode steps, launches counted per
+    phase.  Returns (prefill logits, prefill caches, the fed tokens (B,
+    steps): the prefill's argmax, then each step's, the decode steps'
+    logits (B, steps, V), launches in the prefill, in the decode steps).
+    The prefill caches are read before decode updates the grown ones."""
+    from repro_torch.common.tree import tree_map
+    from repro_torch.models import model as M
+    B, P = prompt.shape
+    with torch.no_grad():
+        reset_all(kernels)
+        logits, caches = M.prefill(params, cfg, {"tokens": prompt})
+        torch.cuda.synchronize()
+        pre = read_all(kernels)
+        first = tree_map(lambda c: c.clone(), caches)
+        caches = M.grow_caches(cfg, caches, B, P + steps)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        fed, outs = [], []
+        reset_all(kernels)
+        for i in range(steps):
+            fed.append(tok)
+            lg, caches = M.decode_step(params, cfg, {"tokens": tok}, caches,
+                                       P + i)
+            tok = lg[:, 0].argmax(-1)[:, None]
+            outs.append(lg)
+        torch.cuda.synchronize()
+        dec = read_all(kernels)
+    return logits, first, torch.cat(fed, 1), torch.cat(outs, 1), pre, dec
+
+
+def plain_logits(torch, cfg, params, tokens, positions):
+    """The plain forward (``use_flash_kernel`` and ``use_slstm_kernel``
+    off) over ``tokens``; the logits at ``positions``."""
+    from repro_torch.models import model as M
+    plain = dataclasses.replace(cfg, use_flash_kernel=False,
+                                use_slstm_kernel=False)
+    with torch.no_grad():
+        x, pos, _ = M.embed_inputs(params, plain, {"tokens": tokens})
+        x = M._run_periods(params["layers"], plain, x, pos)
+        x = M.rmsnorm(params["final_norm"], x[:, positions], plain.norm_eps)
+        return M.lm_head(params["head"], x).float()
+
+
+def bar_of(moved):
+    """The check's bar: TOL, or 10x the plain side's own movement under a
+    random 1e-7 change of its params where that exceeds TOL / 10."""
+    return max(TOL, 10 * moved) if moved > TOL / 10 else TOL
+
+
+def decode_check(torch, np, kernels, name, cfg, B, P, steps, counts,
+                 per_prefill, per_layer=False):
+    """One model served greedily on the card against its plain forward:
+    the prefill's last logits and each decode step's against the plain
+    forward over the prompt and the fed tokens at that position, at the
+    bar of ``bar_of`` (the plain forward again from the params with noise);
+    the launches: ``per_prefill`` of each kernel in the prefill, none in
+    decode; with ``per_layer`` also ``layer_check``.  Adds the launches
+    to ``counts``; returns the row and the prompt and the prefill's
+    logits and caches."""
+    params = serve_params(torch, cfg)
+    prompt = serve_prompt(torch, np, cfg.vocab_size, B, P)
+    t0 = time.perf_counter()
+    logits, caches, fed, steps_lg, pre, dec = serve_greedy(
+        torch, kernels, cfg, params, prompt, steps)
+    serve_s = time.perf_counter() - t0
+    for n in counts:
+        counts[n] += pre[n] + dec[n]
+    want_pre = {n: per_prefill.get(n, 0) for n in pre}
+    check(pre == want_pre and not any(dec.values()),
+          f"{name}: launches in the prefill {pre} (expected {want_pre}), "
+          f"in {steps} decode steps {dec} (expected none)")
+    seq = torch.cat([prompt, fed], 1)
+    positions = list(range(P - 1, P + steps))
+    got = torch.cat([logits, steps_lg], 1).float()
+    want = plain_logits(torch, cfg, params, seq, positions)
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite logits")
+    rel, ab = rel_abs(got, want)
+    del params
+    moved, _ = rel_abs(plain_logits(torch, cfg, serve_params(
+        torch, cfg, noise=True), seq, positions), want)
+    bar = bar_of(moved)
+    check(rel <= bar, f"{name}: decode against the plain forward rel err "
+          f"{rel} (bar {bar})")
+    layers = (layer_check(torch, name, cfg, serve_params(torch, cfg), seq,
+                          P, steps) if per_layer else None)
+    row = {"batch": B, "prompt": P, "steps": steps, "rel_err": rel,
+           "abs_err": ab, "plain_moved": moved, "bar": bar,
+           "prefill_launches": pre, "decode_launches": dec,
+           "greedy_s": serve_s, "tokens": fed.cpu().tolist(),
+           "layers": layers}
+    print(f"  {name} (B {B}, prompt {P}, {steps} decode steps): prefill "
+          f"and decode logits against the plain forward rel err {rel:.2e} "
+          f"(abs {ab:.2e}; the plain forward moves {moved:.2e} under a "
+          f"1e-7 change, bar {bar:.1e}); launches in the prefill "
+          f"{ {n: c for n, c in pre.items() if c} }, in decode none; "
+          f"prefill + decode {serve_s:.2f} s", flush=True)
+    return row, (prompt, logits, caches)
+
+
+def prefill_check(torch, name, cfg, prompt, logits, caches):
+    """The prefill through the kernels (``logits``, ``caches``) against
+    the plain prefill on the same params and prompt: the last logits and
+    every cache leaf, each at its bar (the plain prefill again from the
+    params with noise)."""
+    from repro_torch.common.tree import flatten_paths
+    from repro_torch.models import model as M
+    plain = dataclasses.replace(cfg, use_flash_kernel=False,
+                                use_slstm_kernel=False)
+
+    def run(params):
+        with torch.no_grad():
+            lg, c = M.prefill(params, plain, {"tokens": prompt})
+        return {"logits": lg.float(), **flatten_paths(c)}
+
+    want = run(serve_params(torch, cfg))
+    got = {"logits": logits.float(), **flatten_paths(caches)}
+    moved = run(serve_params(torch, cfg, noise=True))
+    rows = {}
+    for key, w in want.items():
+        rel, ab = rel_abs(got[key].float(), w.float())
+        mv, _ = rel_abs(moved[key].float(), w.float())
+        bar = bar_of(mv)
+        check(rel <= bar and bool(torch.isfinite(got[key]).all()),
+              f"{name}: prefill {key} through the kernels against the "
+              f"plain prefill rel err {rel} (bar {bar})")
+        rows[key] = {"rel_err": rel, "abs_err": ab, "plain_moved": mv,
+                     "bar": bar}
+    worst = max(rows, key=lambda k: rows[k]["rel_err"] / rows[k]["bar"])
+    print(f"  {name}: prefill through the kernels against the plain "
+          f"prefill, {len(rows)} outputs (logits and cache leaves) each at "
+          f"its bar; worst {worst}: rel err {rows[worst]['rel_err']:.2e} "
+          f"(bar {rows[worst]['bar']:.1e})", flush=True)
+    return rows
+
+
+def layer_check(torch, name, cfg, params, seq, P, steps):
+    """Each sub-layer's mixer alone, fed the plain forward's own input to
+    it (so that a model chaotic at init, whose whole-model logits move by
+    O(1) under a 1e-7 change, is still held at TOL): its prefill of the
+    first P positions through the kernels (with cache), then its decode
+    of positions P .. P + steps - 1, against the plain mixer over the
+    whole sequence, at TOL of its largest entry; an sLSTM layer's final
+    (c, n, m, h) through K5 against the plain scan's on the same input.
+    (The mixer's output, not the sub-layer's less its input: that
+    difference loses the stream's f32 digits to cancellation.)  Returns
+    the worst error of each part."""
+    import torch.nn.functional as F
+    from repro_torch.common.tree import tree_map
+    from repro_torch.models import attention as attn
+    from repro_torch.models import model as M
+    plain = dataclasses.replace(cfg, use_flash_kernel=False,
+                                use_slstm_kernel=False)
+    B, S = seq.shape
+    worst = {"prefill": 0.0, "decode": 0.0, "slstm_state": 0.0}
+    with torch.no_grad():
+        x, pos, _ = M.embed_inputs(params, plain, {"tokens": seq})
+        for i in range(cfg.num_periods):
+            period = tree_map(lambda a, i=i: a[i], params["layers"])
+            for j, (kind, ffn) in enumerate(cfg.pattern):
+                sub = period[f"sub{j}"]
+                h = M.rmsnorm(sub["norm1"], x, cfg.norm_eps)
+                want, pc = M._mixer_forward(sub["mixer"], plain, kind, h,
+                                            pos, True)
+                got, cache = M._mixer_forward(sub["mixer"], cfg, kind,
+                                              h[:, :P], pos[:, :P], True)
+                rel, _ = rel_abs(got, want[:, :P])
+                worst["prefill"] = max(worst["prefill"], rel)
+                if kind == "slstm":
+                    _, pc = M._mixer_forward(sub["mixer"], plain, kind,
+                                             h[:, :P], pos[:, :P], True)
+                    rel_s, _ = rel_abs([cache[k] for k in STATE],
+                                       [pc[k] for k in STATE])
+                    worst["slstm_state"] = max(worst["slstm_state"], rel_s)
+                if kind == "attn":
+                    n = attn.attn_cache_defs(cfg, B, S)["k"].shape[1]
+                    cache = {k: F.pad(c, (0, 0, 0, 0, 0, n - c.shape[1]))
+                             for k, c in cache.items()}
+                for t in range(P, P + steps):
+                    got, cache = M._mixer_decode(sub["mixer"], cfg, kind,
+                                                 h[:, t:t + 1], cache, t)
+                    rel, _ = rel_abs(got, want[:, t:t + 1])
+                    worst["decode"] = max(worst["decode"], rel)
+                x = M._ffn_apply(sub, plain, ffn, x + want)
+    check(all(v <= TOL for v in worst.values()),
+          f"{name}: a layer alone against the plain layer: {worst}")
+    print(f"  {name}: each of the {cfg.num_layers} mixers alone on the "
+          f"plain forward's input, through the kernels against the plain "
+          f"mixer: prefill {worst['prefill']:.2e}, decode "
+          f"{worst['decode']:.2e}"
+          + (f", sLSTM final states {worst['slstm_state']:.2e}"
+             if cfg.xlstm else "") + f" (bar {TOL:.0e})", flush=True)
+    return worst
+
+
+def serve_bounds(cfg, B, P, gen):
+    """The least time of one bf16 prefill of B x P tokens and of one decode
+    step, on the card's peak rates.  Prefill: the products 2 N' (B P) of
+    the params other than the embedding table and the head, the head on B
+    last positions, attention's QK^T and PV on the causal pairs (4 D FLOPs
+    a pair and head), at the bf16 rate; or every param read once.  Decode:
+    every param read once except the embedding table (B rows of it) and
+    the valid cache slots read once, averaged over the steps; or its
+    products.  Returns (prefill ms, bound by, decode ms, bound by)."""
+    from repro_torch.models import model as M
+    size = 2
+    n = M.total_param_count(cfg)
+    table = head = cfg.vocab_size * cfg.d_model
+    body = n - table - head
+    Dh, L = cfg.resolved_head_dim, cfg.num_layers
+    attn = 4 * B * cfg.num_heads * Dh * (P * (P + 1) // 2) * L
+    flops = 2 * body * B * P + 2 * head * B + attn
+    t_ops = flops / BF16_PRODUCT_FLOPS_PER_S * 1e3
+    t_bytes = n * size / HBM_BYTES_PER_S * 1e3
+    prefill = (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+               else "bytes")
+    slots = statistics.mean(P + i + 1 for i in range(gen - 1))
+    cache = 2 * L * B * cfg.num_kv_heads * Dh * slots * size
+    d_bytes = ((n - table) + B * cfg.d_model) * size + cache
+    d_flops = 2 * (n - table) * B + 4 * B * cfg.num_heads * Dh * slots * L
+    t_bytes = d_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = d_flops / BF16_PRODUCT_FLOPS_PER_S * 1e3
+    decode = (max(t_ops, t_bytes), "operations" if t_ops > t_bytes
+              else "bytes")
+    return (*prefill, *decode)
+
+
+def decode_profile(torch, np, cfg, B, P, steps=8):
+    """Where an eager decode step's time goes: ``cfg`` on the card after a
+    prefill of B x P, two warm-up steps, then the host clock around each
+    of ``steps`` greedy steps (a synchronize after each; median), and one
+    step under ``torch.profiler`` (CPU and CUDA activity): its device ops,
+    device busy ms (``device_busy_ms``), the idle share of the median
+    step, and the kernel launches the host made."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import model as M
+    params = serve_params(torch, cfg)
+    prompt = serve_prompt(torch, np, cfg.vocab_size, B, P)
+    with torch.no_grad():
+        logits, caches = M.prefill(params, cfg, {"tokens": prompt})
+        caches = M.grow_caches(cfg, caches, B, P + steps + 3)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        times = []
+        for i in range(steps + 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, caches = M.decode_step(params, cfg, {"tokens": tok}, caches,
+                                       P + i)
+            tok = lg[:, 0].argmax(-1)[:, None]
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            M.decode_step(params, cfg, {"tokens": tok}, caches,
+                          P + steps + 2)
+            torch.cuda.synchronize()
+    ops = sum(e.device_type == torch.autograd.DeviceType.CUDA
+              for e in prof.events())
+    launches = sum(e.name in ("cudaLaunchKernel", "cuLaunchKernelEx")
+                   for e in prof.events())
+    busy = device_busy_ms(torch, prof, 1)
+    wall = statistics.median(times[2:])
+    out = {"ms_per_step": wall, "device_ops": ops, "launches": launches,
+           "busy_ms": busy, "idle_share": 1 - busy / wall,
+           "warmup_ms": times[:2]}
+    print(f"  {cfg.name} {cfg.dtype} eager decode, B {B} after {P}: "
+          f"{wall:.2f} ms a step (median of {steps}; warm-up steps "
+          f"{times[0]:.1f}, {times[1]:.1f} ms); one profiled step: {ops} "
+          f"device ops, {launches} kernel launches, device busy "
+          f"{busy:.3f} ms, idle {out['idle_share']:.1%} of the step",
+          flush=True)
+    return out
+
+
+def serve_qwen3_path(torch, np, kernels, counts):
+    """11a qwen3-serve-full: qwen3-1.7b at full width.  In f32: the
+    prefill through K4 against the plain prefill (last logits, every cache
+    leaf), 16 greedy decode steps against the plain forward, the greedy
+    tokens again from the seed to the bit.  Then ``launch/serve.main`` in
+    the config's bf16, its times beside their bounds."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), dtype="float32",
+                              use_flash_kernel=True)
+    B, P, steps = SERVE_QWEN3
+    L = cfg.num_layers
+    row, (prompt, logits, caches) = decode_check(
+        torch, np, kernels, "11a qwen3-1.7b f32", cfg, B, P, steps, counts,
+        {"flash_attention_fwd": L}, per_layer=True)
+    row["prefill"] = prefill_check(torch, "11a qwen3-1.7b f32", cfg, prompt,
+                                   logits, caches)
+    del logits, caches
+    again = serve_greedy(torch, kernels, cfg, serve_params(torch, cfg),
+                         prompt, steps)
+    for n in counts:
+        counts[n] += again[4][n] + again[5][n]
+    check(again[2].cpu().tolist() == row["tokens"],
+          "11a: the greedy tokens from the seed differ between two runs")
+    print(f"  11a: the {steps} greedy tokens again from the seed, the same "
+          f"bits", flush=True)
+    del again
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    reset_all(kernels)
+    out = serve.main(SERVE_ARGV)
+    got = read_all(kernels)
+    for n in counts:
+        counts[n] += got[n]
+    bcfg = get_config("qwen3-1.7b")
+    want = {n: (bcfg.num_layers if n == "flash_attention_fwd" else 0)
+            for n in got}
+    check(got == want, f"11a serve.main: launches {got}, expected {want} "
+          f"(one K4 a layer in the prefill, none in decode)")
+    toks = out.pop("tokens")
+    check(toks.shape == (out["batch"], out["gen"])
+          and 0 <= int(toks.min()) and int(toks.max()) < bcfg.vocab_size,
+          f"11a serve.main: tokens {toks.shape}")
+    pre_b, pre_by, dec_b, dec_by = serve_bounds(
+        bcfg, out["batch"], out["prompt_len"], out["gen"])
+    out.update(prefill_ms=out["prefill_s"] * 1e3,
+               decode_ms_per_step=out["decode_s"] / out["decode_steps"] * 1e3,
+               prefill_bound_ms=pre_b, prefill_bound_by=pre_by,
+               decode_bound_ms=dec_b, decode_bound_by=dec_by,
+               launches=got)
+    print(f"  11a serve.main {' '.join(SERVE_ARGV)} (bf16): prefill "
+          f"{out['prefill_ms']:.2f} ms (bound {pre_b:.2f} ms, {pre_by}), "
+          f"decode {out['decode_ms_per_step']:.3f} ms/step (bound "
+          f"{dec_b:.3f} ms, {dec_by}), {out['tokens_per_s']:.1f} tokens/s, "
+          f"allocator peak {(out['peak_bytes'] or 0) / 2**30:.2f} GiB",
+          flush=True)
+    row["serve"] = out
+    row["decode_profile"] = decode_profile(
+        torch, np, dataclasses.replace(bcfg, use_flash_kernel=True),
+        out["batch"], out["prompt_len"])
+    return row
+
+
+def serve_h2o_path(torch, np, kernels, counts):
+    """11b h2o-serve-full-wrap: h2o-danube-3-4b at full width, f32, a
+    4608-token prompt (past the 4096 window, not a multiple of it: the
+    rolled cache), 8 decode steps against the plain forward."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("h2o-danube-3-4b"), dtype="float32",
+                              use_flash_kernel=True)
+    B, P, steps = SERVE_H2O
+    row, _ = decode_check(torch, np, kernels, "11b h2o-danube-3-4b f32", cfg,
+                          B, P, steps, counts,
+                          {"flash_attention_fwd": cfg.num_layers},
+                          per_layer=True)
+    return row
+
+
+def serve_xlstm_path(torch, np, kernels, counts):
+    """11c xlstm-serve-full: xlstm-1.3b at full width, f32, 16 decode
+    steps against the plain forward, then each layer alone: the prefill's
+    final (c, n, m, h) of each sLSTM layer through K5 against the plain
+    scan's on the same input (``layer_check``)."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("xlstm-1.3b"), dtype="float32",
+                              use_slstm_kernel=True)
+    B, P, steps = SERVE_XLSTM
+    slstm = [f"sub{j}" for j, (k, _) in enumerate(cfg.pattern)
+             if k == "slstm"]
+    row, _ = decode_check(
+        torch, np, kernels, "11c xlstm-1.3b f32", cfg, B, P, steps, counts,
+        {"slstm_scan_fwd": cfg.num_periods * len(slstm)}, per_layer=True)
+    return row
+
+
+def serve_smoke_path(torch, np, kernels, counts):
+    """11d: ``examples/serve_decode.main()`` at its own size, then each of
+    its archs, qwen1.5-4b's smoke config (QKV bias) and qwen3-1.7b's with
+    2 kv heads (GQA in decode) served greedily against the plain
+    forward; the example's tokens equal the check's."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.examples import serve_decode
+    reset_all(kernels)
+    example = serve_decode.main()
+    got = read_all(kernels)
+    for n in counts:
+        counts[n] += got[n]
+    rows = {"example_launches": got}
+    B, P, gen = SERVE_SMOKE
+    check((B, P, gen) == (serve_decode.B, serve_decode.PROMPT,
+                          serve_decode.GEN), "11d: not the example's size")
+    cfgs = {a: get_smoke_config(a) for a in serve_decode.ARCHS}
+    cfgs["qwen1.5-4b"] = get_smoke_config("qwen1.5-4b")
+    cfgs["qwen3-1.7b-kv2"] = dataclasses.replace(
+        get_smoke_config("qwen3-1.7b"), num_kv_heads=2)
+    for name, cfg in cfgs.items():
+        cfg = dataclasses.replace(cfg, use_flash_kernel=True,
+                                  use_slstm_kernel=True)
+        per = ({"slstm_scan_fwd": cfg.num_periods} if cfg.xlstm else
+               {"flash_attention_fwd": cfg.num_layers})
+        # the example's params and prompt
+        rows[name], _ = decode_check(torch, np, kernels, f"11d {name}", cfg,
+                                     B, P, gen - 1, counts, per)
+        if name in example:
+            check(example[name][:, :gen - 1].tolist() == rows[name]["tokens"],
+                  f"11d {name}: the example's tokens are not the greedy "
+                  f"tokens of the same params and prompt")
+    return rows
+
+
+def serving_path(torch, np, kernels):
+    """Main path 11: 11a-11d, every K4 and K5 shape held by the kernel
+    phase; the launches of the driven runs and the seconds of each part."""
+    counts = {n: 0 for n in read_all(kernels)}
+    out, took = {}, {}
+    t0 = time.perf_counter()
+    with flash_shapes_seen() as fseen, slstm_shapes_seen() as sseen:
+        for key, fn in (("11a", serve_qwen3_path), ("11b", serve_h2o_path),
+                        ("11c", serve_xlstm_path), ("11d", serve_smoke_path)):
+            t1 = time.perf_counter()
+            out[key] = fn(torch, np, kernels, counts)
+            took[key] = time.perf_counter() - t1
+            gc.collect()
+            torch.cuda.empty_cache()
+    check_flash_held(fseen, "main path 11")
+    check_slstm_held(sseen, "main path 11")
+    check(counts["flash_attention_fwd"] > 0 and counts["slstm_scan_fwd"] > 0
+          and not any(counts[n] for n in STREAMING),
+          f"main path 11: launches {counts}")
+    took["total"] = time.perf_counter() - t0
+    out["seconds"] = took
+    print(f"  main path 11 parts (s): "
+          f"{ {k: round(v, 1) for k, v in took.items()} }", flush=True)
+    return out, counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4997,6 +5557,11 @@ def main():
     phase("main path 10: rounds on a mesh of ranks")
     mesh, mcounts = mesh_path(torch, kernels, np, asy)
     del asy["final_params"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("main path 11: serving")
+    serving, servcounts = serving_path(torch, np, kernels)
 
     phase("main path 7: Tables 1 and 2 at full width")
     tables, tabcounts = tables_path(torch, kernels, np)
@@ -5024,7 +5589,7 @@ def main():
                "async_throughput": atcounts, "tables": tabcounts,
                "fig7": f7counts, "fig6": fcounts, "resume": rescounts,
                "fig2": f2counts, "fig5": f5counts, "fig8": f8counts,
-               "quickstart": qcounts,
+               "quickstart": qcounts, "serving": servcounts,
                **{p: {n: c.get(n, 0) for n in xcounts}
                   for p, c in mcounts.items()}}
     launches = {n: sum(c[n] for c in by_path.values()) for n in xcounts}
@@ -5121,8 +5686,11 @@ def main():
                    "fig7": fig7_rows, "fig6": fig6_out, "resume": resume,
                    "fig2": fig2_out, "fig5": fig5_out, "fig8": fig8_out,
                    "quickstart": quick_out, "async": asy, "mesh": mesh,
+                   "serving": serving,
                    "kernels": out_kernels, "device": device}, f, indent=1)
     phase("done")
+    print(f"main path 11 took {serving['seconds']['total']:.1f} s; the "
+          f"whole run {time.perf_counter() - START:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": out_kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

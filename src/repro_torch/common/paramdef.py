@@ -67,24 +67,31 @@ def nparams(tree) -> int:
 
 
 def _init_leaf(gen: torch.Generator, d: ParamDef) -> torch.Tensor:
+    """One leaf, drawn on ``gen``'s device."""
+    dev = gen.device
     if d.init == "zeros":
-        return torch.zeros(d.shape, dtype=d.dtype)
+        return torch.zeros(d.shape, dtype=d.dtype, device=dev)
     if d.init == "ones":
-        return torch.ones(d.shape, dtype=d.dtype)
+        return torch.ones(d.shape, dtype=d.dtype, device=dev)
     if d.init == "embed":
         scale = d.scale if d.scale is not None else 0.02
-        return (torch.randn(d.shape, generator=gen) * scale).to(d.dtype)
-    if d.scale is not None:
+    elif d.scale is not None:
         scale = d.scale
     else:
         fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
         scale = 1.0 / math.sqrt(max(fan_in, 1))
-    return (torch.randn(d.shape, generator=gen) * scale).to(d.dtype)
+    return (torch.randn(d.shape, generator=gen, device=dev)
+            * scale).to(d.dtype)
 
 
-def init_params(seed: int, tree, device: DeviceLike = None):
+def init_params(seed: int, tree, device: DeviceLike = None, *,
+                draw_on_device: bool = False):
     """Materialize a ParamDef tree on ``device``, drawing every leaf from one
-    CPU generator seeded with ``seed`` (the same values on any device)."""
+    CPU generator seeded with ``seed`` (the same values on any device).
+    ``draw_on_device`` draws from a generator on ``device`` instead:
+    seconds less per billion params on a card, other values than the CPU
+    generator's (still the same for the same seed and device)."""
     dev = resolve_device(device)
-    gen = torch.Generator().manual_seed(int(seed))
+    gen = torch.Generator(dev if draw_on_device else "cpu")
+    gen.manual_seed(int(seed))
     return tree_map(lambda d: _init_leaf(gen, d).to(dev), tree)

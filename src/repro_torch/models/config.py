@@ -1,13 +1,13 @@
 """Model configuration (port of ``repro.models.config``), for the models
-the port runs: the paper's ViT, dense GQA text models and the xLSTM
-(mLSTM and sLSTM blocks).
+the port runs: the paper's ViT, dense GQA decoders (with qk-norm, QKV bias
+and sliding-window attention) and the xLSTM (mLSTM and sLSTM blocks).
 
 The layer stack is ``num_periods = num_layers // len(pattern)`` repetitions
 of a pattern of (layer kind, FFN kind) sub-layers, with params stacked over
 the period axis.  The fields keep the reference's names and defaults.  What
 the port does not run yet raises a ``ValueError`` naming it: MLA, MoE, the
-``mamba`` layer kind, ``mlstm``/``slstm`` without an ``XLSTMConfig``, the
-``audio``/``vlm`` modalities, qk-norm and QKV bias.
+``mamba`` layer kind, ``mlstm``/``slstm`` without an ``XLSTMConfig`` and
+the ``audio``/``vlm`` modalities.
 """
 from __future__ import annotations
 
@@ -46,8 +46,8 @@ class ModelConfig:
 
     # --- attention ---------------------------------------------------------
     attn_impl: str = "gqa"          # gqa (mla: not ported)
-    qk_norm: bool = False           # not ported
-    qkv_bias: bool = False          # not ported
+    qk_norm: bool = False           # RMSNorm of q and k over the head dim
+    qkv_bias: bool = False
     window: int = 0                 # 0 = full; >0 = sliding window
     rope_theta: float = 10_000.0
     mla: Optional[Any] = None       # not ported
@@ -64,6 +64,9 @@ class ModelConfig:
 
     # --- misc ----------------------------------------------------------------
     norm_eps: float = 1e-5
+    # kept for the reference's configs; neither package reads it (the head
+    # is always its own param), so param counts match the reference's
+    tie_embeddings: bool = False
     act: str = "swiglu"             # swiglu | gelu
     dtype: str = "bfloat16"
     # route attention through the hand-written CUDA flash-attention forward
@@ -85,8 +88,6 @@ class ModelConfig:
             unported.append(f"layer kinds {kinds}")
         if self.modality not in ("text", "image"):
             unported.append(f"modality {self.modality!r}")
-        if self.qk_norm or self.qkv_bias:
-            unported.append("qk-norm and QKV bias")
         if unported:
             raise ValueError(f"{self.name}: not yet ported: "
                              + ", ".join(unported))

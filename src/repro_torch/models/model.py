@@ -10,15 +10,22 @@ numbers are the same, the memory is not.
 Entry points:
   ``forward``      full-model logits (evaluation)
   ``loss_fn``      full-model training loss
+  ``prefill``      a prompt's last-position logits and the per-layer caches
+  ``decode_step``  one token against those caches (serving)
   ``stage_apply``  NeuLite stage t: frozen embedding and prefix (no grad),
                    trainable boundary and active periods, surrogate output
                    module, head, nHSIC projector.
+
+Caches are the mixers' (``attention``, ``ssm``), per pattern position
+``sub{j}`` and stacked over the periods, as in the reference.
+``decode_step`` updates them in place and returns them.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.common.paramdef import ParamDef, stack_defs
+from repro_torch.common.paramdef import ParamDef, nparams, stack_defs
 from repro_torch.common.tree import tree_leaves, tree_map
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
@@ -33,15 +40,22 @@ from repro_torch.models.layers import (MODEL_AXIS, cross_entropy, embed,
 # sub-layers
 # --------------------------------------------------------------------------- #
 def _mixer_defs(cfg: ModelConfig, kind: str) -> dict:
-    fn = {"attn": attn.gqa_defs, "mlstm": ssm.mlstm_defs,
+    fn = {"attn": attn.attn_defs, "mlstm": ssm.mlstm_defs,
           "slstm": ssm.slstm_defs}[kind]
     return fn(cfg)
 
 
-def _mixer_forward(params, cfg: ModelConfig, kind: str, x, positions):
-    fn = {"attn": attn.gqa_forward, "mlstm": ssm.mlstm_forward,
+def _mixer_forward(params, cfg: ModelConfig, kind: str, x, positions,
+                   with_cache=False):
+    fn = {"attn": attn.attn_forward, "mlstm": ssm.mlstm_forward,
           "slstm": ssm.slstm_forward}[kind]
-    return fn(params, cfg, x, positions)
+    return fn(params, cfg, x, positions, with_cache=with_cache)
+
+
+def _mixer_decode(params, cfg: ModelConfig, kind: str, x, cache, pos: int):
+    fn = {"attn": attn.attn_decode, "mlstm": ssm.mlstm_decode,
+          "slstm": ssm.slstm_decode}[kind]
+    return fn(params, cfg, x, cache, pos)
 
 
 def sublayer_defs(cfg: ModelConfig, kind: str, ffn: str) -> dict:
@@ -53,16 +67,33 @@ def sublayer_defs(cfg: ModelConfig, kind: str, ffn: str) -> dict:
     return d
 
 
+def _ffn_apply(params, cfg: ModelConfig, ffn: str, x):
+    if ffn == "none":
+        return x
+    return x + mlp(params["ffn"], rmsnorm(params["norm2"], x, cfg.norm_eps),
+                   cfg.act)
+
+
 def sublayer_apply(params, cfg: ModelConfig, kind: str, ffn: str, x,
-                   positions):
+                   positions, *, with_cache=False):
     """Pre-norm residual sub-layer: the mixer (attention, mLSTM or sLSTM),
-    then the MLP where the pattern has one."""
+    then the MLP where the pattern has one.  Returns x, and with
+    ``with_cache`` (x, the mixer's cache)."""
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
-    x = x + _mixer_forward(params["mixer"], cfg, kind, h, positions)
-    if ffn != "none":
-        h = rmsnorm(params["norm2"], x, cfg.norm_eps)
-        x = x + mlp(params["ffn"], h, cfg.act)
-    return x
+    mix = _mixer_forward(params["mixer"], cfg, kind, h, positions,
+                         with_cache)
+    if not with_cache:
+        return _ffn_apply(params, cfg, ffn, x + mix)
+    mix, cache = mix
+    return _ffn_apply(params, cfg, ffn, x + mix), cache
+
+
+def sublayer_decode(params, cfg: ModelConfig, kind: str, ffn: str, x,
+                    cache, pos: int):
+    """``sublayer_apply`` for one token against the mixer's cache."""
+    h = rmsnorm(params["norm1"], x, cfg.norm_eps)
+    mix, cache = _mixer_decode(params["mixer"], cfg, kind, h, cache, pos)
+    return _ffn_apply(params, cfg, ffn, x + mix), cache
 
 
 def period_defs(cfg: ModelConfig) -> dict:
@@ -100,6 +131,32 @@ def model_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
+def cache_defs(cfg: ModelConfig, batch: int, seq: int) -> dict:
+    """Per-pattern-position caches stacked over periods."""
+    out = {}
+    for j, (kind, _) in enumerate(cfg.pattern):
+        if kind == "attn":
+            c = attn.attn_cache_defs(cfg, batch, seq)
+        elif kind == "mlstm":
+            c = ssm.mlstm_cache_defs(cfg, batch)
+        else:
+            c = ssm.slstm_cache_defs(cfg, batch)
+        out[f"sub{j}"] = stack_defs(c, cfg.num_periods)
+    return out
+
+
+def grow_caches(cfg: ModelConfig, caches, batch: int, seq: int):
+    """Prefill's caches zero-padded at the end to ``cache_defs(cfg, batch,
+    seq)``'s shapes (the decode horizon), as the reference's serving pads
+    them; leaves already at their size are kept as they are."""
+    def grow(c, d):
+        pad = [n - m for m, n in zip(c.shape, d.shape)]
+        if not any(pad):
+            return c
+        return F.pad(c, [a for p in reversed(pad) for a in (0, p)])
+    return tree_map(grow, caches, cache_defs(cfg, batch, seq))
+
+
 # --------------------------------------------------------------------------- #
 # input embedding per modality
 # --------------------------------------------------------------------------- #
@@ -126,14 +183,39 @@ def num_stacked(tree) -> int:
     return leaves[0].shape[0] if leaves else 0
 
 
-def _run_periods(layer_params, cfg: ModelConfig, x, positions):
-    """The pattern over each period of the stacked params, in order."""
+def _run_periods(layer_params, cfg: ModelConfig, x, positions, *,
+                 with_cache=False):
+    """The pattern over each period of the stacked params, in order.
+    Returns x, and with ``with_cache`` (x, the caches stacked over the
+    periods)."""
+    caches = []
+    for i in range(num_stacked(layer_params)):
+        period = tree_map(lambda a, i=i: a[i], layer_params)
+        held = {}
+        for j, (kind, ffn) in enumerate(cfg.pattern):
+            x = sublayer_apply(period[f"sub{j}"], cfg, kind, ffn, x,
+                               positions, with_cache=with_cache)
+            if with_cache:
+                x, held[f"sub{j}"] = x
+        caches.append(held)
+    if not with_cache:
+        return x
+    return x, tree_map(lambda *c: torch.stack(c), *caches)
+
+
+def _decode_periods(layer_params, cfg: ModelConfig, x, caches, pos: int):
+    """One token through every period; each layer's new cache is written
+    into its slice of the stacked ``caches`` (in place)."""
     for i in range(num_stacked(layer_params)):
         period = tree_map(lambda a, i=i: a[i], layer_params)
         for j, (kind, ffn) in enumerate(cfg.pattern):
-            x = sublayer_apply(period[f"sub{j}"], cfg, kind, ffn, x,
-                               positions)
-    return x
+            held = {k: c[i] for k, c in caches[f"sub{j}"].items()}
+            x, new = sublayer_decode(period[f"sub{j}"], cfg, kind, ffn, x,
+                                     held, pos)
+            for k, t in new.items():
+                if t is not held[k]:
+                    held[k].copy_(t)
+    return x, caches
 
 
 def forward(params, cfg: ModelConfig, inputs: dict):
@@ -144,6 +226,28 @@ def forward(params, cfg: ModelConfig, inputs: dict):
     if cfg.task == "classify":
         x = x.mean(dim=1)                            # global pool
     return lm_head(params["head"], x)
+
+
+def prefill(params, cfg: ModelConfig, inputs: dict):
+    """A prompt through the model with caches.  Returns (the last
+    position's logits (B, 1, V), caches).  The head runs on the last
+    position alone: the same numbers as the reference's full logits
+    sliced, without a (B, S, V) tensor."""
+    x, positions, _ = embed_inputs(params, cfg, inputs)
+    x, caches = _run_periods(params["layers"], cfg, x, positions,
+                             with_cache=True)
+    x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+    return lm_head(params["head"], x), caches
+
+
+def decode_step(params, cfg: ModelConfig, inputs: dict, caches, pos: int):
+    """One token, ``inputs = {"tokens": (B, 1)}`` at absolute position
+    ``pos``, against ``caches`` (grown to the horizon, ``grow_caches``).
+    Updates them in place; returns (logits (B, 1, V), caches)."""
+    x = embed(params["embed"], inputs["tokens"])
+    x, caches = _decode_periods(params["layers"], cfg, x, caches, pos)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return lm_head(params["head"], x), caches
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict):
@@ -229,3 +333,28 @@ def stage_apply(frozen, trainable, cfg: ModelConfig, inputs: dict):
     feats = {"x_embed": x_embed, "z_active": z_active, "z_proj": z_proj,
              "loss_mask": loss_mask}
     return logits, feats
+
+
+# --------------------------------------------------------------------------- #
+# accounting
+# --------------------------------------------------------------------------- #
+def model_flops(cfg: ModelConfig, num_tokens: int) -> float:
+    """MODEL_FLOPS = 6 * N_active * D (MoE counts active experts only)."""
+    return 6.0 * active_param_count(cfg) * num_tokens
+
+
+def total_param_count(cfg: ModelConfig) -> int:
+    return nparams(model_defs(cfg))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Params touched per token (MoE: top_k + shared experts only; the
+    config refuses MoE until it is ported)."""
+    total = nparams(model_defs(cfg))
+    if cfg.moe is None:
+        return total
+    moe_layers = sum(1 for _, f in cfg.pattern if f == "moe") \
+        * cfg.num_periods
+    per_expert = 3 * cfg.d_model * cfg.moe.d_ff_expert
+    return total - moe_layers * (cfg.moe.num_experts - cfg.moe.top_k) \
+        * per_expert

@@ -1,12 +1,22 @@
 """xLSTM cells (port of the mLSTM and sLSTM half of ``repro.models.ssm``):
 mLSTM with matrix memory, in its chunkwise-parallel form, and sLSTM with
-scalar memory and recurrent gating.
+scalar memory and recurrent gating; each with its one-token decode.
 
 The reference's ``lax.scan`` over chunks (mLSTM) and over time (sLSTM)
 become Python loops.  With ``ModelConfig.use_slstm_kernel`` the sLSTM time
 scan runs in the hand-written CUDA kernel (``kernels/slstm_scan``);
 otherwise in that kernel's plain per-step loop (``slstm_scan/ref.py``).
-Mamba, the decode steps and the recurrent caches are not ported yet.
+
+``*_forward(..., with_cache=True)`` also returns the final recurrent state,
+which ``*_decode`` carries one token on (serving):
+  mLSTM: ``{"C": (B, H, Dh, Dh), "n": (B, H, Dh), "m": (B, H),
+           "conv": (B, 3, d_in)}`` (the conv's last three inputs,
+           zero-padded in front for a prompt shorter than three tokens;
+           the reference pads such a prompt's behind, and its decode then
+           convolves the wrong taps)
+  sLSTM: ``{"c", "n", "m", "h"}``, each (B, H, Dh), the scan's final state
+The decode steps run no kernel, as the reference's do.  Mamba is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -34,6 +44,16 @@ def causal_conv(x, w, b=None):
     if b is not None:
         y = y + b
     return y
+
+
+def causal_conv_step(x_t, buf, w, b=None):
+    """One step of ``causal_conv``: x_t (B, C) the new input, buf (B, K-1,
+    C) the previous ones.  Returns (y (B, C), the new buffer)."""
+    window = torch.cat([buf, x_t[:, None, :]], dim=1)           # (B, K, C)
+    y = torch.einsum("bkc,ck->bc", window, w.flip(-1))
+    if b is not None:
+        y = y + b
+    return y, window[:, 1:, :]
 
 
 # =========================================================================== #
@@ -125,8 +145,10 @@ def _mlstm_chunk_step(carry, inp, Dh):
     return (C_new, n_new, m_new), h
 
 
-def mlstm_forward(params, cfg: ModelConfig, x, positions):
-    """Chunkwise-parallel form: O(S·Q) memory instead of O(S²)."""
+def mlstm_forward(params, cfg: ModelConfig, x, positions, *,
+                  with_cache=False):
+    """Chunkwise-parallel form: O(S·Q) memory instead of O(S²).  Returns
+    y, and with ``with_cache`` (y, cache)."""
     d_in, H, Dh = mlstm_dims(cfg)
     B, S, _ = x.shape
     up = x @ params["w_up"]
@@ -158,12 +180,66 @@ def mlstm_forward(params, cfg: ModelConfig, x, positions):
         hs.append(h)
     h = torch.cat(hs, dim=1).reshape(B, nc * Q, d_in)[:, :S].to(x.dtype)
     h = h * params["out_norm"]
-    return (h * F.silu(z)) @ params["w_down"]
+    y = (h * F.silu(z)) @ params["w_down"]
+    if not with_cache:
+        return y
+    C, n, m = carry
+    conv = F.pad(x_m[:, -3:], (0, 0, max(0, 3 - S), 0))
+    return y, {"C": C, "n": n, "m": m, "conv": conv}
+
+
+def mlstm_decode(params, cfg: ModelConfig, x, cache, pos: int):
+    """x: (B, 1, d) -> (y (B, 1, d), the new cache)."""
+    d_in, H, Dh = mlstm_dims(cfg)
+    B = x.shape[0]
+    up = x[:, 0] @ params["w_up"]
+    x_m, z = up.chunk(2, dim=-1)
+    xc_t, conv = causal_conv_step(x_m, cache["conv"], params["conv_w"])
+    xc = F.silu(xc_t)
+    q = torch.einsum("bc,che->bhe", xc, params["wq"])
+    k = torch.einsum("bc,che->bhe", xc, params["wk"])
+    v = torch.einsum("bc,che->bhe", x_m, params["wv"])
+
+    logi = (xc.float() @ params["wi"]) + params["bi"]          # (B,H)
+    logf = F.logsigmoid((xc.float() @ params["wf"]) + params["bf"])
+    m_new = torch.maximum(logf + cache["m"], logi)
+    f_s = torch.exp(logf + cache["m"] - m_new)[..., None]
+    i_s = torch.exp(logi - m_new)[..., None]
+    kf = k.float()
+    C = f_s[..., None] * cache["C"] + i_s[..., None] * torch.einsum(
+        "bhe,bhf->bhef", kf, v.float())
+    n = f_s * cache["n"] + i_s * kf
+    qf = q.float() / math.sqrt(Dh)
+    num = torch.einsum("bhef,bhe->bhf", C, qf)
+    den = torch.maximum(torch.abs(torch.einsum("bhe,bhe->bh", n, qf)),
+                        torch.exp(-m_new))
+    h = (num / den[..., None]).reshape(B, d_in).to(x.dtype)
+    h = h * params["out_norm"]
+    y = ((h * F.silu(z)) @ params["w_down"])[:, None]
+    return y, {"C": C, "n": n, "m": m_new, "conv": conv}
+
+
+def mlstm_cache_defs(cfg: ModelConfig, batch: int) -> dict:
+    d_in, H, Dh = mlstm_dims(cfg)
+    bspec = ("pod", "data")
+    f32 = torch.float32
+    return {
+        "C": ParamDef((batch, H, Dh, Dh), f32, (bspec, MODEL_AXIS),
+                      init="zeros"),
+        "n": ParamDef((batch, H, Dh), f32, (bspec, MODEL_AXIS),
+                      init="zeros"),
+        "m": ParamDef((batch, H), f32, (bspec, MODEL_AXIS), init="zeros"),
+        "conv": ParamDef((batch, 3, d_in), cfg.param_dtype,
+                         (bspec, None, MODEL_AXIS), init="zeros"),
+    }
 
 
 # =========================================================================== #
 # sLSTM (xLSTM scalar-memory cell with recurrent gating)
 # =========================================================================== #
+STATE = ("c", "n", "m", "h")     # the sLSTM cache's leaves, in order
+
+
 def slstm_dims(cfg: ModelConfig):
     H = cfg.num_heads
     return cfg.d_model, H, cfg.d_model // H
@@ -190,7 +266,25 @@ def slstm_defs(cfg: ModelConfig) -> dict:
     }
 
 
-def slstm_forward(params, cfg: ModelConfig, x, positions):
+def _slstm_step(params, carry, g_in):
+    """The plain one-step recurrence.  carry: (c, n, m, h), each (B, H,
+    Dh); g_in: (B, 4, H, Dh).  One step of the scan's plain version
+    (``slstm_scan/ref.py``: the recurrent projection as four per-gate
+    products, as in the reference).  Returns (the new carry, h)."""
+    from repro_torch.kernels.slstm_scan.ref import slstm_scan_ref
+    hs, fin = slstm_scan_ref(g_in[:, None], params["r"], params["b"],
+                             dict(zip(STATE, carry)))
+    return tuple(fin[k] for k in STATE), hs[:, 0]
+
+
+def _slstm_ffn(params, h):
+    return (F.silu(h @ params["ffn_gate"]) * (h @ params["ffn_up"])) \
+        @ params["ffn_down"]
+
+
+def slstm_forward(params, cfg: ModelConfig, x, positions, *,
+                  with_cache=False):
+    """Returns y, and with ``with_cache`` (y, the scan's final state)."""
     d, H, Dh = slstm_dims(cfg)
     B, S, _ = x.shape
     zeros = torch.zeros((B, H, Dh), dtype=torch.float32, device=x.device)
@@ -201,8 +295,26 @@ def slstm_forward(params, cfg: ModelConfig, x, positions):
         from repro_torch.kernels.slstm_scan.ops import slstm_scan as scan
     else:
         from repro_torch.kernels.slstm_scan.ref import slstm_scan_ref as scan
-    hs, _ = scan(g_in, params["r"], params["b"], st0)
+    hs, fin = scan(g_in, params["r"], params["b"], st0)
     h = hs.reshape(B, S, d).to(x.dtype)
-    h = h * params["out_norm"]
-    return (F.silu(h @ params["ffn_gate"]) * (h @ params["ffn_up"])) \
-        @ params["ffn_down"]
+    y = _slstm_ffn(params, h * params["out_norm"])
+    if not with_cache:
+        return y
+    return y, {k: fin[k] for k in STATE}
+
+
+def slstm_decode(params, cfg: ModelConfig, x, cache, pos: int):
+    """x: (B, 1, d) -> (y (B, 1, d), the new state)."""
+    d, H, Dh = slstm_dims(cfg)
+    B = x.shape[0]
+    g_in = torch.einsum("bd,gdhe->bghe", x[:, 0].float(), params["w_in"])
+    state, h = _slstm_step(params, tuple(cache[k] for k in STATE), g_in)
+    h = h.reshape(B, d).to(x.dtype) * params["out_norm"]
+    return _slstm_ffn(params, h)[:, None], dict(zip(STATE, state))
+
+
+def slstm_cache_defs(cfg: ModelConfig, batch: int) -> dict:
+    _, H, Dh = slstm_dims(cfg)
+    return {k: ParamDef((batch, H, Dh), torch.float32,
+                        (("pod", "data"), MODEL_AXIS), init="zeros")
+            for k in STATE}

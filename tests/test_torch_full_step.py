@@ -224,9 +224,11 @@ def test_audit_flags_a_stage_at_or_above_the_full_peak():
 
 
 def test_fig6_off_the_card_is_the_reference_analytic_table():
-    """``fig6_memory.run(device="cpu")``: the six models' analytic rows,
-    each equal to the reference's ``stage_memory_table`` and
-    ``estimate_full_memory`` to the byte, and no measured column."""
+    """``fig6_memory.run(device="cpu")``: the seven analytic rows (the six
+    measured models' and the reference's ``granite-smoke``), each equal to
+    the reference's ``stage_memory_table`` and ``estimate_full_memory`` to
+    the byte, and no measured column."""
+    from repro.configs import get_smoke_config as r_smoke
     from repro.configs import xlstm_1_3b as r_xlstm
     from repro.configs.paper_models import vit as r_vit
     from repro.core.memory import estimate_full_memory, stage_memory_table
@@ -245,7 +247,10 @@ def test_fig6_off_the_card_is_the_reference_analytic_table():
         r_make_adapter(dataclasses.replace(r_xlstm.config(), dtype="float32"),
                        fig6.XLSTM_STAGES),
         {f"seq={fig6.XLSTM_SEQ}": (fig6.XLSTM_BATCH, fig6.XLSTM_SEQ)})
-    assert set(rows) == set(r_cases)
+    r_cases["granite-smoke"] = (
+        r_make_adapter(r_smoke(fig6.GRANITE), fig6.GRANITE_STAGES),
+        {f"seq={fig6.GRANITE_SEQ}": (fig6.GRANITE_BATCH, fig6.GRANITE_SEQ)})
+    assert set(rows) == set(r_cases) and len(rows) == 7
     for name, (adapter, cases) in r_cases.items():
         row = rows[name]
         assert row["measured"] == "not measured"

@@ -118,6 +118,11 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
                 lambda: async_fedbuff.mesh_world(rounds=1)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             run()
+    from repro_torch.examples import serve_decode
+    from repro_torch.launch import serve
+    for run in (lambda: serve.main([]), lambda: serve_decode.main()):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run()
 
 
 def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
@@ -214,10 +219,13 @@ def test_unported_model_config_fields_raise():
                      ({"pattern": (("mlstm", "none"),)}, "mlstm"),
                      ({"pattern": (("slstm", "none"),)}, "slstm"),
                      ({"modality": "audio"}, "audio"),
-                     ({"modality": "vlm"}, "vlm"),
-                     ({"qk_norm": True}, "qk-norm")]:
+                     ({"modality": "vlm"}, "vlm")]:
         with pytest.raises(ValueError, match=f"not yet ported.*{what}"):
             ModelConfig(**base, **kw)
+    # qk-norm and QKV bias are ported: both construct
+    ModelConfig(**base, qk_norm=True)
+    ModelConfig(**base, qkv_bias=True)
+    ModelConfig(**base, qk_norm=True, qkv_bias=True, window=4)
 
 
 def test_unported_archs_and_runtimes_raise():
