@@ -1,10 +1,10 @@
 """Device memory of the server's rounds, eager against captured steps, on
 the card: what a batch that fits one runtime needs in the other.
 
-A ``NeuLiteServer`` of full-width xlstm-1.3b (``xlstm_server``, the one
-``chip_smoke.py``'s main path 3 runs: 48 layers, d_model 2048, vocab
-50304, f32, batch 16 at seq 256, 4 of 100 clients, SGD at lr 1e-4, K1-K5
-on, 3 stages) runs its first rounds twice from the same seed: with the
+A ``NeuLiteServer`` of full-width xlstm-1.3b (``xlstm_server``: 48
+layers, d_model 2048, vocab 50304, f32, batch 16 at seq 256, 4 of 100
+clients, SGD at lr 1e-4, K1-K5 on, 3 stages; ``chip_smoke.py``'s main
+path 3 runs it with its depth cut to 24 layers) runs its first rounds twice from the same seed: with the
 runtime's captured steps (the default on the card) and with eager steps
 (``capture=False``).  Per round: the allocator's peak allocated and
 reserved MiB (from an emptied cache; a captured step's graph pool counts
@@ -37,18 +37,21 @@ LR = 1e-4
 
 
 def xlstm_server(capture: bool = True, schedule: str = "round_robin",
-                 rounds_per_stage: int = 2, params=None):
+                 rounds_per_stage: int = 2, params=None,
+                 num_layers: int = 0):
     """Full-width xlstm-1.3b over a 100-device fleet on synthetic text,
-    built from SEED; ``capture=False`` keeps its steps eager, and
-    ``params`` (on the card) takes the place of the init from SEED."""
+    built from SEED; ``capture=False`` keeps its steps eager,
+    ``params`` (on the card) takes the place of the init from SEED, and
+    ``num_layers`` (whole periods of 8) cuts its depth."""
     from repro_torch.configs import xlstm_1_3b
     from repro_torch.core.progressive import make_adapter
     from repro_torch.data.partition import dirichlet_partition
     from repro_torch.data.synthetic import make_lm_dataset
     from repro_torch.federated.server import FLConfig, NeuLiteServer
 
-    cfg = dataclasses.replace(xlstm_1_3b.config(), use_slstm_kernel=True,
-                              dtype="float32")
+    cfg = xlstm_1_3b.config()
+    cfg = dataclasses.replace(cfg, use_slstm_kernel=True, dtype="float32",
+                              num_layers=num_layers or cfg.num_layers)
     flc = FLConfig(n_devices=100, clients_per_round=4, local_epochs=1,
                    batch_size=BATCH, lr=LR, num_stages=STAGES,
                    use_hsic_kernel=True, runtime="sequential",

@@ -57,6 +57,19 @@ def stack_defs(tree, n: int):
     return tree_map(lambda d: d.with_prefix(n), tree)
 
 
+def shape_tree(tree):
+    """ParamDef tree -> tree of ``meta`` tensors of the same shapes and
+    dtypes (the reference's ``ShapeDtypeStruct`` tree; nothing is
+    allocated)."""
+    return tree_map(lambda d: torch.empty(d.shape, dtype=d.dtype,
+                                          device="meta"), tree)
+
+
+def spec_tree(tree):
+    """ParamDef tree -> tree of the leaves' logical specs (tuples)."""
+    return tree_map(lambda d: d.spec, tree)
+
+
 def nbytes(tree) -> int:
     return sum(math.prod(d.shape) * d.dtype.itemsize
                for d in tree_leaves(tree))

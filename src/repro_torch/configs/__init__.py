@@ -1,28 +1,33 @@
 """Architecture registry (port of ``repro.configs``): the reference's ten
-assigned ids, in its order.
+assigned ids, in its order, and the input shapes (``configs/shapes.py``).
 
 ``get_config("<id>")`` gives the full-scale config and
 ``get_smoke_config`` its reduced same-family CPU variant, for the archs
-the port runs: the four dense decoders and xlstm-1.3b.  The other five
-need parts not ported yet and raise a ``ValueError`` naming them.
+the port runs: the four dense decoders, xlstm-1.3b, musicgen-large
+(audio) and llava-next-34b (VLM).  The other three need parts not ported
+yet and raise a ``ValueError`` naming them.
 """
 from __future__ import annotations
 
-from repro_torch.configs import (granite_3_8b, h2o_danube_3_4b, qwen1_5_4b,
+from repro_torch.configs import (granite_3_8b, h2o_danube_3_4b,
+                                 llava_next_34b, musicgen_large, qwen1_5_4b,
                                  qwen3_1_7b, xlstm_1_3b)
+from repro_torch.configs.shapes import (SHAPES, InputShape, cache_part_specs,
+                                        cache_specs, decode_inputs,
+                                        input_specs, label_specs,
+                                        resolve_config, token_inputs)
 from repro_torch.models.config import ModelConfig
 
 ARCH_IDS = ["musicgen-large", "xlstm-1.3b", "llava-next-34b",
             "granite-3-8b", "deepseek-v2-lite-16b", "deepseek-v2-236b",
             "h2o-danube-3-4b", "qwen1.5-4b", "qwen3-1.7b",
             "jamba-1.5-large-398b"]
-_REGISTRY = {m.ARCH_ID: m for m in (xlstm_1_3b, granite_3_8b,
+_REGISTRY = {m.ARCH_ID: m for m in (musicgen_large, xlstm_1_3b,
+                                    llava_next_34b, granite_3_8b,
                                     h2o_danube_3_4b, qwen1_5_4b,
                                     qwen3_1_7b)}
 # what each unported arch needs
-_NOT_PORTED = {"musicgen-large": "audio",
-               "llava-next-34b": "vlm",
-               "deepseek-v2-lite-16b": "MLA attention, MoE",
+_NOT_PORTED = {"deepseek-v2-lite-16b": "MLA attention, MoE",
                "deepseek-v2-236b": "MLA attention, MoE",
                "jamba-1.5-large-398b": "mamba, MoE"}
 
@@ -44,4 +49,7 @@ def get_smoke_config(arch_id: str) -> ModelConfig:
     return _module(arch_id).smoke_config()
 
 
-__all__ = ["ARCH_IDS", "get_config", "get_smoke_config"]
+__all__ = ["ARCH_IDS", "get_config", "get_smoke_config", "SHAPES",
+           "InputShape", "input_specs", "token_inputs", "label_specs",
+           "decode_inputs", "cache_specs", "cache_part_specs",
+           "resolve_config"]

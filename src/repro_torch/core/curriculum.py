@@ -36,11 +36,19 @@ def lambdas(hp: CurriculumHP, t: int, num_stages: int):
 
 
 def task_ce(logits, labels, cfg=None, loss_mask=None):
-    """Cross-entropy over (B, classes) logits (classification), or over
-    (B, S, V) logits of the ``lm`` layout, masked by ``loss_mask`` where
-    given."""
+    """Cross-entropy over (B, classes) logits (classification), over
+    (B, S, V) logits of the ``lm`` layout masked by ``loss_mask`` where
+    given, over (B, S, heads, V) multi-head logits against (B, S, heads)
+    labels (the mask broadcast over the heads), and over the text suffix
+    of a VLM's (B, Pv + St, V) logits against (B, St) labels."""
     if getattr(cfg, "task", "lm") == "classify" or logits.dim() == 2:
         return cross_entropy(logits, labels)
+    if getattr(cfg, "num_output_heads", 1) > 1:
+        return cross_entropy(logits, labels,
+                             None if loss_mask is None
+                             else loss_mask[..., None])
+    if logits.shape[1] != labels.shape[1]:      # vlm: labels = text suffix
+        logits, loss_mask = logits[:, -labels.shape[1]:], None
     return cross_entropy(logits, labels, loss_mask)
 
 

@@ -51,8 +51,10 @@ class Adapter:
     full_loss: Callable[[Any, dict], torch.Tensor]
     forward_eval: Callable[[Any, dict], torch.Tensor]
 
-    def init_params(self, seed: int, device: DeviceLike = None):
-        return PD.init_params(seed, self.defs, device)
+    def init_params(self, seed: int, device: DeviceLike = None, *,
+                    draw_on_device: bool = False):
+        return PD.init_params(seed, self.defs, device,
+                              draw_on_device=draw_on_device)
 
 
 # =========================================================================== #
@@ -94,7 +96,9 @@ def make_transformer_adapter(cfg: ModelConfig, num_stages: int,
         layers = params["model"]["layers"]
         frozen = {}
         trainable = {}
-        (trainable if t == 0 else frozen)["embed"] = params["model"]["embed"]
+        if "embed" in params["model"]:            # none for audio
+            (trainable if t == 0 else frozen)["embed"] = \
+                params["model"]["embed"]
         frozen["prefix"] = _slice_tree(layers, f0, f1)
         trainable["boundary"] = _slice_tree(layers, b0, b1)
         trainable["active"] = _slice_tree(layers, a0, a1)

@@ -227,6 +227,21 @@ def make_fl_round_step(adapter: Adapter, optimizer, hp: CurriculumHP, t: int):
     return round_fn
 
 
+def cohort_batches_specs(cfg, num_cohorts: int, local_steps: int,
+                         per_cohort_batch: int, seq: int):
+    """Meta-tensor tree of the (C, E, ...) batch stack of ``cfg``'s
+    ``token_inputs`` and ``label_specs`` (nothing allocated)."""
+    from repro_torch.configs.shapes import label_specs, token_inputs
+
+    def stack(t):
+        return torch.empty((num_cohorts, local_steps, *t.shape),
+                           dtype=t.dtype, device="meta")
+
+    return {"inputs": tree_map(stack, token_inputs(cfg, per_cohort_batch,
+                                                   seq)),
+            "labels": stack(label_specs(cfg, per_cohort_batch, seq))}
+
+
 @dataclasses.dataclass
 class RoundOutcome:
     """What the server needs back from one executed round."""

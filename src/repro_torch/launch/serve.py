@@ -8,9 +8,10 @@ caches.
         --gen 64                       # qwen3-1.7b at full width, bf16
     python -m repro_torch.launch.serve --device cpu     # smoke size here
 
-Random weights from ``--seed``, drawn on the device they live on (seconds
-for billions of params on the card), a random prompt from numpy's
-generator at the same seed (the reference's prompt).  Prefill
+It serves text only, as the reference's does: an audio or VLM arch is
+served as text.  Random weights from ``--seed``, drawn on the device they
+live on (seconds for billions of params on the card), a random prompt
+from numpy's generator at the same seed (the reference's prompt).  Prefill
 runs attention through the flash kernel (K4) and the sLSTM scan through
 its kernel (K5); on the CPU both take their plain versions.  Then the
 caches grow to the horizon (``prompt_len + gen``) and ``gen - 1`` decode
@@ -57,6 +58,8 @@ def main(argv=None, device=None) -> dict:
     args = ap.parse_args(argv)
     dev = resolve_device(device if device is not None else args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.modality != "text":
+        cfg = dataclasses.replace(cfg, modality="text")  # text only
     cfg = dataclasses.replace(cfg, use_flash_kernel=True,
                               use_slstm_kernel=True)
     params = PD.init_params(args.seed, M.model_defs(cfg), dev,

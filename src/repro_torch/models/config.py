@@ -1,13 +1,14 @@
 """Model configuration (port of ``repro.models.config``), for the models
 the port runs: the paper's ViT, dense GQA decoders (with qk-norm, QKV bias
-and sliding-window attention) and the xLSTM (mLSTM and sLSTM blocks).
+and sliding-window attention), the xLSTM (mLSTM and sLSTM blocks), and
+the audio (MusicGen: frame embeddings in, one head per codebook) and VLM
+(LLaVA-NeXT: patch embeddings before the text) modalities.
 
 The layer stack is ``num_periods = num_layers // len(pattern)`` repetitions
 of a pattern of (layer kind, FFN kind) sub-layers, with params stacked over
 the period axis.  The fields keep the reference's names and defaults.  What
 the port does not run yet raises a ``ValueError`` naming it: MLA, MoE, the
-``mamba`` layer kind, ``mlstm``/``slstm`` without an ``XLSTMConfig`` and
-the ``audio``/``vlm`` modalities.
+``mamba`` layer kind and ``mlstm``/``slstm`` without an ``XLSTMConfig``.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ class XLSTMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | ssm
+    family: str                     # dense | ssm | audio | vlm
     num_layers: int
     d_model: int
     num_heads: int
@@ -55,7 +56,9 @@ class ModelConfig:
     xlstm: Optional[XLSTMConfig] = None
 
     # --- modality ----------------------------------------------------------
-    modality: str = "text"          # text | image (audio, vlm: not ported)
+    modality: str = "text"          # text | audio | vlm | image
+    num_output_heads: int = 1       # musicgen: 4 codebook heads
+    num_vision_patches: int = 0     # llava: prefix of precomputed patch embeds
     task: str = "lm"                # lm | classify
     causal: bool = True
     image_size: int = 32
@@ -69,6 +72,9 @@ class ModelConfig:
     tie_embeddings: bool = False
     act: str = "swiglu"             # swiglu | gelu
     dtype: str = "bfloat16"
+    # long-context fallback: full-attention archs get a sliding-window
+    # variant for the long_500k decode shape (``configs/shapes.py``)
+    long_context_window: int = 4096
     # route attention through the hand-written CUDA flash-attention forward
     # (``kernels/flash_attention``); False takes the plain ``sdpa``
     use_flash_kernel: bool = False
@@ -86,11 +92,12 @@ class ModelConfig:
         kinds = sorted({k for k, _ in self.pattern} - ported)
         if kinds:
             unported.append(f"layer kinds {kinds}")
-        if self.modality not in ("text", "image"):
-            unported.append(f"modality {self.modality!r}")
         if unported:
             raise ValueError(f"{self.name}: not yet ported: "
                              + ", ".join(unported))
+        if self.modality not in ("text", "image", "audio", "vlm"):
+            raise ValueError(f"{self.name}: unknown modality "
+                             f"{self.modality!r}")
         if self.num_layers % len(self.pattern):
             raise ValueError(f"{self.name}: num_layers={self.num_layers} not "
                              f"divisible by pattern period "
@@ -111,6 +118,20 @@ class ModelConfig:
     @property
     def param_dtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if decode state does not grow quadratically with context
+        (recurrent layers and/or windowed attention only)."""
+        kinds = {k for k, _ in self.pattern}
+        if kinds <= {"mamba", "mlstm", "slstm"}:
+            return True
+        return self.window > 0
+
+    def with_window(self, window: int) -> "ModelConfig":
+        """Sliding-window variant (the long_500k fallback of dense
+        archs)."""
+        return dataclasses.replace(self, window=window)
 
     def reduced(self, num_layers: int = 2, d_model: int = 256,
                 vocab: int = 512) -> "ModelConfig":
@@ -136,6 +157,7 @@ class ModelConfig:
             d_ff=min(512, self.d_ff) if self.d_ff else 0,
             vocab_size=min(vocab, self.vocab_size),
             window=min(self.window, 64) if self.window else 0,
+            num_vision_patches=min(self.num_vision_patches, 16),
             dtype="float32",
         )
 

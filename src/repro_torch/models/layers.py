@@ -89,14 +89,21 @@ def embed(params, tokens):
     return params["table"][tokens.long()]
 
 
-def head_defs(d_model: int, vocab: int, dtype) -> dict:
-    return {"w_out": ParamDef((d_model, vocab), dtype,
-                              (None, MODEL_AXIS))}
+def head_defs(d_model: int, vocab: int, dtype, n_heads: int = 1) -> dict:
+    if n_heads == 1:
+        return {"w_out": ParamDef((d_model, vocab), dtype,
+                                  (None, MODEL_AXIS))}
+    return {"w_out": ParamDef((n_heads, d_model, vocab), dtype,
+                              (None, None, MODEL_AXIS))}
 
 
-def lm_head(params, x):
-    """Logits (..., vocab)."""
-    return x @ params["w_out"]
+def lm_head(params, x, n_heads: int = 1):
+    """Logits (..., vocab), or (..., n_heads, vocab) for a multi-head
+    output (one head per audio codebook)."""
+    w = params["w_out"]
+    if n_heads == 1:
+        return x @ w
+    return torch.einsum("...d,hdv->...hv", x, w)
 
 
 # --------------------------------------------------------------------------- #

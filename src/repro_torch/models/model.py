@@ -19,6 +19,12 @@ Entry points:
 Caches are the mixers' (``attention``, ``ssm``), per pattern position
 ``sub{j}`` and stacked over the periods, as in the reference.
 ``decode_step`` updates them in place and returns them.
+
+Modalities, as in the reference: ``text`` (tokens), ``image`` (patches of
+the ViT), ``audio`` (MusicGen: precomputed frame embeddings in, no token
+embedding, one output head per codebook, labels (B, S, heads)) and
+``vlm`` (LLaVA-NeXT: precomputed patch embeddings before the text's
+token embeddings; the loss covers the text positions only).
 """
 from __future__ import annotations
 
@@ -120,14 +126,16 @@ def patchify(cfg: ModelConfig, images):
 
 def model_defs(cfg: ModelConfig) -> dict:
     defs: dict = {}
-    if cfg.modality == "text":
+    if cfg.modality in ("text", "vlm"):
         defs["embed"] = embedding_defs(cfg.vocab_size, cfg.d_model,
                                        cfg.param_dtype)
-    else:
+    elif cfg.modality == "image":
         defs["embed"] = patch_embed_defs(cfg)
+    # audio: the frontend stub feeds embeddings in (no token embedding)
     defs["layers"] = stack_defs(period_defs(cfg), cfg.num_periods)
     defs["final_norm"] = rmsnorm_defs(cfg.d_model, cfg.param_dtype)
-    defs["head"] = head_defs(cfg.d_model, cfg.vocab_size, cfg.param_dtype)
+    defs["head"] = head_defs(cfg.d_model, cfg.vocab_size, cfg.param_dtype,
+                             cfg.num_output_heads)
     return defs
 
 
@@ -161,17 +169,29 @@ def grow_caches(cfg: ModelConfig, caches, batch: int, seq: int):
 # input embedding per modality
 # --------------------------------------------------------------------------- #
 def embed_inputs(params, cfg: ModelConfig, inputs: dict):
-    """Returns (x, positions, loss_mask)."""
+    """Returns (x, positions, loss_mask); ``loss_mask`` (B, S) bool is
+    false over a VLM's patches, ``None`` otherwise."""
+    mask = None
     if cfg.modality == "text":
-        tokens = inputs["tokens"]
-        x = embed(params["embed"], tokens)
-    else:
+        x = embed(params["embed"], inputs["tokens"])
+    elif cfg.modality == "audio":
+        x = inputs["embeds"].to(cfg.param_dtype)
+    elif cfg.modality == "image":
         x = patchify(cfg, inputs["images"].to(cfg.param_dtype))
         x = x @ params["embed"]["w"] + params["embed"]["b"]
         x = x + params["embed"]["pos"]
+    else:                                             # vlm
+        patches = inputs["patches"].to(cfg.param_dtype)   # (B, Pv, d)
+        tokens = inputs["tokens"]                          # (B, St)
+        x = torch.cat([patches, embed(params["embed"], tokens)], dim=1)
+        B, Pv = patches.shape[:2]
+        mask = torch.cat([
+            torch.zeros(B, Pv, dtype=torch.bool, device=x.device),
+            torch.ones(B, tokens.shape[1], dtype=torch.bool,
+                       device=x.device)], dim=1)
     B, S = x.shape[:2]
     positions = torch.arange(S, device=x.device)[None].expand(B, S)
-    return x, positions, None
+    return x, positions, mask
 
 
 # --------------------------------------------------------------------------- #
@@ -225,7 +245,7 @@ def forward(params, cfg: ModelConfig, inputs: dict):
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if cfg.task == "classify":
         x = x.mean(dim=1)                            # global pool
-    return lm_head(params["head"], x)
+    return lm_head(params["head"], x, cfg.num_output_heads)
 
 
 def prefill(params, cfg: ModelConfig, inputs: dict):
@@ -237,25 +257,39 @@ def prefill(params, cfg: ModelConfig, inputs: dict):
     x, caches = _run_periods(params["layers"], cfg, x, positions,
                              with_cache=True)
     x = rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
-    return lm_head(params["head"], x), caches
+    return lm_head(params["head"], x, cfg.num_output_heads), caches
 
 
 def decode_step(params, cfg: ModelConfig, inputs: dict, caches, pos: int):
-    """One token, ``inputs = {"tokens": (B, 1)}`` at absolute position
-    ``pos``, against ``caches`` (grown to the horizon, ``grow_caches``).
-    Updates them in place; returns (logits (B, 1, V), caches)."""
-    x = embed(params["embed"], inputs["tokens"])
+    """One position, ``inputs = {"tokens": (B, 1)}`` (audio: ``{"embeds":
+    (B, 1, d)}``) at absolute position ``pos``, against ``caches`` (grown
+    to the horizon, ``grow_caches``).  Updates them in place; returns
+    (logits (B, 1, V) or (B, 1, heads, V), caches)."""
+    if cfg.modality == "audio":
+        x = inputs["embeds"].to(cfg.param_dtype)
+    else:
+        x = embed(params["embed"], inputs["tokens"])
     x, caches = _decode_periods(params["layers"], cfg, x, caches, pos)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return lm_head(params["head"], x), caches
+    return lm_head(params["head"], x, cfg.num_output_heads), caches
 
 
 def loss_fn(params, cfg: ModelConfig, batch: dict):
-    """Full-model (non-progressive) training loss."""
+    """Full-model (non-progressive) training loss: the mean CE; over
+    every head of a multi-head output (labels (B, S, heads)), over the
+    text suffix of a VLM's logits."""
     logits = forward(params, cfg, batch["inputs"])
     _, _, mask = embed_inputs(params, cfg, batch["inputs"])
-    return cross_entropy(logits, batch["labels"],
-                         None if cfg.task == "classify" else mask)
+    labels = batch["labels"]
+    if cfg.task == "classify":
+        return cross_entropy(logits, labels)
+    if cfg.num_output_heads > 1:
+        return cross_entropy(logits, labels,
+                             None if mask is None else mask[..., None])
+    if cfg.modality == "vlm":
+        # logits cover [patches + text]; labels the text only
+        logits, mask = logits[:, -labels.shape[1]:], None
+    return cross_entropy(logits, labels, mask)
 
 
 # --------------------------------------------------------------------------- #
@@ -326,7 +360,7 @@ def stage_apply(frozen, trainable, cfg: ModelConfig, inputs: dict):
     x = rmsnorm(trainable["final_norm"], x, cfg.norm_eps)
     if cfg.task == "classify":
         x = x.mean(dim=1)
-    logits = lm_head(trainable["head"], x)
+    logits = lm_head(trainable["head"], x, cfg.num_output_heads)
     z_proj = None
     if trainable.get("projector") is not None:
         z_proj = apply_projector(trainable["projector"], z_active)

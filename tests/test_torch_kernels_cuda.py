@@ -540,6 +540,47 @@ def test_flash_autograd_matches_plain_path(cuda, case):
         assert torch.isfinite(x.grad).all()
 
 
+# the LLM training shapes (chip_smoke.py main path 12): qwen3-1.7b's 16
+# over 8 heads of 128 at B 8, S 64 (bf16 and f32) and B 4, S 256;
+# musicgen-large's 32 heads of 64 at B 4, S 256; the padded
+# llava-next-34b's 64 over 8 heads of 128 over 2880 patches and 128 text
+# tokens at B 2
+FLASH_TRAIN = [
+    (8, 64, 64, 16, 8, 128, True, 0, "bfloat16"),
+    (8, 64, 64, 16, 8, 128, True, 0, "float32"),
+    (4, 256, 256, 16, 8, 128, True, 0, "float32"),
+    (4, 256, 256, 32, 32, 64, True, 0, "float32"),
+    (2, 3008, 3008, 64, 8, 128, True, 0, "float32"),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_TRAIN, ids=[str(c) for c in
+                                                   FLASH_TRAIN])
+def test_flash_training_shapes_forward_and_gradient(cuda, case):
+    """K4's forward against the plain version, and autograd of the op
+    (the kernel forward, the plain VJP) against autograd of the plain
+    version, at the LLM training shapes."""
+    causal, window, dtype = case[6], case[7], case[8]
+    q, k, v = _flash_inputs(case, cuda)
+    fa_kernel.reset_launches()
+    got = fa_kernel.flash_attention_fwd(q, k, v, causal=causal,
+                                        window=window)
+    want = fa_ref.attention_ref(q, k, v, causal=causal, window=window)
+    assert fa_kernel.LAUNCHES == {"flash_attention_fwd": 1}
+    tol = TOL if dtype == "float32" else 2e-2
+    assert got.dtype == q.dtype and _rel(got.float(), want.float()) <= tol
+    del got, want
+    g = torch.randn(q.shape, device=cuda, generator=torch.Generator(
+        cuda).manual_seed(0)).to(q.dtype)
+    a = [t.clone().requires_grad_() for t in (q, k, v)]
+    b = [t.clone().requires_grad_() for t in (q, k, v)]
+    fa_ops.flash_attention(*a, causal=causal, window=window).backward(g)
+    fa_ref.attention_ref(*b, causal=causal, window=window).backward(g)
+    for x, y in zip(a, b):
+        assert _rel(x.grad.float(), y.grad.float()) <= tol
+        assert torch.isfinite(x.grad).all()
+
+
 def test_flash_kernel_is_the_same_from_run_to_run(cuda):
     for case in (FLASH_CASES[0], FLASH_TILING[6]):
         q, k, v = _flash_inputs(case, cuda)

@@ -123,6 +123,23 @@ def test_entry_points_default_to_cuda(monkeypatch, tmp_path):
     for run in (lambda: serve.main([]), lambda: serve_decode.main()):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             run()
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.examples import progressive_llm_pretrain
+    from repro_torch.launch import steps, train
+    from types import SimpleNamespace
+    mesh = SimpleNamespace(axis_names=("data", "model"),
+                           shape={"data": 1, "model": 1})
+    cfg = get_smoke_config("qwen3-1.7b")
+    shapes = {"train": "train_4k", "neulite": "train_4k",
+              "prefill": "prefill_32k", "decode": "decode_32k",
+              "flround": "train_4k"}
+    for run in [lambda: train.main(["--out", str(tmp_path / "t")]),
+                lambda: train.main(["--e2e", "--out", str(tmp_path / "t")]),
+                lambda: progressive_llm_pretrain.main(["--steps", "1"])] + [
+            lambda kind=kind: steps.BUILDERS[kind](cfg, shapes[kind], mesh)
+            for kind in steps.BUILDERS]:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run()
 
 
 def test_cpu_wrappers_take_the_plain_version_and_count_nothing():
@@ -217,11 +234,20 @@ def test_unported_model_config_fields_raise():
                      ({"pattern": (("attn", "moe"),)}, "MoE"),
                      ({"pattern": (("mamba", "mlp"),)}, "mamba"),
                      ({"pattern": (("mlstm", "none"),)}, "mlstm"),
-                     ({"pattern": (("slstm", "none"),)}, "slstm"),
-                     ({"modality": "audio"}, "audio"),
-                     ({"modality": "vlm"}, "vlm")]:
+                     ({"pattern": (("slstm", "none"),)}, "slstm")]:
         with pytest.raises(ValueError, match=f"not yet ported.*{what}"):
             ModelConfig(**base, **kw)
+    # the audio and VLM modalities are ported: both construct, as do the
+    # archs that use them; an unknown modality raises
+    ModelConfig(**base, modality="audio", num_output_heads=4)
+    ModelConfig(**base, modality="vlm", num_vision_patches=16)
+    from repro_torch.configs import llava_next_34b, musicgen_large
+    assert musicgen_large.config().modality == "audio"
+    assert llava_next_34b.config().modality == "vlm"
+    assert musicgen_large.smoke_config().num_output_heads == 4
+    assert llava_next_34b.smoke_config().num_vision_patches == 16
+    with pytest.raises(ValueError, match="unknown modality"):
+        ModelConfig(**base, modality="video")
     # qk-norm and QKV bias are ported: both construct
     ModelConfig(**base, qk_norm=True)
     ModelConfig(**base, qkv_bias=True)
