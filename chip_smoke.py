@@ -265,16 +265,18 @@
    ``build_serve`` step against the plain forward.  12d:
    ``progressive_llm_pretrain.main()`` at its own size, ms/step, CE and
    the speedup printed beside the paper's 1.84-2.31x (not gated).  12e
-   ``musicgen-train-full``: musicgen-large at full width (48 layers,
-   d_model 2048, 32 heads of 64, GELU, 4 codebook heads of 2048) in f32
+   ``musicgen-train-full``: musicgen-large at full width (since PR 28 its
+   depth cut 48 -> 24 layers for the run's time; d_model 2048, 32 heads
+   of 64, GELU, 4 codebook heads of 2048) in f32
    on frame embeddings, B 4 (nHSIC is constant below 3 rows), S 256: one
    stage step per stage and the E2E loss against the plain path, each
    period alone (forward and gradients) and each mixer's prefill and
    decode alone (the model is chaotic at init: a whole step moves O(1)
    under a 1e-7 change), a prefill and 3 decode steps from embeddings
-   against the plain forward.  12f ``llava-train-full-depth4``:
+   against the plain forward.  12f ``llava-train-full-depth2``:
    llava-next-34b at full width (d_model 7168, 56 -> 64 padded heads over
-   8 of 128, d_ff 20480, vocab 64000), its depth cut 60 -> 4 layers (the
+   8 of 128, d_ff 20480, vocab 64000), its depth cut 60 -> 2 layers (4
+   until PR 28, cut for the run's time; the
    whole model, 68.8 GB in bf16, does not train on one card), f32, B 2,
    its 2880 patches and 128 text tokens: one stage step per stage, the
    E2E loss and each period alone against the plain path (each kernel
@@ -284,6 +286,44 @@
    ``train_nhsic_shapes``: the kernel phase holds nHSIC at B = 2, where it
    is constant, by its value and a gradient below 1e-5); each leg's
    seconds and allocator peak beside ``core/memory.py``'s estimate.
+
+21. Main path 13, after main path 12: Mamba, MoE and MLA, under main
+   path 12's rules (TF32 off, weights random from SEED drawn on the card,
+   ``bar_of``, each leg's seconds and allocator peak).  13a
+   ``deepseek-lite-serve-full``: ``serve.main --arch deepseek-v2-lite-16b
+   --full --batch 4 --prompt-len 512 --gen 32`` in its bf16 at all 27
+   layers: prefill ms, decode ms/step, tokens/s and the allocator peak
+   beside their bounds (decode: the reference's formulation reads every
+   expert's 8-slot buffer; beside it the bytes of the experts each step
+   routes to, counted), the greedy tokens and logits of 8 decode steps
+   twice from the seed to the bit; then in f32 at full width the MLA
+   mixer alone (a prefill of
+   512, then 16 absorbed decode steps against the naive forward,
+   ``layer_check``) and the MoE FFN alone (64 experts top-6 + 2 shared of
+   1408 on 2048 tokens, C = 240) against ``moe_loop``, a per-expert loop
+   with its own ranks and drop mask: output, aux losses, every gradient,
+   and the same bits over 3 runs.  13b ``deepseek-lite-train-full-depth4``:
+   ``train.main`` at full width, depth cut 27 -> 4, bf16, 4 rounds (one a
+   stage) over 256 clients, B 8, seq 64: every loss finite, K1-K3 twice a
+   local step, K4 never (MLA attends with ``sdpa``, as the reference's);
+   per stage an f32 step through the kernels against the plain path and
+   the loss's aux term (``moe_aux_check``).  13c ``deepseek-236b-full-
+   depth2``: deepseek-v2-236b at full width (q-LoRA 1536, 160 experts),
+   depth 60 -> 2, bf16: a prefill of 2 x 256 and 8 greedy decode steps,
+   timed beside their bounds, and at capacity factor 8.0 against the
+   forward (twice bf16's own movement from f32); the q-LoRA MLA mixer and
+   the MoE FFN alone in f32.  13d ``jamba-layers-full``: at
+   jamba-1.5-large-398b's full width in f32, B 2, S 512: the Mamba mixer
+   (d_in 16384) against ``mamba_plain``, a per-step recurrence (output,
+   every gradient), its decode after a prefill of 500 against the
+   forward; the attention mixer through K4 against ``sdpa`` (output,
+   gradients); one MoE FFN (16 experts top-2 of 24576, 9.66 B params)
+   against ``moe_loop`` in f32 (gradients into x and the router); each
+   forward timed (the scan's share).  13e ``jamba-smoke``: the smoke config
+   whole: greedy decode against the plain forward at capacity factor 8.0
+   and each mixer alone, ``serve.main``, ``train.main`` 2 rounds (K4 once
+   an attention layer run, K1-K3 twice a local step).  Every K4 and nHSIC
+   shape held by the kernel phase (``FLASH_MOE``, ``train_nhsic_shapes``).
 
 Each main path is driven with the launch counts set to 0 just before it
 and read just after.  Prints the card's name and power limit, a JSON line
@@ -446,13 +486,22 @@ FLASH_TRAIN = [(8, 64, 64, 16, 8, 128, True, 0, "float32"),
                (2, 3008, 3008, 64, 8, 128, True, 0, "float32")]
 FLASH_CASES += FLASH_TRAIN + [FLASH_TRAIN[0][:-1] + ("bfloat16",)]
 FLASH_GRAD_CASES += FLASH_TRAIN
+# main path 13's: jamba-1.5-large-398b's attention sub-layer at full width
+# (64 heads over 8 of 128) at B 2, S 512 (13d, with its gradient), and its
+# smoke config's (4 heads of 64) training at B 8, S 64 (13e; its serving
+# takes the 24-token prompt above)
+FLASH_MOE = [(2, 512, 512, 64, 8, 128, True, 0, "float32"),
+             (8, 64, 64, 4, 4, 64, True, 0, "float32")]
+FLASH_CASES += FLASH_MOE
+FLASH_GRAD_CASES += FLASH_MOE
 # timed: the ViT-12 shape and the kernel benchmark's two attention rows
 # (kernels_bench.ATTN_SHAPES, causal f32), then main path 11's bf16 serve
 # and h2o-danube prefills, main path 12's bf16 qwen3-1.7b training and
-# its llava-next-34b
+# its llava-next-34b, main path 13's full-width jamba attention
 FLASH_TIMED = [FLASH_VIT, (2, 256, 256, 8, 2, 64, True, 0, "float32"),
                (1, 1024, 1024, 8, 8, 64, True, 0, "float32"), FLASH_SERVE,
-               FLASH_H2O, FLASH_CASES[-1], FLASH_TRAIN[4]]
+               FLASH_H2O, FLASH_TRAIN[0][:-1] + ("bfloat16",),
+               FLASH_TRAIN[4], FLASH_MOE[0]]
 BF16_TOL = 2e-2
 
 # K5 forward and backward: (B, S, H, Dh, random_state0, gate_scale).  The
@@ -5250,10 +5299,11 @@ def layer_check(torch, name, cfg, params, seq, P, steps):
                     rel_s, _ = rel_abs([cache[k] for k in STATE],
                                        [pc[k] for k in STATE])
                     worst["slstm_state"] = max(worst["slstm_state"], rel_s)
-                if kind == "attn":
-                    n = attn.attn_cache_defs(cfg, B, S)["k"].shape[1]
-                    cache = {k: F.pad(c, (0, 0, 0, 0, 0, n - c.shape[1]))
-                             for k, c in cache.items()}
+                if kind == "attn":        # GQA or MLA: grown along S
+                    defs = attn.attn_cache_defs(cfg, B, S)
+                    cache = {k: F.pad(c, (0, 0) * (c.dim() - 2) + (
+                        0, defs[k].shape[1] - c.shape[1]))
+                        for k, c in cache.items()}
                 for t in range(P, P + steps):
                     got, cache = M._mixer_decode(sub["mixer"], cfg, kind,
                                                  h[:, t:t + 1], cache, t)
@@ -5524,9 +5574,10 @@ TRAIN_E2E_ARGV = ["--arch", "qwen3-1.7b", "--full", "--e2e", "--rounds", "1",
 BUILDER_BATCH = (4, 256)          # 12c: (B, S) of the builders' steps
 BUILDER_PROMPT = (2, 256)         # 12c: the prefill's (B, P), as 11a's
 MUSICGEN_TRAIN = (4, 256, 4)      # 12e: B, S, decode steps after S
-# 12f: llava-next-34b's depth cut 60 -> 4 layers, B 2, 128 text tokens
-# after its 2880 patches
-LLAVA_DEPTH, LLAVA_BATCH, LLAVA_TEXT = 4, 2, 128
+MUSICGEN_DEPTH = 24               # 12e: depth cut 48 -> 24, for the time
+# 12f: llava-next-34b's depth cut 60 -> 2 layers (4 until the run's time
+# needed it), B 2, 128 text tokens after its 2880 patches
+LLAVA_DEPTH, LLAVA_BATCH, LLAVA_TEXT = 2, 2, 128
 
 
 def llava_config(depth=LLAVA_DEPTH):
@@ -5543,8 +5594,8 @@ def train_nhsic_shapes():
     """Main path 12's nHSIC shapes: qwen3-1.7b's in 12a (B 8) and 12c (B
     4), the example's (d_model 640, B 8), musicgen-large's (B 4) and the
     padded llava-next-34b's (d_model 7168, B 2: nHSIC is constant there,
-    its gradient 0)."""
-    from repro_torch.configs import get_config
+    its gradient 0); and main path 13's."""
+    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.examples import progressive_llm_pretrain as ex
     qwen3 = get_config("qwen3-1.7b")
     d = ex.parser().parse_args([])
@@ -5555,7 +5606,12 @@ def train_nhsic_shapes():
             + transformer_nhsic_shapes(example, d.batch)
             + transformer_nhsic_shapes(get_config("musicgen-large"),
                                        MUSICGEN_TRAIN[0])
-            + transformer_nhsic_shapes(llava_config(), LLAVA_BATCH))
+            + transformer_nhsic_shapes(llava_config(), LLAVA_BATCH)
+            # main path 13: deepseek-v2-lite-16b (B 8, 13b) and jamba's
+            # smoke config (B 8, 13e)
+            + transformer_nhsic_shapes(get_config("deepseek-v2-lite-16b"), 8)
+            + transformer_nhsic_shapes(
+                get_smoke_config("jamba-1.5-large-398b"), 8))
 
 
 @contextlib.contextmanager
@@ -6059,8 +6115,9 @@ def _moved(moved):
 
 
 def musicgen_leg(torch, kernels, counts):
-    """12e musicgen-train-full: musicgen-large at full width in f32 on
-    frame embeddings (B 4, S 256, labels (B, S, 4)): each stage step, the
+    """12e musicgen-train-full: musicgen-large at full width, its depth
+    cut 48 -> MUSICGEN_DEPTH, in f32 on frame embeddings (B 4, S 256,
+    labels (B, S, 4)): each stage step, the
     E2E loss and each period alone against the plain path
     (``stage_and_loss_checks``); each mixer's prefill and decode alone
     (``layer_check``); then a prefill of the S positions and 3 decode steps
@@ -6070,7 +6127,8 @@ def musicgen_leg(torch, kernels, counts):
     from repro_torch.core.progressive import make_transformer_adapter
     from repro_torch.models import model as M
     cfg = dataclasses.replace(get_config("musicgen-large"), dtype="float32",
-                              use_flash_kernel=True)
+                              use_flash_kernel=True,
+                              num_layers=MUSICGEN_DEPTH)
     B, Sq, steps = MUSICGEN_TRAIN
     gen = torch.Generator("cuda").manual_seed(SEED)
     embeds = torch.randn((B, Sq + steps, cfg.d_model), generator=gen,
@@ -6128,10 +6186,10 @@ def musicgen_leg(torch, kernels, counts):
 
 
 def llava_leg(torch, kernels, counts):
-    """12f llava-train-full-depth4: llava-next-34b at full width (d_model
+    """12f llava-train-full-depth2: llava-next-34b at full width (d_model
     7168, 56 -> 64 padded heads over 8 of 128, d_ff 20480, vocab 64000),
-    its depth cut 60 -> 4 layers (the whole model, 68.8 GB in bf16, does
-    not train on one card), f32, B 2, its 2880 patches and 128 text
+    its depth cut 60 -> LLAVA_DEPTH layers (the whole model, 68.8 GB in
+    bf16, does not train on one card), f32, B 2, its 2880 patches and 128 text
     tokens: each stage step, the E2E loss and each period alone against
     the plain path (``stage_and_loss_checks``)."""
     from repro_torch.common.paramdef import init_params
@@ -6152,7 +6210,8 @@ def llava_leg(torch, kernels, counts):
         return init_params(SEED, defs, "cuda", draw_on_device=True)
 
     return stage_and_loss_checks(torch, kernels, counts,
-                                 "12f llava-next-34b depth 4", cfg, draw,
+                                 f"12f llava-next-34b depth {LLAVA_DEPTH}",
+                                 cfg, draw,
                                  batch, Pv + St)
 
 
@@ -6187,6 +6246,731 @@ def training_path(torch, np, kernels):
     print(f"  main path 12 parts (s): "
           f"{ {k: round(v, 1) for k, v in took.items()} }", flush=True)
     return out, counts
+
+# --------------------------------------------------------------------------- #
+# main path 13: Mamba, MoE and MLA (deepseek-v2-lite-16b, deepseek-v2-236b,
+# jamba-1.5-large-398b)
+# --------------------------------------------------------------------------- #
+DSL, DS236, JAMBA = ("deepseek-v2-lite-16b", "deepseek-v2-236b",
+                     "jamba-1.5-large-398b")
+# 13a: serve.main on deepseek-v2-lite-16b at full width and depth, bf16
+MOE_SERVE_ARGV = ["--arch", DSL, "--full", "--batch", "4", "--prompt-len",
+                  "512", "--gen", "32"]
+MOE_GREEDY_STEPS = 8              # 13a: the greedy runs' decode steps
+MLA_CHECK = (2, 512, 16)          # the MLA mixer alone: B, prefill, decodes
+MOE_TOKENS = (4, 512)             # the MoE FFN alone: (B, S), 2048 tokens
+# 13b: train.main on deepseek-v2-lite-16b at full width, depth 27 -> 4
+MOE_TRAIN_DEPTH = 4
+MOE_TRAIN_ARGV = ["--arch", DSL, "--full", "--rounds", "4", "--clients",
+                  "256", "--cohort", "2", "--batch", "8", "--seq", "64",
+                  "--lr", str(TRAIN_LR), "--seed", str(SEED)]
+DS236_DEPTH, DS236_SERVE = 2, (2, 256, 8)   # 13c: depth 60 -> 2; B, P, steps
+JAMBA_LAYER = (2, 512, 500, 12)   # 13d: B, S, Mamba prefill, decode steps
+JAMBA_SERVE = (2, 24, 12)         # 13e: B, prompt, generated tokens
+JAMBA_TRAIN_ARGV = ["--arch", JAMBA, "--rounds", "2", "--clients", "256",
+                    "--cohort", "2", "--batch", "8", "--seq", "64", "--lr",
+                    str(TRAIN_LR), "--seed", str(SEED)]
+# the capacity factor of the legs that hold a decode against the forward
+# (nothing drops, as the reference's own decode test sets it: Q5)
+NO_DROP = 8.0
+
+
+@contextlib.contextmanager
+def depth_cut(module, depth):
+    """``module.get_config`` (an entry point's) giving the full width at
+    ``depth`` layers while the block runs."""
+    get = module.get_config
+    module.get_config = lambda arch: dataclasses.replace(get(arch),
+                                                         num_layers=depth)
+    try:
+        yield
+    finally:
+        module.get_config = get
+
+
+@contextlib.contextmanager
+def experts_routed():
+    """The number of distinct experts each ``moe_apply`` call routes its
+    tokens to while the block runs (from the same router logits)."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+    seen, apply = [], moe_mod.moe_apply
+
+    def recorded(params, cfg, x):
+        logits = x.reshape(-1, x.shape[-1]).float() @ params["router"]
+        top_e = torch.topk(torch.softmax(logits, -1), cfg.moe.top_k,
+                           dim=-1)[1]
+        seen.append(int(torch.unique(top_e).numel()))
+        return apply(params, cfg, x)
+
+    moe_mod.moe_apply = recorded
+    try:
+        yield seen
+    finally:
+        moe_mod.moe_apply = apply
+
+
+def no_drop(cfg):
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=NO_DROP))
+
+
+def moe_serve_bounds(cfg, B, P, gen, routed=None):
+    """The least time of one bf16 prefill of B x P tokens and of one decode
+    step of an MLA + MoE decoder, on the card's peak rates.  Prefill: the
+    products of the active params (top-k and shared experts, attention's
+    projections) on every token, the head on B last positions, and
+    attention's QK^T (nope + rope dims) and PV on the causal pairs, at the
+    bf16 rate; or every param read once.  Decode, as the reference's
+    formulation runs it: every param read once but the embedding table (B
+    rows of it), every expert's C-slot buffer computed (C =
+    ``expert_capacity(B)``), the latent caches' valid slots read and
+    attended (scores over the rank and rope dims, the context over the
+    rank), averaged over the steps.  With ``routed`` (the distinct experts
+    a step routes to, summed over the layers) also the decode's bytes with
+    only those experts read.  Returns (prefill ms, by, decode ms, by,
+    routed decode ms or None)."""
+    from repro_torch.models import model as M
+    from repro_torch.models.moe import expert_capacity
+    size, m, moe = 2, cfg.mla, cfg.moe
+    L, H = cfg.num_layers, cfg.num_heads
+    n = M.total_param_count(cfg)
+    table = head = cfg.vocab_size * cfg.d_model
+    per_expert = 3 * cfg.d_model * moe.d_ff_expert
+    experts = L * moe.num_experts * per_expert
+    body = M.active_param_count(cfg) - table - head
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    attn = 2 * (qk + m.v_head_dim) * H * (P * (P + 1) // 2) * B * L
+    flops = 2 * body * B * P + 2 * head * B + attn
+    t_ops = flops / BF16_PRODUCT_FLOPS_PER_S * 1e3
+    t_bytes = n * size / HBM_BYTES_PER_S * 1e3
+    prefill = (max(t_ops, t_bytes),
+               "operations" if t_ops >= t_bytes else "bytes")
+    slots = statistics.mean(P + i + 1 for i in range(gen - 1))
+    rank = m.kv_lora_rank + m.qk_rope_head_dim
+    cache = L * B * slots * rank * size
+    other = (n - table - experts + B * cfg.d_model) * size + cache
+    d_bytes = other + experts * size
+    C = expert_capacity(B, moe)
+    d_flops = (2 * (n - table - experts) * B + 2 * experts * C
+               + 2 * (2 * m.kv_lora_rank + m.qk_rope_head_dim) * H * slots
+               * B * L)
+    t_bytes = d_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = d_flops / BF16_PRODUCT_FLOPS_PER_S * 1e3
+    decode = (max(t_ops, t_bytes),
+              "operations" if t_ops > t_bytes else "bytes")
+    routed_ms = (None if routed is None else
+                 (other + routed * per_expert * size) / HBM_BYTES_PER_S
+                 * 1e3)
+    return (*prefill, *decode, routed_ms)
+
+
+def moe_loop(torch, params, cfg, x):
+    """The plain per-expert version of ``moe_apply``: each token's top-k
+    of the renormalised softmax, its rank within each expert counted by a
+    running sum over its group's (token, k) assignments in order (not a
+    sort), those past the capacity dropped, then for each expert in turn
+    its kept tokens through its SwiGLU, added to their rows weighted; the
+    shared experts on every token; the aux losses over all tokens."""
+    import torch.nn.functional as F
+    from repro_torch.models.layers import mlp
+    from repro_torch.models.moe import expert_capacity
+    moe = cfg.moe
+    B, S, d = x.shape
+    N, E, K = B * S, moe.num_experts, moe.top_k
+    G = max(1, min(moe.dispatch_groups, N))
+    while N % G:
+        G -= 1
+    C = expert_capacity(N // G, moe)
+    xt = x.reshape(N, d)
+    logits = xt.float() @ params["router"]
+    probs = torch.softmax(logits, -1)
+    top_p, top_e = torch.topk(probs, K, dim=-1)
+    w = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+    flat = top_e.reshape(G, -1)
+    hits = (flat[..., None] == torch.arange(E, device=x.device)).long()
+    rank = (hits.cumsum(1) - 1).gather(2, flat[..., None])[..., 0]
+    keep = (rank < C).reshape(N, K)
+    y = torch.zeros_like(xt)
+    for e in range(E):
+        tok, k = torch.nonzero((top_e == e) & keep, as_tuple=True)
+        h = xt[tok]
+        h = F.silu(h @ params["w_gate"][e]) * (h @ params["w_up"][e])
+        out = (h @ params["w_down"][e]).float() * w[tok, k, None]
+        y = y.index_add(0, tok, out.to(x.dtype))
+    if moe.num_shared:
+        y = y + mlp(params["shared"], xt, act="swiglu")
+    routed = (top_e[..., None] == torch.arange(E, device=x.device)).float()
+    aux = {"load_balance": E * torch.sum(probs.mean(0)
+                                         * routed.sum(1).mean(0) / K),
+           "router_z": torch.logsumexp(logits, -1).square().mean()}
+    return y.reshape(B, S, d), aux, int((~keep).sum())
+
+
+def moe_alone(torch, name, cfg, B, S, weight_grads=True, tol=TOL):
+    """One MoE FFN of ``cfg`` at its width, params random from SEED on the
+    card, on x (B, S, d) standard normal: ``moe_apply`` against
+    ``moe_loop``, the output, both aux losses and the gradients of a random
+    cotangent (+ load_balance + 3 router_z) into x, the router and (with
+    ``weight_grads``) every expert and shared weight, at ``tol`` of each
+    one's largest entry; then ``moe_apply``'s output and gradients again
+    twice, to the bit."""
+    from repro_torch.common.paramdef import init_params
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.moe import expert_capacity
+    params = init_params(SEED, moe_mod.moe_defs(cfg), "cuda",
+                         draw_on_device=True)
+    gen = torch.Generator("cuda").manual_seed(SEED + 5)
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda",
+                    dtype=cfg.param_dtype)
+    ct = torch.randn(x.shape, generator=gen, device="cuda",
+                     dtype=cfg.param_dtype)
+    inputs = [x, params["router"]] + (
+        [leaf for k in sorted(params) if k != "router"
+         for leaf in _leaves(params[k])] if weight_grads else [])
+    for t in inputs:
+        t.requires_grad_(True)
+
+    def run(fn):
+        y, aux = fn(params, cfg, x)[:2]
+        loss = ((y.float() * ct.float()).sum() + aux["load_balance"]
+                + 3 * aux["router_z"])
+        g = torch.autograd.grad(loss, inputs)
+        return [y.detach(), aux["load_balance"].detach(),
+                aux["router_z"].detach(), *g]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = run(moe_mod.moe_apply)
+    torch.cuda.synchronize()
+    port_s = time.perf_counter() - t0
+    want = run(lambda p, c, xi: moe_loop(torch, p, c, xi))
+    with torch.no_grad():
+        dropped = moe_loop(torch, params, cfg, x)[2]
+    rel, ab = rel_abs(got, want)
+    check(rel <= tol and all(bool(torch.isfinite(t).all()) for t in got),
+          f"{name}: moe_apply against the per-expert loop rel err {rel}")
+    del want
+    same = all(all(torch.equal(a, b) for a, b in zip(got, run(
+        moe_mod.moe_apply))) for _ in range(2))
+    check(same, f"{name}: moe_apply's output or gradients differ between "
+          f"runs")
+    C = expert_capacity(B * S, cfg.moe)
+    print(f"  {name}: MoE FFN ({cfg.moe.num_experts} experts top-"
+          f"{cfg.moe.top_k}, {cfg.moe.num_shared} shared, of "
+          f"{cfg.moe.d_ff_expert}; {B * S} tokens, C = {C}, {dropped} "
+          f"(token, k) dropped) {cfg.dtype}: output, aux and "
+          f"{len(inputs)} gradients against the per-expert loop rel err "
+          f"{rel:.2e} (abs {ab:.2e}, bar {tol:.0e}); the same bits over 3 "
+          f"runs; forward + backward {port_s:.3f} s", flush=True)
+    del params, got, inputs, x, ct
+    return {"rel_err": rel, "abs_err": ab, "bar": tol, "capacity": C,
+            "dropped": dropped, "repeat_bits": same, "seconds": port_s}
+
+
+def mla_alone(torch, name, cfg):
+    """The MLA mixer of one layer of ``cfg`` at its width in f32, alone on
+    the plain forward's input (``layer_check``): a prefill of P with
+    cache, then absorbed decode steps against the naive forward at each
+    position; the layer's MoE FFN feeds nothing back (one layer)."""
+    one = dataclasses.replace(cfg, num_layers=1, dtype="float32")
+    params = serve_params(torch, one)
+    B, P, steps = MLA_CHECK
+    gen = torch.Generator("cuda").manual_seed(SEED + 6)
+    seq = torch.randint(0, one.vocab_size, (B, P + steps), generator=gen,
+                        device="cuda")
+    out = layer_check(torch, name, one, params, seq, P, steps)
+    del params
+    return out
+
+
+def moe_serve_leg(torch, np, kernels, counts):
+    """13a deepseek-lite-serve-full: ``serve.main`` at MOE_SERVE_ARGV
+    (deepseek-v2-lite-16b, all 27 layers, bf16): prefill ms, decode
+    ms/step, tokens/s and the allocator's peak beside their bounds; the
+    greedy tokens (and logits) of MOE_GREEDY_STEPS decode steps twice from
+    the seed, to the bit, the experts each decode step routes to counted.
+    Then in f32 at full width: the MLA mixer alone and the MoE FFN
+    alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    cfg = get_config(DSL)
+    torch.cuda.reset_peak_memory_stats()
+    out, got = counted(kernels, counts, serve.main, MOE_SERVE_ARGV)
+    expect_launches("13a serve.main", got)       # MLA attends with sdpa
+    toks = out.pop("tokens")
+    B, P, gen = out["batch"], out["prompt_len"], out["gen"]
+    check(tuple(toks.shape) == (B, gen) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab_size, f"13a tokens {toks.shape}")
+    params = serve_params(torch, cfg)
+    prompt = serve_prompt(torch, np, cfg.vocab_size, B, P)
+    first = serve_greedy(torch, kernels, cfg, params, prompt,
+                         MOE_GREEDY_STEPS)
+    with experts_routed() as routed:
+        again = serve_greedy(torch, kernels, cfg, params, prompt,
+                             MOE_GREEDY_STEPS)
+    for run in (first, again):
+        for n in counts:
+            counts[n] += run[4][n] + run[5][n]
+    same = (torch.equal(first[2], again[2]) and torch.equal(first[3],
+                                                            again[3]))
+    check(same and bool(torch.isfinite(first[3]).all()),
+          "13a: the greedy tokens or logits from the seed differ between "
+          "two runs")
+    L = cfg.num_layers
+    per_step = routed[L:]                        # the decode steps' calls
+    routed_per_step = sum(per_step) / MOE_GREEDY_STEPS
+    cache_bytes = sum(math.prod(d.shape) * d.dtype.itemsize for d in
+                      _leaves(M.cache_defs(cfg, B, P + gen)))
+    params_bytes = sum(p.numel() * p.element_size() for p in
+                       _leaves(params))
+    del params, first, again
+    gc.collect()
+    torch.cuda.empty_cache()
+    pre_b, pre_by, dec_b, dec_by, dec_routed = moe_serve_bounds(
+        cfg, B, P, gen, routed_per_step)
+    out.update(prefill_ms=out["prefill_s"] * 1e3,
+               decode_ms_per_step=out["decode_s"] / out["decode_steps"] * 1e3,
+               prefill_bound_ms=pre_b, prefill_bound_by=pre_by,
+               decode_bound_ms=dec_b, decode_bound_by=dec_by,
+               decode_routed_bound_ms=dec_routed,
+               experts_routed_per_step=routed_per_step,
+               peak_bound_bytes=params_bytes + cache_bytes, launches=got,
+               greedy_same_bits=same)
+    print(f"  13a serve.main {' '.join(MOE_SERVE_ARGV)} (bf16, {L} layers): "
+          f"prefill {out['prefill_ms']:.2f} ms (bound {pre_b:.2f} ms, "
+          f"{pre_by}), decode {out['decode_ms_per_step']:.3f} ms/step "
+          f"(bound {dec_b:.3f} ms, {dec_by}: every expert's C-slot buffer; "
+          f"with only the {routed_per_step:.0f} experts a step routes to "
+          f"({routed_per_step / L:.1f} of {cfg.moe.num_experts} a layer) "
+          f"read, {dec_routed:.3f} ms), {out['tokens_per_s']:.1f} tokens/s, "
+          f"allocator peak {(out['peak_bytes'] or 0) / 2**30:.2f} GiB "
+          f"(params + caches {out['peak_bound_bytes'] / 2**30:.2f} GiB); "
+          f"greedy tokens again from the seed the same bits", flush=True)
+    row = {"serve": out}
+    row["mla"] = mla_alone(torch, "13a deepseek-v2-lite-16b f32", cfg)
+    row["moe"] = moe_alone(torch, "13a deepseek-v2-lite-16b f32",
+                           dataclasses.replace(cfg, dtype="float32"),
+                           *MOE_TOKENS)
+    return row
+
+
+def moe_aux_check(torch, name, adapter, params, batch, hp):
+    """Per stage, from ``params`` (f32): the stage loss through the
+    kernels is CE - λ1 nHSIC(X;Z) - λ2 nHSIC(Y;Z) + ``moe_aux_loss`` of the
+    stage forward's load_balance and router_z (the proximal term 0 at the
+    round's start); both aux sums through the kernel path against the
+    plain path (nHSIC and attention plain) at TOL."""
+    from repro_torch.core.progressive import make_stage_loss
+    from repro_torch.models import model as M
+    from repro_torch.models.moe import moe_aux_loss
+    plain_cfg = dataclasses.replace(adapter.cfg, use_flash_kernel=False)
+    rows = []
+    for t in range(adapter.plan.num_stages):
+        frozen, trainable = adapter.split_stage(params, t)
+        with torch.no_grad():
+            k_hp = dataclasses.replace(hp, use_hsic_kernel=True)
+            loss, m = make_stage_loss(adapter, k_hp, t)(trainable, frozen,
+                                                        batch, trainable)
+            _, feats = adapter.stage_apply(frozen, trainable,
+                                           batch["inputs"])
+            _, plain = M.stage_apply(frozen, trainable, plain_cfg,
+                                     batch["inputs"])
+        aux = feats["aux"]
+        term = moe_aux_loss(aux, adapter.cfg.moe)
+        rest = (float(m["ce"]) - m["lambda1"] * float(m["nhsic_xz"])
+                - m["lambda2"] * float(m["nhsic_yz"]) + float(m["prox"]))
+        err = abs(float(loss) - rest - float(term)) / abs(float(loss))
+        rel, _ = rel_abs([aux["load_balance"], aux["router_z"]],
+                         [plain["aux"]["load_balance"],
+                          plain["aux"]["router_z"]])
+        check(err <= TOL and rel <= TOL and float(term) > 0,
+              f"{name} stage {t}: the loss does not carry the aux term "
+              f"({err}) or the aux sums leave the plain path's ({rel})")
+        rows.append({"stage": t, "aux_term": float(term),
+                     "load_balance": float(aux["load_balance"]),
+                     "router_z": float(aux["router_z"]),
+                     "decomposition_rel": err, "aux_rel": rel})
+    print(f"  {name}: each stage's loss carries moe_aux_loss of its "
+          f"trainable periods (aux terms "
+          f"{[round(r['aux_term'], 5) for r in rows]}); load_balance and "
+          f"router_z against the plain path rel err <= "
+          f"{max(r['aux_rel'] for r in rows):.2e}", flush=True)
+    return rows
+
+
+def moe_train_leg(torch, np, kernels, counts):
+    """13b deepseek-lite-train-full-depth4: ``train.main`` at
+    MOE_TRAIN_ARGV with deepseek-v2-lite-16b's depth cut 27 -> 4 (bf16):
+    every round's loss finite, K1-K3 twice a local step and K4 never (MLA
+    attends with sdpa); then per stage one f32 step through the kernels
+    against the plain path (``stage_step_check``) and the aux term
+    (``moe_aux_check``)."""
+    import shutil
+    import tempfile
+    from repro_torch.common.tree import tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.core.curriculum import CurriculumHP
+    from repro_torch.core.memory import estimate_stage_memory
+    from repro_torch.core.progressive import make_transformer_adapter
+    from repro_torch.data.synthetic import make_lm_dataset
+    from repro_torch.launch import train
+    cfg = dataclasses.replace(get_config(DSL), num_layers=MOE_TRAIN_DEPTH)
+    adapter = make_transformer_adapter(cfg, 4)
+    out_dir = tempfile.mkdtemp(prefix="train_moe_")
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with depth_cut(train, MOE_TRAIN_DEPTH), \
+                server_rounds(kernels) as rows:
+            out, got = counted(kernels, counts, train.main,
+                               MOE_TRAIN_ARGV + ["--out", out_dir])
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    mem = leg_memory(torch, "13b", max(
+        estimate_stage_memory(adapter, t, 8, seq=64).total
+        for t in range(adapter.plan.num_stages)))
+    check([r["stage"] for r in rows] == [0, 1, 2, 3], f"13b: {rows}")
+    for r in rows:
+        n = r["local_steps"]
+        check(n > 0 and math.isfinite(r["loss"]), f"13b: {r}")
+        expect_launches(f"13b round {r['round']}", r["launches"],
+                        nhsic=2 * n)
+    print(f"  13b train.main {' '.join(MOE_TRAIN_ARGV)}, depth "
+          f"{MOE_TRAIN_DEPTH}: {out['n_params']:,} params, "
+          f"{out['seconds']:.1f} s; rounds (stage, local steps, loss) "
+          f"{[(r['stage'], r['local_steps'], r['loss']) for r in rows]}; "
+          f"launches {got}", flush=True)
+    params = tree_map(lambda t: t.float(), out.pop("params"))
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    kern = make_transformer_adapter(dataclasses.replace(cfg,
+                                                        dtype="float32"), 4)
+    ds = make_lm_dataset(SEED + 1, 8, 64, cfg.vocab_size)
+    batch = train.lm_batches(ds, np.arange(8), 8, SEED, "cuda")
+    hp = CurriculumHP(lambda1_max=2.0, lambda2_max=1.0, mu=0.01)
+    steps, got = counted(kernels, counts, stage_step_check, kern, kern,
+                         params, batch, TRAIN_LR, hp, True)
+    expect_launches("13b step check", got, nhsic=2 * kern.plan.num_stages)
+    aux, _ = counted(kernels, counts, moe_aux_check, torch, "13b", kern,
+                     params, batch, hp)
+    del params
+    return {"rounds": rows, "memory": mem, "step_check": steps, "aux": aux}
+
+
+def ds236_leg(torch, np, kernels, counts):
+    """13c deepseek-236b-full-depth2: deepseek-v2-236b at full width
+    (q-LoRA 1536, 160 experts), depth 60 -> 2, bf16: a prefill of B x P
+    and greedy decode steps, timed beside their bounds; the same at
+    capacity factor NO_DROP against the forward over prompt and fed
+    tokens, at twice what bf16 rounding moves that forward from the f32
+    forward of the same params (at least BF16_TOL).  Then in f32: the
+    q-LoRA MLA mixer alone and the MoE FFN alone."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(DS236), num_layers=DS236_DEPTH)
+    B, P, steps = DS236_SERVE
+    params = serve_params(torch, cfg)
+    prompt = serve_prompt(torch, np, cfg.vocab_size, B, P)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run = serve_greedy(torch, kernels, cfg, params, prompt, steps)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    for n in counts:
+        counts[n] += run[4][n] + run[5][n]
+    check(not any(run[4].values()) and not any(run[5].values())
+          and bool(torch.isfinite(run[3]).all()),
+          f"13c: launches {run[4]}, {run[5]} or non-finite logits")
+    del run
+    nd = no_drop(cfg)
+    _, _, fed, steps_lg, pre, dec = serve_greedy(torch, kernels, nd, params,
+                                                 prompt, steps)
+    for n in counts:
+        counts[n] += pre[n] + dec[n]
+    seq = torch.cat([prompt, fed], 1)
+    positions = list(range(P, P + steps))
+    want = plain_logits(torch, nd, params, seq, positions)
+    rel, ab = rel_abs(steps_lg.float(), want)
+    # bf16 rounding's own share: the bf16 forward against the f32 forward
+    # of the same params
+    from repro_torch.common.tree import tree_map
+    f32 = tree_map(lambda t: t.float(), params)
+    del params
+    exact = plain_logits(torch, dataclasses.replace(nd, dtype="float32"),
+                         f32, seq, positions)
+    moved, _ = rel_abs(want, exact)
+    bar = max(BF16_TOL, 2 * moved)
+    check(rel <= bar, f"13c: decode against the forward (capacity factor "
+          f"{NO_DROP}) rel err {rel} (bf16 moves the forward {moved} from "
+          f"f32; bar {bar})")
+    del f32, want, exact, steps_lg
+    gc.collect()
+    torch.cuda.empty_cache()
+    pre_b, pre_by, dec_b, dec_by, _ = moe_serve_bounds(cfg, B, P, steps + 1)
+    print(f"  13c deepseek-v2-236b bf16, depth {DS236_DEPTH}: prefill of "
+          f"{B} x {P} and {steps} greedy decode steps {secs:.2f} s (bounds: "
+          f"prefill {pre_b:.3f} ms, {pre_by}; decode {dec_b:.3f} ms a step, "
+          f"{dec_by}), allocator peak {peak / 2**30:.2f} GiB; at capacity "
+          f"factor {NO_DROP} the decode steps against the forward rel err "
+          f"{rel:.2e} (abs {ab:.2e}; bf16 moves the forward {moved:.2e} "
+          f"from its f32 value; bar {bar:.1e})", flush=True)
+    row = {"serve_s": secs, "peak_bytes": peak, "decode_rel_err": rel,
+           "bf16_moved": moved, "bar": bar,
+           "prefill_bound_ms": pre_b, "decode_bound_ms": dec_b}
+    row["mla"] = mla_alone(torch, "13c deepseek-v2-236b f32 (q-LoRA)", cfg)
+    row["moe"] = moe_alone(torch, "13c deepseek-v2-236b f32",
+                           dataclasses.replace(cfg, dtype="float32"),
+                           *MOE_TOKENS)
+    return row
+
+
+def mamba_plain(torch, params, cfg, x):
+    """Mamba-1 as a plain per-step recurrence over the whole sequence (no
+    chunks, no padding), in float32: the projections and conv of
+    ``mamba_forward``, then h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t and
+    y_t = C_t . h_t + D x_t one step at a time."""
+    import torch.nn.functional as F
+    from repro_torch.models import ssm
+    d_in, dt_rank, N, K = ssm.mamba_dims(cfg)
+    x1, z = (x @ params["in_proj"]).chunk(2, dim=-1)
+    xc = F.silu(ssm.causal_conv(x1, params["conv_w"], params["conv_b"]))
+    dt_lo, Bs, Cs = (xc @ params["x_proj"]).split([dt_rank, N, N], dim=-1)
+    dt = F.softplus((dt_lo @ params["dt_proj"]).float() + params["dt_bias"])
+    A = -torch.exp(params["A_log"])
+    h = torch.zeros((x.shape[0], d_in, N), device=x.device)
+    ys = []
+    for t in range(x.shape[1]):
+        h = (torch.exp(dt[:, t, :, None] * A) * h
+             + (dt[:, t] * xc[:, t].float())[..., None]
+             * Bs[:, t, None].float())
+        ys.append((h * Cs[:, t, None].float()).sum(-1))
+    y = torch.stack(ys, 1) + params["D"] * xc.float()
+    return (y.to(x.dtype) * F.silu(z)) @ params["out_proj"]
+
+
+def _grads(torch, fn, inputs, ct):
+    for t in inputs:
+        t.requires_grad_(True)
+    y = fn()
+    return [y.detach(), *torch.autograd.grad(y, inputs, ct)]
+
+
+def _event_ms(torch, fn, runs=3):
+    """Median CUDA-event ms of ``fn`` over ``runs`` calls after one."""
+    fn()
+    times = []
+    for _ in range(runs):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def jamba_layers_leg(torch, kernels, counts):
+    """13d jamba-layers-full: at jamba-1.5-large-398b's full width in f32,
+    each sub-layer kind alone, params random from SEED.  The Mamba mixer
+    (d_in 16384, N 16, dt_rank 512) at B x S: the chunked forward and its
+    gradients (x and every param) against autograd of ``mamba_plain``; a
+    prefill of P with cache, then decode steps against the forward at each
+    position.  The attention sub-layer's mixer (64 heads over 8 of 128)
+    through K4 against the plain ``sdpa``: output and gradients.  One MoE
+    FFN (16 experts top-2 of 24576, 9.66 B params) against the per-expert
+    loop, in f32 where it fits (gradients into x and the router), else in
+    bf16 at BF16_TOL.  Each part's forward timed (CUDA events): the Mamba
+    scan's share of the layers."""
+    from repro_torch.common.paramdef import init_params
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as attn
+    from repro_torch.models import ssm
+    cfg = dataclasses.replace(get_config(JAMBA), dtype="float32",
+                              use_flash_kernel=True)
+    B, S, P, steps = JAMBA_LAYER
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator("cuda").manual_seed(SEED + 7)
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device="cuda")
+    ct = torch.randn(x.shape, generator=gen, device="cuda")
+    row = {}
+    # the Mamba mixer
+    params = init_params(SEED, ssm.mamba_defs(cfg), "cuda",
+                         draw_on_device=True)
+    inputs = [x] + [params[k] for k in sorted(params)]
+    got = _grads(torch, lambda: ssm.mamba_forward(params, cfg, x, None),
+                 inputs, ct)
+    want = _grads(torch, lambda: mamba_plain(torch, params, cfg, x), inputs,
+                  ct)
+    rel_f, _ = rel_abs(got[0], want[0])
+    rel_g, _ = rel_abs(got[1:], want[1:])
+    full = got[0]
+    del got, want
+    with torch.no_grad():
+        _, cache = ssm.mamba_forward(params, cfg, x[:, :P], None,
+                                     with_cache=True)
+        rel_d = 0.0
+        for t in range(P, P + steps):
+            y, cache = ssm.mamba_decode(params, cfg, x[:, t:t + 1], cache, t)
+            rel_d = max(rel_d, rel_abs(y, full[:, t:t + 1])[0])
+        mamba_ms = _event_ms(torch, lambda: ssm.mamba_forward(
+            params, cfg, x, None))
+        d_in, dt_rank, N, _ = ssm.mamba_dims(cfg)
+        xc = torch.randn((B, S, d_in), generator=gen, device="cuda")
+        dt, Bs, Cs = ssm._mamba_ssm_inputs(params, cfg, xc)
+        A = -torch.exp(params["A_log"])
+        h0 = torch.zeros((B, d_in, N), device="cuda")
+        scan_ms = _event_ms(torch, lambda: ssm._mamba_scan(dt, Bs, Cs, xc,
+                                                           A, h0))
+        del xc, dt, Bs, Cs, cache
+    check(max(rel_f, rel_g, rel_d) <= TOL,
+          f"13d Mamba: forward {rel_f}, gradients {rel_g}, decode {rel_d}")
+    row["mamba"] = {"forward_rel": rel_f, "grad_rel": rel_g,
+                    "decode_rel": rel_d, "forward_ms": mamba_ms,
+                    "scan_ms": scan_ms}
+    del params, inputs, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the attention mixer, K4 against sdpa
+    params = init_params(SEED + 1, attn.attn_defs(cfg), "cuda",
+                         draw_on_device=True)
+    pos = torch.arange(S, device="cuda")[None].expand(B, S)
+    plain = dataclasses.replace(cfg, use_flash_kernel=False)
+    inputs = [x] + [params[k] for k in sorted(params)]
+    (k_out, got_k) = counted(kernels, counts, _grads, torch,
+                             lambda: attn.attn_forward(params, cfg, x, pos),
+                             inputs, ct)
+    expect_launches("13d attention", got_k, flash_attention_fwd=1)
+    p_out = _grads(torch, lambda: attn.attn_forward(params, plain, x, pos),
+                   inputs, ct)
+    rel_a, _ = rel_abs(k_out[0], p_out[0])
+    rel_ag, _ = rel_abs(k_out[1:], p_out[1:])
+    check(max(rel_a, rel_ag) <= TOL,
+          f"13d attention through K4: output {rel_a}, gradients {rel_ag}")
+    del k_out, p_out
+    with torch.no_grad():
+        reset_all(kernels)
+        attn_ms = _event_ms(torch, lambda: attn.attn_forward(params, cfg, x,
+                                                             pos))
+        for n, c in read_all(kernels).items():
+            counts[n] += c
+    row["attention"] = {"forward_rel": rel_a, "grad_rel": rel_ag,
+                        "forward_ms": attn_ms}
+    del params, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one MoE FFN: f32 where its 38.7 GB (and the loop's) fit
+    moe_bytes = 3 * cfg.d_model * cfg.moe.d_ff_expert * \
+        cfg.moe.num_experts * 4
+    f32 = torch.cuda.mem_get_info()[0] > 1.5 * moe_bytes
+    mcfg = cfg if f32 else dataclasses.replace(cfg, dtype="bfloat16")
+    row["moe"] = moe_alone(torch, f"13d jamba-1.5-large-398b {mcfg.dtype}",
+                           mcfg, B, S, weight_grads=False,
+                           tol=TOL if f32 else BF16_TOL)
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["peak_bytes"] = torch.cuda.max_memory_allocated()
+    print(f"  13d jamba-1.5-large-398b f32 sub-layers at B {B}, S {S}: "
+          f"Mamba (d_in {ssm.mamba_dims(cfg)[0]}) forward {rel_f:.2e}, "
+          f"gradients {rel_g:.2e} against the plain recurrence, {steps} "
+          f"decode steps after a prefill of {P} {rel_d:.2e}; attention "
+          f"through K4 against sdpa {rel_a:.2e}, gradients {rel_ag:.2e} "
+          f"(bar {TOL:.0e}); forwards (CUDA events): Mamba mixer "
+          f"{mamba_ms:.2f} ms (its scan {scan_ms:.2f} ms, "
+          f"{scan_ms / mamba_ms:.0%}), attention mixer {attn_ms:.2f} ms; "
+          f"allocator peak {row['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    return row
+
+
+def jamba_smoke_leg(torch, np, kernels, counts):
+    """13e jamba-smoke: jamba-1.5-large-398b's smoke config whole (16
+    layers, 2 periods).  Greedy prefill and decode against the plain
+    forward at capacity factor NO_DROP (``decode_check``, each mixer alone
+    too), K4 once an attention layer in the prefill; ``serve.main`` at the
+    same size; ``train.main`` for 2 rounds: every loss finite, K4 once an
+    attention layer run, K1-K3 twice a local step."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.memory import estimate_stage_memory
+    from repro_torch.core.progressive import make_transformer_adapter
+    from repro_torch.launch import serve, train
+    cfg = dataclasses.replace(no_drop(get_smoke_config(JAMBA)),
+                              use_flash_kernel=True)
+    n_attn = cfg.num_periods * sum(k == "attn" for k, _ in cfg.pattern)
+    B, P, gen = JAMBA_SERVE
+    row = {}
+    row["decode"], _ = decode_check(torch, np, kernels, "13e jamba smoke",
+                                    cfg, B, P, gen - 1, counts,
+                                    {"flash_attention_fwd": n_attn},
+                                    per_layer=True)
+    out, got = counted(kernels, counts, serve.main, [
+        "--arch", JAMBA, "--batch", str(B), "--prompt-len", str(P),
+        "--gen", str(gen)])
+    expect_launches("13e serve.main", got, flash_attention_fwd=n_attn)
+    row["serve"] = {k: out[k] for k in ("prefill_s", "decode_s",
+                                        "tokens_per_s")}
+    out_dir = tempfile.mkdtemp(prefix="train_jamba_")
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with server_rounds(kernels) as rows:
+            out, got = counted(kernels, counts, train.main,
+                               JAMBA_TRAIN_ARGV + ["--out", out_dir])
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    adapter = make_transformer_adapter(get_smoke_config(JAMBA), 4)
+    row["memory"] = leg_memory(torch, "13e train.main", max(
+        estimate_stage_memory(adapter, t, 8, seq=64).total
+        for t in range(adapter.plan.num_stages)))
+    check(len(rows) == 2, f"13e: {rows}")
+    for r in rows:
+        n = r["local_steps"]
+        check(n > 0 and math.isfinite(r["loss"]), f"13e: {r}")
+        expect_launches(f"13e round {r['round']}", r["launches"],
+                        flash_attention_fwd=n * r["periods"], nhsic=2 * n)
+    print(f"  13e jamba smoke: serve.main {row['serve']['tokens_per_s']:.1f}"
+          f" tokens/s; train.main {' '.join(JAMBA_TRAIN_ARGV)}: rounds "
+          f"(stage, local steps, loss) "
+          f"{[(r['stage'], r['local_steps'], r['loss']) for r in rows]}, "
+          f"{out['seconds']:.1f} s", flush=True)
+    row["rounds"] = rows
+    del out
+    return row
+
+
+def moe_path(torch, np, kernels):
+    """Main path 13: 13a-13e, TF32 off, every K4 and nHSIC shape held by
+    the kernel phase; the launches of the driven runs and each part's
+    seconds."""
+    counts = {n: 0 for n in read_all(kernels)}
+    out, took = {}, {}
+    t0 = time.perf_counter()
+    legs = (("13a", lambda: moe_serve_leg(torch, np, kernels, counts)),
+            ("13b", lambda: moe_train_leg(torch, np, kernels, counts)),
+            ("13c", lambda: ds236_leg(torch, np, kernels, counts)),
+            ("13d", lambda: jamba_layers_leg(torch, kernels, counts)),
+            ("13e", lambda: jamba_smoke_leg(torch, np, kernels, counts)))
+    with flash_shapes_seen() as fseen, nhsic_shapes_seen() as nseen:
+        for key, fn in legs:
+            t1 = time.perf_counter()
+            out[key] = fn()
+            took[key] = time.perf_counter() - t1
+            print(f"  {key}: {took[key]:.1f} s", flush=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+    check_flash_held(fseen, "main path 13")
+    check_held(nseen, "main path 13")
+    check(counts["flash_attention_fwd"] > 0
+          and all(counts[n] > 0 for n in STREAMING),
+          f"main path 13: launches {counts}")
+    took["total"] = time.perf_counter() - t0
+    out["seconds"] = took
+    print(f"  main path 13 parts (s): "
+          f"{ {k: round(v, 1) for k, v in took.items()} }", flush=True)
+    return out, counts
+
 
 def main():
     import torch
@@ -6360,6 +7144,11 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase("main path 13: Mamba, MoE and MLA")
+    moe, moecounts = moe_path(torch, np, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     phase("main path 7: Tables 1 and 2 at full width")
     tables, tabcounts = tables_path(torch, kernels, np)
     phase("Fig. 7: stage step against full step")
@@ -6387,7 +7176,7 @@ def main():
                "fig7": f7counts, "fig6": fcounts, "resume": rescounts,
                "fig2": f2counts, "fig5": f5counts, "fig8": f8counts,
                "quickstart": qcounts, "serving": servcounts,
-               "training": traincounts,
+               "training": traincounts, "moe": moecounts,
                **{p: {n: c.get(n, 0) for n in xcounts}
                   for p, c in mcounts.items()}}
     launches = {n: sum(c[n] for c in by_path.values()) for n in xcounts}
@@ -6484,11 +7273,12 @@ def main():
                    "fig7": fig7_rows, "fig6": fig6_out, "resume": resume,
                    "fig2": fig2_out, "fig5": fig5_out, "fig8": fig8_out,
                    "quickstart": quick_out, "async": asy, "mesh": mesh,
-                   "serving": serving, "training": training,
+                   "serving": serving, "training": training, "moe": moe,
                    "kernels": out_kernels, "device": device}, f, indent=1)
     phase("done")
     print(f"main path 11 took {serving['seconds']['total']:.1f} s, main "
-          f"path 12 {training['seconds']['total']:.1f} s; the whole run "
+          f"path 12 {training['seconds']['total']:.1f} s, main path 13 "
+          f"{moe['seconds']['total']:.1f} s; the whole run "
           f"{time.perf_counter() - START:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": out_kernels}), flush=True)

@@ -8,7 +8,13 @@ the surrogates' and VGG's ``"conv"``, a residual block's ``"conv1"``,
 ``"conv2"`` and ``"proj"``, a fire module's ``"squeeze"``, ``"e1"`` and
 ``"e3"``).  Every other leaf crosses unchanged, the transformer's stacked
 4-D attention weights (``wq`` (L, d, H, Dh), ``wo`` (L, H, Dh, d))
-included.  Both directions copy values exactly.  A stacked tree (the
+included, as are MoE expert stacks (L, E, d, ff), MLA's (L, r, H, e)
+and Mamba's ``conv_w`` (a plain leaf, not a conv's ``"w"``).  Both
+directions copy values exactly.  ``from_reference`` takes a bfloat16
+leaf of the reference (a numpy array of the ``bfloat16`` extension dtype)
+by its bits (``reference_layout`` gives it back as a bfloat16 tensor), and
+the float32 leaves of a bfloat16 model (Mamba's ``A_log``, ``D`` and
+``dt_bias``, the MoE router) stay float32.  A stacked tree (the
 async buffer's deltas: an entry axis in front of each leaf) crosses with
 ``lead=1``: a conv weight's last four axes are permuted, its leading ones
 kept.
@@ -47,6 +53,15 @@ def _perm(lead: int, to_port: bool):
     return (*range(lead), *(lead + a for a in tail))
 
 
+def _from_numpy(a) -> torch.Tensor:
+    """A copy of ``a`` as a tensor; a bfloat16 array (numpy's extension
+    dtype, which torch does not take) through its raw 16 bits."""
+    a = np.array(np.asarray(a), copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def from_reference(np_tree, device: DeviceLike = None, lead: int = 0):
     """A reference param tree (numpy arrays, anything ``np.asarray`` takes,
     or tensors in the reference's layout, such as ``load_checkpoint``
@@ -55,8 +70,7 @@ def from_reference(np_tree, device: DeviceLike = None, lead: int = 0):
     dev = resolve_device(device)
 
     def leaf(a, conv):
-        t = (a.detach().clone() if torch.is_tensor(a)
-             else torch.from_numpy(np.array(np.asarray(a), copy=True)))
+        t = a.detach().clone() if torch.is_tensor(a) else _from_numpy(a)
         if conv:
             t = t.permute(_perm(lead, True)).contiguous()
         return t.to(dev)

@@ -2,16 +2,18 @@
 assigned ids, in its order, and the input shapes (``configs/shapes.py``).
 
 ``get_config("<id>")`` gives the full-scale config and
-``get_smoke_config`` its reduced same-family CPU variant, for the archs
-the port runs: the four dense decoders, xlstm-1.3b, musicgen-large
-(audio) and llava-next-34b (VLM).  The other three need parts not ported
-yet and raise a ``ValueError`` naming them.
+``get_smoke_config`` its reduced same-family CPU variant, for every arch
+of the reference: the four dense decoders, xlstm-1.3b, musicgen-large
+(audio), llava-next-34b (VLM), deepseek-v2-lite-16b and deepseek-v2-236b
+(MLA + MoE) and jamba-1.5-large-398b (Mamba + attention + MoE).
 """
 from __future__ import annotations
 
-from repro_torch.configs import (granite_3_8b, h2o_danube_3_4b,
-                                 llava_next_34b, musicgen_large, qwen1_5_4b,
-                                 qwen3_1_7b, xlstm_1_3b)
+from repro_torch.configs import (deepseek_v2_236b, deepseek_v2_lite_16b,
+                                 granite_3_8b, h2o_danube_3_4b,
+                                 jamba_1_5_large_398b, llava_next_34b,
+                                 musicgen_large, qwen1_5_4b, qwen3_1_7b,
+                                 xlstm_1_3b)
 from repro_torch.configs.shapes import (SHAPES, InputShape, cache_part_specs,
                                         cache_specs, decode_inputs,
                                         input_specs, label_specs,
@@ -24,18 +26,12 @@ ARCH_IDS = ["musicgen-large", "xlstm-1.3b", "llava-next-34b",
             "jamba-1.5-large-398b"]
 _REGISTRY = {m.ARCH_ID: m for m in (musicgen_large, xlstm_1_3b,
                                     llava_next_34b, granite_3_8b,
-                                    h2o_danube_3_4b, qwen1_5_4b,
-                                    qwen3_1_7b)}
-# what each unported arch needs
-_NOT_PORTED = {"deepseek-v2-lite-16b": "MLA attention, MoE",
-               "deepseek-v2-236b": "MLA attention, MoE",
-               "jamba-1.5-large-398b": "mamba, MoE"}
+                                    deepseek_v2_lite_16b, deepseek_v2_236b,
+                                    h2o_danube_3_4b, qwen1_5_4b, qwen3_1_7b,
+                                    jamba_1_5_large_398b)}
 
 
 def _module(arch_id: str):
-    if arch_id in _NOT_PORTED:
-        raise ValueError(f"{arch_id}: not yet ported: "
-                         f"{_NOT_PORTED[arch_id]}")
     if arch_id not in _REGISTRY:
         raise ValueError(f"unknown arch {arch_id!r}; one of {ARCH_IDS}")
     return _REGISTRY[arch_id]

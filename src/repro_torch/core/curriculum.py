@@ -4,7 +4,9 @@
     L_Θt   = L_CE − λ1,t·nHSIC(X; Z_t) − λ2,t·nHSIC(Y; Z_t)        (Eq. 4)
     L^r_nt = L_Θt + μ/2 ‖θ_nt − θ_t^l‖²                            (Eq. 5)
 
-λ1 decreases over blocks, λ2 increases.
+λ1 decreases over blocks, λ2 increases.  A MoE model's stage loss also
+carries ``moe_aux_loss`` of the trainable periods' aux sums, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -71,6 +73,10 @@ def curriculum_loss(logits, feats, batch, cfg, hp: CurriculumHP, t: int,
         loss = loss - lam1 * h_xz - lam2 * h_yz
         metrics.update({"nhsic_xz": h_xz, "nhsic_yz": h_yz,
                         "lambda1": lam1, "lambda2": lam2})
+    aux = feats.get("aux")
+    if aux is not None and getattr(cfg, "moe", None) is not None:
+        from repro_torch.models.moe import moe_aux_loss
+        loss = loss + moe_aux_loss(aux, cfg.moe)
     return loss, metrics
 
 

@@ -47,10 +47,16 @@ def _tx_act_bytes_per_unit(cfg: ModelConfig, batch: int, seq: int) -> int:
     for kind, ffn in cfg.pattern:
         if kind == "attn":
             work += 4 * batch * seq * cfg.d_model * bytes_el
+        elif kind == "mamba":
+            d_in = cfg.ssm.expand * cfg.d_model
+            work += 2 * batch * seq * d_in * bytes_el
         elif kind in ("mlstm", "slstm"):
             work += 3 * batch * seq * cfg.d_model * bytes_el
         if ffn == "mlp":
             work += 2 * batch * seq * cfg.d_ff * bytes_el
+        elif ffn == "moe":
+            work += 2 * batch * seq * cfg.moe.top_k \
+                * cfg.moe.d_ff_expert * bytes_el // max(cfg.moe.top_k, 1)
     return carry + work // max(len(cfg.pattern), 1)
 
 

@@ -78,12 +78,16 @@ def _mesh_batch_shards(mesh) -> int:
 
 
 def align_moe_dispatch(cfg: ModelConfig, mesh) -> ModelConfig:
-    """The reference aligns MoE dispatch groups with the mesh's batch
-    shards; without MoE it returns ``cfg`` as it is, as here.  MoE is not
-    ported yet."""
+    """MoE dispatch groups aligned with the mesh's batch shards, so that
+    the routing's sort and gathers stay shard-local (``moe.moe_apply``);
+    ``cfg`` as it is without MoE.  ``REPRO_MOE_GROUPS`` overrides the
+    count (1: one global dispatch), as in the reference."""
     if cfg.moe is None:
         return cfg
-    raise ValueError(f"{cfg.name}: not yet ported: MoE")
+    g = int(os.environ.get("REPRO_MOE_GROUPS", "0")) or \
+        _mesh_batch_shards(mesh)
+    return dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, dispatch_groups=g))
 
 
 def _on(device: DeviceLike, step):

@@ -1,6 +1,7 @@
-"""Attention layers (port of ``repro.models.attention``, the GQA part):
-grouped-query attention with RoPE, qk-norm, QKV bias, causal and
-sliding-window masks, and its one-token decode against a KV cache.
+"""Attention layers (port of ``repro.models.attention``): grouped-query
+attention with RoPE, qk-norm, QKV bias, causal and sliding-window masks,
+and DeepSeek-V2's multi-head latent attention (MLA); each with its
+one-token decode against a cache.
 
 ``gqa_forward`` runs attention through the hand-written CUDA flash kernel
 (``kernels.flash_attention.ops``) when ``cfg.use_flash_kernel`` is set, and
@@ -17,7 +18,14 @@ evicts the oldest token (the reference keeps them unrolled, and its decode
 then evicts the wrong one when S % W != 0).  ``gqa_decode`` writes the new
 token's k and v into the cache in place and returns it.
 
-MLA (DeepSeek-V2) is not ported yet: the dispatch helpers raise for it.
+MLA (``attn_impl="mla"``) keeps per layer a compressed cache ``{"ckv":
+(B, S, kv_lora_rank), "krope": (B, S, qk_rope_head_dim)}``.  Its forward
+expands the latents to per-head keys and values (q and k of nope + rope
+dims, v of ``v_head_dim``) and attends with the plain ``sdpa``, as the
+reference's does whatever ``use_flash_kernel`` says; its decode attends in
+the latent space (W_uk absorbed into q, W_uv applied after), writing the
+new token at slot ``min(pos, S - 1)``.  The query is ``wq``, or with
+``q_lora_rank`` the compressed ``w_dq`` -> RMSNorm -> ``w_uq``.
 """
 from __future__ import annotations
 
@@ -160,28 +168,130 @@ def gqa_cache_defs(cfg: ModelConfig, batch: int, seq: int) -> dict:
 
 
 # =========================================================================== #
-# dispatch helpers (MLA: not ported)
+# MLA (DeepSeek-V2)
 # =========================================================================== #
-def _gqa_only(cfg: ModelConfig):
-    if cfg.attn_impl == "mla":
-        raise ValueError(f"{cfg.name}: not yet ported: MLA attention")
+def mla_defs(cfg: ModelConfig) -> dict:
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    dt = cfg.param_dtype
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    defs = {
+        "w_dkv": ParamDef((d, m.kv_lora_rank), dt),
+        "w_kr": ParamDef((d, m.qk_rope_head_dim), dt),
+        "kv_norm": rmsnorm_defs(m.kv_lora_rank, dt),
+        "w_uk": ParamDef((m.kv_lora_rank, H, m.qk_nope_head_dim), dt,
+                         (None, MODEL_AXIS)),
+        "w_uv": ParamDef((m.kv_lora_rank, H, m.v_head_dim), dt,
+                         (None, MODEL_AXIS)),
+        "wo": ParamDef((H, m.v_head_dim, d), dt, (MODEL_AXIS,)),
+    }
+    if m.q_lora_rank:
+        defs["w_dq"] = ParamDef((d, m.q_lora_rank), dt)
+        defs["q_norm"] = rmsnorm_defs(m.q_lora_rank, dt)
+        defs["w_uq"] = ParamDef((m.q_lora_rank, H, qk_dim), dt,
+                                (None, MODEL_AXIS))
+    else:
+        defs["wq"] = ParamDef((d, H, qk_dim), dt, (None, MODEL_AXIS))
+    return defs
 
 
+def _mla_q(params, cfg: ModelConfig, x, positions):
+    """(q_nope, q_rope), each (B, S, H, ·), RoPE on the rope part."""
+    m = cfg.mla
+    if m.q_lora_rank:
+        cq = rmsnorm(params["q_norm"], x @ params["w_dq"], cfg.norm_eps)
+        q = _project(cq, params["w_uq"])
+    else:
+        q = _project(x, params["wq"])
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
+                        cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_latents(params, cfg: ModelConfig, x, positions):
+    """(ckv (B, S, rank) normed, krope (B, S, rope) with RoPE)."""
+    ckv = rmsnorm(params["kv_norm"], x @ params["w_dkv"], cfg.norm_eps)
+    krope = apply_rope((x @ params["w_kr"])[:, :, None, :], positions,
+                       cfg.rope_theta)[:, :, 0, :]
+    return ckv, krope
+
+
+def mla_forward(params, cfg: ModelConfig, x, positions, *, with_cache=False):
+    """Prefill / train: the latents expanded to per-head keys and values
+    (the naive path), attended with the plain ``sdpa``.  Returns y, and
+    with ``with_cache`` (y, {"ckv", "krope"})."""
+    m = cfg.mla
+    q_nope, q_rope = _mla_q(params, cfg, x, positions)
+    ckv, krope = _mla_latents(params, cfg, x, positions)
+    k_nope = _project(ckv, params["w_uk"])
+    v = _project(ckv, params["w_uv"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    H = cfg.num_heads
+    k = torch.cat([k_nope, krope[:, :, None, :].expand(
+        *krope.shape[:2], H, m.qk_rope_head_dim)], dim=-1)
+    out = sdpa(q, k, v, causal=True, window=cfg.window)
+    y = _out(params, out)
+    if not with_cache:
+        return y
+    return y, {"ckv": ckv, "krope": krope}
+
+
+def mla_decode(params, cfg: ModelConfig, x, cache, pos: int):
+    """Absorbed decode: attention in the latent (rank) space, the cache
+    kept compressed; per-head keys and values are never formed.  Writes
+    the new latents into ``cache`` in place; returns (y, cache)."""
+    m = cfg.mla
+    B = x.shape[0]
+    positions = torch.full((B, 1), pos, dtype=torch.long, device=x.device)
+    q_nope, q_rope = _mla_q(params, cfg, x, positions)         # (B,1,H,·)
+    ckv_new, krope_new = _mla_latents(params, cfg, x, positions)
+    S = cache["ckv"].shape[1]
+    slot = min(pos, S - 1)
+    cache["ckv"][:, slot] = ckv_new[:, 0]
+    cache["krope"][:, slot] = krope_new[:, 0]
+    ckv, krope = cache["ckv"], cache["krope"]
+    # W_uk absorbed into q: q_lat = q_nope W_uk^T, in the rank space
+    q_lat = torch.einsum("bqhe,rhe->bqhr", q_nope, params["w_uk"])
+    scores = (torch.einsum("bqhr,bsr->bhqs", q_lat, ckv)
+              + torch.einsum("bqhe,bse->bhqs", q_rope, krope))
+    scale = 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    scores = scores.float() * scale
+    valid = torch.arange(S, device=x.device) <= pos
+    scores = scores.masked_fill(~valid, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(ckv.dtype)
+    ctx_lat = torch.einsum("bhqs,bsr->bqhr", probs, ckv)
+    ctx = torch.einsum("bqhr,rhe->bqhe", ctx_lat, params["w_uv"])
+    return _out(params, ctx), cache
+
+
+def mla_cache_defs(cfg: ModelConfig, batch: int, seq: int) -> dict:
+    m = cfg.mla
+    dt = cfg.param_dtype
+    bspec = ("pod", "data")
+    return {"ckv": ParamDef((batch, seq, m.kv_lora_rank), dt,
+                            (bspec, None, MODEL_AXIS), init="zeros"),
+            "krope": ParamDef((batch, seq, m.qk_rope_head_dim), dt,
+                              (bspec,), init="zeros")}
+
+
+# =========================================================================== #
+# dispatch helpers
+# =========================================================================== #
 def attn_defs(cfg: ModelConfig) -> dict:
-    _gqa_only(cfg)
-    return gqa_defs(cfg)
+    return mla_defs(cfg) if cfg.attn_impl == "mla" else gqa_defs(cfg)
 
 
 def attn_forward(params, cfg, x, positions, *, with_cache=False):
-    _gqa_only(cfg)
-    return gqa_forward(params, cfg, x, positions, with_cache=with_cache)
+    fn = mla_forward if cfg.attn_impl == "mla" else gqa_forward
+    return fn(params, cfg, x, positions, with_cache=with_cache)
 
 
 def attn_decode(params, cfg, x, cache, pos: int):
-    _gqa_only(cfg)
-    return gqa_decode(params, cfg, x, cache, pos)
+    fn = mla_decode if cfg.attn_impl == "mla" else gqa_decode
+    return fn(params, cfg, x, cache, pos)
 
 
 def attn_cache_defs(cfg: ModelConfig, batch: int, seq: int) -> dict:
-    _gqa_only(cfg)
-    return gqa_cache_defs(cfg, batch, seq)
+    fn = mla_cache_defs if cfg.attn_impl == "mla" else gqa_cache_defs
+    return fn(cfg, batch, seq)

@@ -20,6 +20,13 @@ Caches are the mixers' (``attention``, ``ssm``), per pattern position
 ``sub{j}`` and stacked over the periods, as in the reference.
 ``decode_step`` updates them in place and returns them.
 
+MoE sub-layers (``ffn == "moe"``, ``models.moe``) add their aux losses
+(``load_balance``, ``router_z``, float32) into the ``aux`` dict that
+``_run_periods`` is given; ``loss_fn`` adds ``moe_aux_loss`` of them to the
+CE, and ``stage_apply`` returns those of the boundary and active periods
+(never the frozen prefix's) as ``feats["aux"]``.  Dense MLP layers of a MoE
+config are ``moe.d_ff_dense`` wide where it is set, as in the reference.
+
 Modalities, as in the reference: ``text`` (tokens), ``image`` (patches of
 the ViT), ``audio`` (MusicGen: precomputed frame embeddings in, no token
 embedding, one output head per codebook, labels (B, S, heads)) and
@@ -34,6 +41,7 @@ import torch.nn.functional as F
 from repro_torch.common.paramdef import ParamDef, nparams, stack_defs
 from repro_torch.common.tree import tree_leaves, tree_map
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (MODEL_AXIS, cross_entropy, embed,
@@ -46,52 +54,74 @@ from repro_torch.models.layers import (MODEL_AXIS, cross_entropy, embed,
 # sub-layers
 # --------------------------------------------------------------------------- #
 def _mixer_defs(cfg: ModelConfig, kind: str) -> dict:
-    fn = {"attn": attn.attn_defs, "mlstm": ssm.mlstm_defs,
-          "slstm": ssm.slstm_defs}[kind]
+    fn = {"attn": attn.attn_defs, "mamba": ssm.mamba_defs,
+          "mlstm": ssm.mlstm_defs, "slstm": ssm.slstm_defs}[kind]
     return fn(cfg)
 
 
 def _mixer_forward(params, cfg: ModelConfig, kind: str, x, positions,
                    with_cache=False):
-    fn = {"attn": attn.attn_forward, "mlstm": ssm.mlstm_forward,
-          "slstm": ssm.slstm_forward}[kind]
+    fn = {"attn": attn.attn_forward, "mamba": ssm.mamba_forward,
+          "mlstm": ssm.mlstm_forward, "slstm": ssm.slstm_forward}[kind]
     return fn(params, cfg, x, positions, with_cache=with_cache)
 
 
 def _mixer_decode(params, cfg: ModelConfig, kind: str, x, cache, pos: int):
-    fn = {"attn": attn.attn_decode, "mlstm": ssm.mlstm_decode,
-          "slstm": ssm.slstm_decode}[kind]
+    fn = {"attn": attn.attn_decode, "mamba": ssm.mamba_decode,
+          "mlstm": ssm.mlstm_decode, "slstm": ssm.slstm_decode}[kind]
     return fn(params, cfg, x, cache, pos)
+
+
+def _ffn_defs(cfg: ModelConfig, ffn: str):
+    if ffn == "none":
+        return None
+    if ffn == "moe":
+        return moe_mod.moe_defs(cfg)
+    # dense MLP; a MoE config's dense layers are d_ff_dense wide
+    d_ff = cfg.d_ff
+    if cfg.moe is not None and cfg.moe.d_ff_dense:
+        d_ff = cfg.moe.d_ff_dense
+    return mlp_defs(cfg.d_model, d_ff, cfg.param_dtype, cfg.act)
 
 
 def sublayer_defs(cfg: ModelConfig, kind: str, ffn: str) -> dict:
     d = {"norm1": rmsnorm_defs(cfg.d_model, cfg.param_dtype),
          "mixer": _mixer_defs(cfg, kind)}
-    if ffn != "none":
+    f = _ffn_defs(cfg, ffn)
+    if f is not None:
         d["norm2"] = rmsnorm_defs(cfg.d_model, cfg.param_dtype)
-        d["ffn"] = mlp_defs(cfg.d_model, cfg.d_ff, cfg.param_dtype, cfg.act)
+        d["ffn"] = f
     return d
 
 
-def _ffn_apply(params, cfg: ModelConfig, ffn: str, x):
+def _ffn_apply(params, cfg: ModelConfig, ffn: str, x, aux=None):
+    """x plus the sub-layer's FFN (MLP or MoE) of its normed x; a MoE's
+    aux losses are added into ``aux`` where it is given."""
     if ffn == "none":
         return x
-    return x + mlp(params["ffn"], rmsnorm(params["norm2"], x, cfg.norm_eps),
-                   cfg.act)
+    h = rmsnorm(params["norm2"], x, cfg.norm_eps)
+    if ffn != "moe":
+        return x + mlp(params["ffn"], h, cfg.act)
+    y, a = moe_mod.moe_apply(params["ffn"], cfg, h)
+    if aux is not None:
+        for k, v in a.items():
+            aux[k] = aux[k] + v
+    return x + y
 
 
 def sublayer_apply(params, cfg: ModelConfig, kind: str, ffn: str, x,
-                   positions, *, with_cache=False):
-    """Pre-norm residual sub-layer: the mixer (attention, mLSTM or sLSTM),
-    then the MLP where the pattern has one.  Returns x, and with
+                   positions, *, with_cache=False, aux=None):
+    """Pre-norm residual sub-layer: the mixer (attention, Mamba, mLSTM or
+    sLSTM), then the MLP or MoE where the pattern has one (a MoE's aux
+    losses added into ``aux`` where given).  Returns x, and with
     ``with_cache`` (x, the mixer's cache)."""
     h = rmsnorm(params["norm1"], x, cfg.norm_eps)
     mix = _mixer_forward(params["mixer"], cfg, kind, h, positions,
                          with_cache)
     if not with_cache:
-        return _ffn_apply(params, cfg, ffn, x + mix)
+        return _ffn_apply(params, cfg, ffn, x + mix, aux)
     mix, cache = mix
-    return _ffn_apply(params, cfg, ffn, x + mix), cache
+    return _ffn_apply(params, cfg, ffn, x + mix, aux), cache
 
 
 def sublayer_decode(params, cfg: ModelConfig, kind: str, ffn: str, x,
@@ -145,10 +175,9 @@ def cache_defs(cfg: ModelConfig, batch: int, seq: int) -> dict:
     for j, (kind, _) in enumerate(cfg.pattern):
         if kind == "attn":
             c = attn.attn_cache_defs(cfg, batch, seq)
-        elif kind == "mlstm":
-            c = ssm.mlstm_cache_defs(cfg, batch)
         else:
-            c = ssm.slstm_cache_defs(cfg, batch)
+            c = {"mamba": ssm.mamba_cache_defs, "mlstm": ssm.mlstm_cache_defs,
+                 "slstm": ssm.slstm_cache_defs}[kind](cfg, batch)
         out[f"sub{j}"] = stack_defs(c, cfg.num_periods)
     return out
 
@@ -203,18 +232,25 @@ def num_stacked(tree) -> int:
     return leaves[0].shape[0] if leaves else 0
 
 
+def new_aux(device) -> dict:
+    """The MoE aux sums at zero (float32 scalars)."""
+    return {k: torch.zeros((), dtype=torch.float32, device=device)
+            for k in ("load_balance", "router_z")}
+
+
 def _run_periods(layer_params, cfg: ModelConfig, x, positions, *,
-                 with_cache=False):
-    """The pattern over each period of the stacked params, in order.
-    Returns x, and with ``with_cache`` (x, the caches stacked over the
-    periods)."""
+                 with_cache=False, aux=None):
+    """The pattern over each period of the stacked params, in order; the
+    MoE sub-layers' aux losses are added into ``aux`` where it is given
+    (``new_aux``).  Returns x, and with ``with_cache`` (x, the caches
+    stacked over the periods)."""
     caches = []
     for i in range(num_stacked(layer_params)):
         period = tree_map(lambda a, i=i: a[i], layer_params)
         held = {}
         for j, (kind, ffn) in enumerate(cfg.pattern):
             x = sublayer_apply(period[f"sub{j}"], cfg, kind, ffn, x,
-                               positions, with_cache=with_cache)
+                               positions, with_cache=with_cache, aux=aux)
             if with_cache:
                 x, held[f"sub{j}"] = x
         caches.append(held)
@@ -238,10 +274,11 @@ def _decode_periods(layer_params, cfg: ModelConfig, x, caches, pos: int):
     return x, caches
 
 
-def forward(params, cfg: ModelConfig, inputs: dict):
-    """Full model -> logits."""
+def forward(params, cfg: ModelConfig, inputs: dict, aux=None):
+    """Full model -> logits (the MoE aux sums added into ``aux`` where
+    given)."""
     x, positions, _ = embed_inputs(params, cfg, inputs)
-    x = _run_periods(params["layers"], cfg, x, positions)
+    x = _run_periods(params["layers"], cfg, x, positions, aux=aux)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if cfg.task == "classify":
         x = x.mean(dim=1)                            # global pool
@@ -277,19 +314,25 @@ def decode_step(params, cfg: ModelConfig, inputs: dict, caches, pos: int):
 def loss_fn(params, cfg: ModelConfig, batch: dict):
     """Full-model (non-progressive) training loss: the mean CE; over
     every head of a multi-head output (labels (B, S, heads)), over the
-    text suffix of a VLM's logits."""
-    logits = forward(params, cfg, batch["inputs"])
+    text suffix of a VLM's logits; plus ``moe_aux_loss`` for a MoE
+    config."""
+    aux = None if cfg.moe is None else new_aux(tree_leaves(params)[0].device)
+    logits = forward(params, cfg, batch["inputs"], aux)
     _, _, mask = embed_inputs(params, cfg, batch["inputs"])
     labels = batch["labels"]
     if cfg.task == "classify":
-        return cross_entropy(logits, labels)
-    if cfg.num_output_heads > 1:
-        return cross_entropy(logits, labels,
+        loss = cross_entropy(logits, labels)
+    elif cfg.num_output_heads > 1:
+        loss = cross_entropy(logits, labels,
                              None if mask is None else mask[..., None])
-    if cfg.modality == "vlm":
-        # logits cover [patches + text]; labels the text only
-        logits, mask = logits[:, -labels.shape[1]:], None
-    return cross_entropy(logits, labels, mask)
+    else:
+        if cfg.modality == "vlm":
+            # logits cover [patches + text]; labels the text only
+            logits, mask = logits[:, -labels.shape[1]:], None
+        loss = cross_entropy(logits, labels, mask)
+    if aux is not None:
+        loss = loss + moe_mod.moe_aux_loss(aux, cfg.moe)
+    return loss
 
 
 # --------------------------------------------------------------------------- #
@@ -342,18 +385,21 @@ def stage_apply(frozen, trainable, cfg: ModelConfig, inputs: dict):
     ``torch.no_grad``: they keep no activations and get no gradient.  At
     stage 0 the embedding is trainable and ``x_embed`` carries gradient, so
     nHSIC(X;Z) trains the patch embedding too.  Returns (logits, feats) with
-    ``x_embed``, ``z_active``, ``z_proj`` and ``loss_mask``."""
+    ``x_embed``, ``z_active``, ``z_proj``, ``aux`` (the MoE aux sums of the
+    boundary and active periods; ``None`` without MoE) and
+    ``loss_mask``."""
     if "embed" in frozen:
         with torch.no_grad():
             x, positions, loss_mask = embed_inputs(frozen, cfg, inputs)
     else:
         x, positions, loss_mask = embed_inputs(trainable, cfg, inputs)
     x_embed = x
+    aux = None if cfg.moe is None else new_aux(x.device)
     if num_stacked(frozen.get("prefix")):
         with torch.no_grad():
             x = _run_periods(frozen["prefix"], cfg, x, positions)
-    x = _run_periods(trainable.get("boundary"), cfg, x, positions)
-    x = _run_periods(trainable["active"], cfg, x, positions)
+    x = _run_periods(trainable.get("boundary"), cfg, x, positions, aux=aux)
+    x = _run_periods(trainable["active"], cfg, x, positions, aux=aux)
     z_active = x
     if trainable.get("surrogates") is not None:
         x = apply_surrogates(trainable["surrogates"], cfg, x)
@@ -365,7 +411,7 @@ def stage_apply(frozen, trainable, cfg: ModelConfig, inputs: dict):
     if trainable.get("projector") is not None:
         z_proj = apply_projector(trainable["projector"], z_active)
     feats = {"x_embed": x_embed, "z_active": z_active, "z_proj": z_proj,
-             "loss_mask": loss_mask}
+             "aux": aux, "loss_mask": loss_mask}
     return logits, feats
 
 
@@ -382,8 +428,7 @@ def total_param_count(cfg: ModelConfig) -> int:
 
 
 def active_param_count(cfg: ModelConfig) -> int:
-    """Params touched per token (MoE: top_k + shared experts only; the
-    config refuses MoE until it is ported)."""
+    """Params touched per token (MoE: top_k + shared experts only)."""
     total = nparams(model_defs(cfg))
     if cfg.moe is None:
         return total

@@ -1,22 +1,28 @@
-"""xLSTM cells (port of the mLSTM and sLSTM half of ``repro.models.ssm``):
-mLSTM with matrix memory, in its chunkwise-parallel form, and sLSTM with
-scalar memory and recurrent gating; each with its one-token decode.
+"""Recurrent sequence layers (port of ``repro.models.ssm``): the Mamba-1
+selective SSM (Jamba), and the xLSTM cells, mLSTM with matrix memory, in
+its chunkwise-parallel form, and sLSTM with scalar memory and recurrent
+gating; each with its one-token decode.
 
-The reference's ``lax.scan`` over chunks (mLSTM) and over time (sLSTM)
-become Python loops.  With ``ModelConfig.use_slstm_kernel`` the sLSTM time
+The reference's ``lax.scan`` over chunks (Mamba, mLSTM) and over time
+(sLSTM) become Python loops.  Mamba's selective scan runs in float32 as a
+first-order recurrence, step by step within each 256-step chunk (the
+reference's ``associative_scan`` over (dA, dBx) pairs computes the same
+recurrence in a log-depth order).  With ``ModelConfig.use_slstm_kernel`` the sLSTM time
 scan runs in the hand-written CUDA kernel (``kernels/slstm_scan``);
 otherwise in that kernel's plain per-step loop (``slstm_scan/ref.py``).
 
 ``*_forward(..., with_cache=True)`` also returns the final recurrent state,
 which ``*_decode`` carries one token on (serving):
+  Mamba: ``{"h": (B, d_in, N) float32, "conv": (B, K-1, d_in)}`` (the
+           conv's last K-1 = 3 pre-conv inputs, zero-padded in front for a
+           prompt shorter than that, as mLSTM's below)
   mLSTM: ``{"C": (B, H, Dh, Dh), "n": (B, H, Dh), "m": (B, H),
            "conv": (B, 3, d_in)}`` (the conv's last three inputs,
            zero-padded in front for a prompt shorter than three tokens;
            the reference pads such a prompt's behind, and its decode then
            convolves the wrong taps)
   sLSTM: ``{"c", "n", "m", "h"}``, each (B, H, Dh), the scan's final state
-The decode steps run no kernel, as the reference's do.  Mamba is not
-ported yet.
+The decode steps run no kernel, as the reference's do.
 """
 from __future__ import annotations
 
@@ -54,6 +60,130 @@ def causal_conv_step(x_t, buf, w, b=None):
     if b is not None:
         y = y + b
     return y, window[:, 1:, :]
+
+
+# =========================================================================== #
+# Mamba-1
+# =========================================================================== #
+def mamba_dims(cfg: ModelConfig):
+    s = cfg.ssm
+    d_in = s.expand * cfg.d_model
+    dt_rank = s.dt_rank or -(-cfg.d_model // 16)
+    return d_in, dt_rank, s.d_state, s.d_conv
+
+
+def mamba_defs(cfg: ModelConfig) -> dict:
+    """``dt_bias``, ``A_log`` and ``D`` are float32 in any model dtype."""
+    d = cfg.d_model
+    d_in, dt_rank, N, K = mamba_dims(cfg)
+    dt = cfg.param_dtype
+    f32 = torch.float32
+    return {
+        "in_proj": ParamDef((d, 2 * d_in), dt, (None, MODEL_AXIS)),
+        "conv_w": ParamDef((d_in, K), dt, (MODEL_AXIS,), scale=0.1),
+        "conv_b": ParamDef((d_in,), dt, (MODEL_AXIS,), init="zeros"),
+        "x_proj": ParamDef((d_in, dt_rank + 2 * N), dt, (MODEL_AXIS,)),
+        "dt_proj": ParamDef((dt_rank, d_in), dt, (None, MODEL_AXIS)),
+        "dt_bias": ParamDef((d_in,), f32, (MODEL_AXIS,), init="zeros"),
+        "A_log": ParamDef((d_in, N), f32, (MODEL_AXIS,), init="zeros"),
+        "D": ParamDef((d_in,), f32, (MODEL_AXIS,), init="ones"),
+        "out_proj": ParamDef((d_in, d), dt, (MODEL_AXIS,)),
+    }
+
+
+def _mamba_ssm_inputs(params, cfg, xc):
+    """xc: (B, S, d_in) post-conv activations -> (dt, Bs, Cs), float32."""
+    _, dt_rank, N, _ = mamba_dims(cfg)
+    proj = xc @ params["x_proj"]
+    dt_lo, Bs, Cs = proj.split([dt_rank, N, N], dim=-1)
+    dt = F.softplus((dt_lo @ params["dt_proj"]).float() + params["dt_bias"])
+    return dt, Bs.float(), Cs.float()
+
+
+_MAMBA_CHUNK = 256
+
+
+def _mamba_scan(dt, Bs, Cs, xc, A, h0):
+    """The selective scan h_t = exp(dt_t A) h_{t-1} + dt_t x_t B_t, y_t =
+    C_t . h_t, in float32 over chunks of 256 steps.
+
+    dt, xc: (B, S, d_in); Bs, Cs: (B, S, N); A: (d_in, N); h0: (B, d_in, N).
+    Returns y (B, S, d_in) float32 and the final state.  As in the
+    reference, S is padded with zeros to whole chunks: there dt = 0, so
+    exp(dt A) = 1 and the padded steps leave the state as it is.  Within a
+    chunk the recurrence runs step by step (no running product of
+    exp(dt A) divided out later: at A = -1, the init, that product
+    underflows float32 well inside a chunk).  Memory: autograd keeps a
+    chunk's exp(dt A), its states and their stack, three (B, 256, d_in, N)
+    float32 tensors a chunk (at Jamba's d_in = 16384, N = 16 and B = 2,
+    1.61 GB a chunk)."""
+    Bsz, S, d_in = xc.shape
+    Q = min(_MAMBA_CHUNK, S)
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    if pad:
+        dt, Bs, Cs, xc = (F.pad(a, (0, 0, 0, pad)) for a in (dt, Bs, Cs, xc))
+    h, ys = h0, []
+    for c in range(nc):
+        sl = slice(c * Q, (c + 1) * Q)
+        dt_c = dt[:, sl]
+        dA = torch.exp(dt_c[..., None] * A)                  # (B,Q,d_in,N)
+        dBx = (dt_c * xc[:, sl].float())[..., None] * Bs[:, sl, None, :]
+        hs = []
+        for q in range(Q):
+            h = dA[:, q] * h + dBx[:, q]
+            hs.append(h)
+        ys.append(torch.einsum("bqdn,bqn->bqd", torch.stack(hs, 1),
+                               Cs[:, sl]))
+    y = torch.cat(ys, dim=1)[:, :S]
+    return y, h
+
+
+def mamba_forward(params, cfg: ModelConfig, x, positions, *,
+                  with_cache=False):
+    """x (B, S, d) -> y, and with ``with_cache`` (y, cache)."""
+    d_in, _, N, K = mamba_dims(cfg)
+    B, S, _ = x.shape
+    xz = x @ params["in_proj"]
+    x1, z = xz.chunk(2, dim=-1)
+    xc = F.silu(causal_conv(x1, params["conv_w"], params["conv_b"]))
+    dt, Bs, Cs = _mamba_ssm_inputs(params, cfg, xc)
+    A = -torch.exp(params["A_log"])
+    h0 = torch.zeros((B, d_in, N), dtype=torch.float32, device=x.device)
+    y, h = _mamba_scan(dt, Bs, Cs, xc, A, h0)
+    y = (y + params["D"] * xc.float()).to(x.dtype)
+    out = (y * F.silu(z)) @ params["out_proj"]
+    if not with_cache:
+        return out
+    conv = F.pad(x1[:, -(K - 1):], (0, 0, max(0, K - 1 - S), 0))
+    return out, {"h": h, "conv": conv}
+
+
+def mamba_decode(params, cfg: ModelConfig, x, cache, pos: int):
+    """x: (B, 1, d) -> (y (B, 1, d), the new cache)."""
+    xz = x[:, 0] @ params["in_proj"]
+    x1, z = xz.chunk(2, dim=-1)
+    xc_t, conv = causal_conv_step(x1, cache["conv"], params["conv_w"],
+                                  params["conv_b"])
+    xc = F.silu(xc_t)[:, None]                           # (B, 1, d_in)
+    dt, Bs, Cs = _mamba_ssm_inputs(params, cfg, xc)
+    A = -torch.exp(params["A_log"])
+    dA = torch.exp(dt[:, 0, :, None] * A)                # (B, d_in, N)
+    dBx = (dt[:, 0] * xc[:, 0].float())[..., None] * Bs[:, 0, None]
+    h = dA * cache["h"] + dBx
+    y = torch.einsum("bdn,bn->bd", h, Cs[:, 0])
+    y = (y + params["D"] * xc[:, 0].float()).to(x.dtype)
+    out = (y * F.silu(z))[:, None] @ params["out_proj"]
+    return out, {"h": h, "conv": conv}
+
+
+def mamba_cache_defs(cfg: ModelConfig, batch: int) -> dict:
+    d_in, _, N, K = mamba_dims(cfg)
+    bspec = ("pod", "data")
+    return {"h": ParamDef((batch, d_in, N), torch.float32,
+                          (bspec, MODEL_AXIS), init="zeros"),
+            "conv": ParamDef((batch, K - 1, d_in), cfg.param_dtype,
+                             (bspec, None, MODEL_AXIS), init="zeros")}
 
 
 # =========================================================================== #

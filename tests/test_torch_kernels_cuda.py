@@ -540,7 +540,7 @@ def test_flash_autograd_matches_plain_path(cuda, case):
         assert torch.isfinite(x.grad).all()
 
 
-# the LLM training shapes (chip_smoke.py main path 12): qwen3-1.7b's 16
+# the LLM training shapes (chip_smoke.py main paths 12, 13): qwen3-1.7b's 16
 # over 8 heads of 128 at B 8, S 64 (bf16 and f32) and B 4, S 256;
 # musicgen-large's 32 heads of 64 at B 4, S 256; the padded
 # llava-next-34b's 64 over 8 heads of 128 over 2880 patches and 128 text
@@ -551,6 +551,10 @@ FLASH_TRAIN = [
     (4, 256, 256, 16, 8, 128, True, 0, "float32"),
     (4, 256, 256, 32, 32, 64, True, 0, "float32"),
     (2, 3008, 3008, 64, 8, 128, True, 0, "float32"),
+    # jamba-1.5-large-398b's attention at full width and in its smoke
+    # config's training
+    (2, 512, 512, 64, 8, 128, True, 0, "float32"),
+    (8, 64, 64, 4, 4, 64, True, 0, "float32"),
 ]
 
 

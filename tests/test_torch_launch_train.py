@@ -4,12 +4,13 @@
 
 * ``SHAPES`` equal the reference's; ``pad_heads_for_tp`` and
   ``resolve_config`` equal it field by field for all ten arch ids at
-  every shape (the three archs whose layers are not ported yet through
-  the reference's own configs, which the port's functions take too).
+  every shape.
 * ``token_inputs``, ``label_specs``, ``decode_inputs``, ``cache_specs``,
   ``cache_part_specs`` and ``input_specs`` give the reference's shapes,
-  dtypes and specs for the seven ported archs (meta tensors: nothing is
-  allocated, full widths included).
+  dtypes and specs for all ten archs (meta tensors: nothing is allocated,
+  full widths included).
+* ``align_moe_dispatch`` gives the three MoE archs' configs the mesh's
+  batch shards as dispatch groups, as the reference's does.
 * ``filter_spec`` and ``shard``'s fitted spec (``shard_spec``, both
   policies) equal the reference's on the duck-typed meshes of
   ``tests/test_torch_mesh.py``; the port's ``shard`` is the identity.
@@ -57,8 +58,9 @@ from repro_torch.launch import train as t_train
 
 PORTED = ["musicgen-large", "xlstm-1.3b", "llava-next-34b", "granite-3-8b",
           "h2o-danube-3-4b", "qwen1.5-4b", "qwen3-1.7b"]
-NOT_PORTED = ["deepseek-v2-lite-16b", "deepseek-v2-236b",
-              "jamba-1.5-large-398b"]
+# the archs of MLA, MoE and Mamba (ported after the other seven)
+MOE_ARCHS = ["deepseek-v2-lite-16b", "deepseek-v2-236b",
+             "jamba-1.5-large-398b"]
 AXES = ("data", "model")
 POD = SimpleNamespace(axis_names=("pod", "data", "model"),
                       shape={"pod": 2, "data": 2, "model": 4})
@@ -121,11 +123,10 @@ def test_shapes_equal_reference():
             dataclasses.asdict(r)
 
 
-@pytest.mark.parametrize("arch", PORTED + NOT_PORTED)
+@pytest.mark.parametrize("arch", PORTED + MOE_ARCHS)
 def test_pad_heads_and_resolve_config_match_reference(arch):
     r_cfg = r_configs.get_config(arch)
-    # the three archs of MLA, MoE and Mamba through the reference's config
-    t_cfg = t_configs.get_config(arch) if arch in PORTED else r_cfg
+    t_cfg = t_configs.get_config(arch)
     for tp in (16, 8, 6):
         _same_config(r_shapes.pad_heads_for_tp(r_cfg, tp),
                      t_shapes.pad_heads_for_tp(t_cfg, tp))
@@ -143,7 +144,7 @@ def test_pad_heads_and_resolve_config_match_reference(arch):
         assert (padded.num_heads, padded.num_kv_heads) == (32, 32)
 
 
-@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("arch", PORTED + MOE_ARCHS)
 def test_input_specs_match_reference(arch):
     for smoke in (False, True):
         get = "get_smoke_config" if smoke else "get_config"
@@ -399,12 +400,19 @@ def test_builder_steps_match_reference(kind, spec_shardings):
     assert err <= bar, (err, moved)
 
 
-def test_align_moe_dispatch_refuses_moe():
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_align_moe_dispatch_refuses_moe(arch, monkeypatch):
     """Without MoE the config passes as it is (the builders' test above);
-    MoE is not ported yet."""
-    with pytest.raises(ValueError, match="not yet ported: MoE"):
-        t_steps.align_moe_dispatch(SimpleNamespace(moe=object(),
-                                                   name="m"), _mesh(1, 1))
+    a MoE config no longer raises: it gets the mesh's batch shards as its
+    dispatch groups, as the reference's does (``test_torch_moe.py`` holds
+    it on a ``HostMesh``)."""
+    monkeypatch.delenv("REPRO_MOE_GROUPS", raising=False)
+    for mesh in MESHES:
+        t_cfg = t_steps.align_moe_dispatch(t_configs.get_config(arch), mesh)
+        r_cfg = r_steps.align_moe_dispatch(r_configs.get_config(arch), mesh)
+        _same_config(r_cfg, t_cfg)
+        assert t_cfg.moe.dispatch_groups == (
+            mesh.shape["data"] * mesh.shape.get("pod", 1))
 
 
 # --------------------------------------------------------------------------- #

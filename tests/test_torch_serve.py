@@ -1,11 +1,12 @@
 """The port's arch registry, its accounting and its serving entry points,
 against the JAX reference where it has them, on the CPU.
 
-* ``ARCH_IDS`` is the reference's; the seven ported archs' configs and
-  smoke configs equal the reference's field by field; the other three
-  raise "not yet ported" naming what they need (musicgen-large and
-  llava-next-34b, which raised it until the audio and VLM modalities
-  were ported, now construct).
+* ``ARCH_IDS`` is the reference's; every arch's config and smoke config
+  equal the reference's field by field (the MoE, MLA and SSM sub-configs
+  too); the five archs that raised "not yet ported" until their parts
+  were ported (musicgen-large and llava-next-34b: the audio and VLM
+  modalities; deepseek-v2-lite-16b, deepseek-v2-236b and
+  jamba-1.5-large-398b: MoE, MLA and Mamba) construct.
 * ``total_param_count``, ``active_param_count`` and ``model_flops`` at
   full width equal the reference's (arithmetic on ParamDefs: nothing is
   allocated).
@@ -28,23 +29,24 @@ from repro_torch import bridge
 from repro_torch import configs as t_configs
 from repro_torch.models import model as t_model
 
+# archs that raised "not yet ported" until their parts were ported: the
+# audio and VLM modalities, then MoE, MLA and Mamba
+NOW_PORTED = ["musicgen-large", "llava-next-34b", "deepseek-v2-lite-16b",
+              "deepseek-v2-236b", "jamba-1.5-large-398b"]
 PORTED = ["xlstm-1.3b", "granite-3-8b", "h2o-danube-3-4b", "qwen1.5-4b",
-          "qwen3-1.7b", "musicgen-large", "llava-next-34b"]
-UNPORTED = {"deepseek-v2-lite-16b": "MLA", "deepseek-v2-236b": "MoE",
-            "jamba-1.5-large-398b": "mamba"}
-# archs that raised "not yet ported" until their modality was ported
-NOW_PORTED = ["musicgen-large", "llava-next-34b"]
+          "qwen3-1.7b"] + NOW_PORTED
 
 
 def test_arch_ids_are_the_reference_s():
     assert t_configs.ARCH_IDS == r_configs.ARCH_IDS
-    assert sorted(PORTED + list(UNPORTED)) == sorted(r_configs.ARCH_IDS)
+    assert sorted(PORTED) == sorted(r_configs.ARCH_IDS)
 
 
 def _fields(cfg, names):
     out = {n: getattr(cfg, n) for n in names}
-    if out.get("xlstm") is not None:
-        out["xlstm"] = dataclasses.asdict(out["xlstm"])
+    for k in ("xlstm", "moe", "mla", "ssm"):
+        if out.get(k) is not None:
+            out[k] = dataclasses.asdict(out[k])
     return out
 
 
@@ -61,15 +63,12 @@ def test_config_equals_reference_field_by_field(arch, smoke):
     assert _fields(t_cfg, names) == _fields(r_cfg, names)
 
 
-@pytest.mark.parametrize("arch", list(UNPORTED) + NOW_PORTED)
+@pytest.mark.parametrize("arch", NOW_PORTED)
 def test_unported_archs_raise(arch):
+    """No arch raises any more: each of those that did constructs, full
+    and smoke."""
     for get in (t_configs.get_config, t_configs.get_smoke_config):
-        if arch in NOW_PORTED:        # the audio and VLM modalities
-            assert get(arch).name.startswith(arch)
-            continue
-        with pytest.raises(ValueError,
-                           match=f"{arch}: not yet ported.*{UNPORTED[arch]}"):
-            get(arch)
+        assert get(arch).name.startswith(arch)
 
 
 @pytest.mark.parametrize("arch", PORTED)

@@ -213,29 +213,36 @@ def test_kernel_inputs_are_checked():
 
 
 def test_unported_model_config_fields_raise():
+    """Every layer kind, FFN kind and attention of the reference constructs
+    with its sub-config (MLA, MoE and Mamba since they were ported); a
+    pattern or ``attn_impl`` whose sub-config is missing raises, naming
+    it."""
     from repro_torch.configs.paper_models import vit
     from repro_torch.configs.xlstm_1_3b import config as xlstm_1_3b
-    from repro_torch.models.config import (ModelConfig, XLSTMConfig,
-                                           xlstm_pattern)
+    from repro_torch.models.config import (MLAConfig, ModelConfig,
+                                           MoEConfig, SSMConfig, XLSTMConfig,
+                                           jamba_pattern, xlstm_pattern)
     base = dict(name="t", family="dense", num_layers=2, d_model=16,
                 num_heads=2, num_kv_heads=2, d_ff=32, vocab_size=8)
     ModelConfig(**base)
     vit()
     xlstm_1_3b()
-    # mlstm/slstm construct with an XLSTMConfig; mamba still raises
     ModelConfig(**{**base, "num_layers": 8}, pattern=xlstm_pattern(),
                 xlstm=XLSTMConfig())
-    with pytest.raises(ValueError, match="not yet ported.*mamba"):
-        ModelConfig(**base, pattern=(("mamba", "none"), ("slstm", "none")),
-                    xlstm=XLSTMConfig())
-    for kw, what in [({"attn_impl": "mla"}, "MLA"),
-                     ({"mla": object()}, "MLA"),
-                     ({"moe": object()}, "MoE"),
-                     ({"pattern": (("attn", "moe"),)}, "MoE"),
+    # mamba, MLA and MoE construct with their sub-configs
+    ModelConfig(**base, pattern=(("mamba", "none"), ("slstm", "none")),
+                xlstm=XLSTMConfig(), ssm=SSMConfig())
+    ModelConfig(**{**base, "num_layers": 8}, pattern=jamba_pattern(),
+                ssm=SSMConfig(), moe=MoEConfig())
+    ModelConfig(**base, attn_impl="mla", mla=MLAConfig())
+    ModelConfig(**base, pattern=(("attn", "moe"),), moe=MoEConfig())
+    for kw, what in [({"attn_impl": "mla"}, "MLAConfig"),
+                     ({"attn_impl": "flash"}, "attn_impl"),
+                     ({"pattern": (("attn", "moe"),)}, "MoEConfig"),
                      ({"pattern": (("mamba", "mlp"),)}, "mamba"),
                      ({"pattern": (("mlstm", "none"),)}, "mlstm"),
                      ({"pattern": (("slstm", "none"),)}, "slstm")]:
-        with pytest.raises(ValueError, match=f"not yet ported.*{what}"):
+        with pytest.raises(ValueError, match=f"t: .*{what}"):
             ModelConfig(**base, **kw)
     # the audio and VLM modalities are ported: both construct, as do the
     # archs that use them; an unknown modality raises
