@@ -189,8 +189,8 @@
    first two legs (``examples/async_fedbuff.py``, at its own size; its
    third leg runs in main path 10), its simulated sync and async times
    and speedup printed; ``fl_round_throughput``'s async mode
-   at the reference's sizes and its population mode at 10^2, 10^4 and
-   10^6 clients (rows added to ``chiprun_out/bench_fl_round.json``).
+   at the reference's sizes and its population mode at 10^2 and 10^4
+   clients (rows added to ``chiprun_out/bench_fl_round.json``).
    Every nHSIC and K4 shape held; each part's seconds printed.
 
 18. Main path 10, after main path 9: rounds on a mesh of ranks
@@ -208,7 +208,7 @@
    change), K1-K3 twice a vectorized step on each rank.  10c
    ``resnet18-async-sharded-2x1``: main path 9's async server in that
    world, 8 rounds: the host numbers of main path 9's run to the last
-   one, the round after 0, 2, 4 and 6 rounds replayed here by the
+   one, the round after 0 and 4 rounds replayed here by the
    one-process async runtime from the world's state at that bar, the
    round-4 checkpoint restored here to the world's bits.  10d
    ``resnet18-sharded-2x2``: a world of 4 (data 2 x model 2), 4 rounds,
@@ -263,8 +263,9 @@
    (loss, new params and m), the optimizer state the shapes and dtypes of
    ``abstract[0]``; ``build_prefill`` against the plain prefill and one
    ``build_serve`` step against the plain forward.  12d:
-   ``progressive_llm_pretrain.main()`` at its own size, ms/step, CE and
-   the speedup printed beside the paper's 1.84-2.31x (not gated).  12e
+   ``progressive_llm_pretrain.main()`` at its own size for EXAMPLE_STEPS
+   steps (120, its default, before main path 14), ms/step, CE and the
+   speedup printed beside the paper's 1.84-2.31x (not gated).  12e
    ``musicgen-train-full``: musicgen-large at full width (since PR 28 its
    depth cut 48 -> 24 layers for the run's time; d_model 2048, 32 heads
    of 64, GELU, 4 codebook heads of 2048) in f32
@@ -302,12 +303,13 @@
    ``layer_check``) and the MoE FFN alone (64 experts top-6 + 2 shared of
    1408 on 2048 tokens, C = 240) against ``moe_loop``, a per-expert loop
    with its own ranks and drop mask: output, aux losses, every gradient,
-   and the same bits over 3 runs.  13b ``deepseek-lite-train-full-depth4``:
-   ``train.main`` at full width, depth cut 27 -> 4, bf16, 4 rounds (one a
-   stage) over 256 clients, B 8, seq 64: every loss finite, K1-K3 twice a
-   local step, K4 never (MLA attends with ``sdpa``, as the reference's);
-   per stage an f32 step through the kernels against the plain path and
-   the loss's aux term (``moe_aux_check``).  13c ``deepseek-236b-full-
+   and the same bits over 3 runs.  13b ``deepseek-lite-train-full-depth2``:
+   ``train.main`` at full width, depth cut 27 -> 2 in 2 stages (4 in 4
+   before main path 14), bf16, 2 rounds (one a stage) over 256 clients, B
+   8, seq 64: every loss finite, K1-K3 twice a local step, K4 never (MLA
+   attends with ``sdpa``, as the reference's); per stage an f32 step
+   through the kernels against the plain path and the loss's aux term
+   (``moe_aux_check``).  13c ``deepseek-236b-full-
    depth2``: deepseek-v2-236b at full width (q-LoRA 1536, 160 experts),
    depth 60 -> 2, bf16: a prefill of 2 x 256 and 8 greedy decode steps,
    timed beside their bounds, and at capacity factor 8.0 against the
@@ -324,6 +326,23 @@
    and each mixer alone, ``serve.main``, ``train.main`` 2 rounds (K4 once
    an attention layer run, K1-K3 twice a local step).  Every K4 and nHSIC
    shape held by the kernel phase (``FLASH_MOE``, ``train_nhsic_shapes``).
+
+22. Main path 14, after main path 13: the auditors
+   (``repro_torch.analysis``).  14a: ``run_kernel_audits(fuzz=50,
+   seed=0)``: the registers, shared memory, spills and block limits of
+   every instance of the nine ``__global__`` kernels (no launch), and 50
+   draws a family of the reference's fuzz stream, K4, K5 (forward and
+   backward) and K1-K3 (forward and backward) against their plain
+   versions, TF32 off, 1e-3 in f32 and 2e-2 in bf16: no mismatch, no
+   error, each of K1-K5 and K5's backward launched.  14b: ``run_audits``
+   of the sequential, vectorized and async runtimes on the audit
+   transformer and ResNet18, the host-sync probe and the sync debug mode
+   on: no read and no implicit sync in ``run_round``, one ``to_host`` a
+   server round and an evaluation, no f64 op, no held state, every
+   stage's allocator peak below its full step's.  14c: the contract rules
+   on the port's tree.  Main path 10's 10b and 10d children audit their
+   first round's collectives, host reads and held bytes
+   (``audit_next_round``).
 
 Each main path is driven with the launch counts set to 0 just before it
 and read just after.  Prints the card's name and power limit, a JSON line
@@ -553,7 +572,8 @@ ASYNC_ROUNDS, ASYNC_VIT_ROUNDS, ASYNC_EVERY = 8, 6, 2
 # main path 9's checkpoints: every ASYNC_EVERY rounds, all of them kept
 ASYNC_CKPT = dict(checkpoint_every=ASYNC_EVERY,
                   keep_checkpoints=ASYNC_ROUNDS // ASYNC_EVERY)
-ASYNC_POPULATIONS, ASYNC_POP_ROUNDS = (1e2, 1e4, 1e6), 2
+# 10^6 clients too before main path 14 (2.67 rounds/s, as 10^4's 2.89)
+ASYNC_POPULATIONS, ASYNC_POP_ROUNDS = (1e2, 1e4), 2
 
 # main path sizes (a CPU rehearsal shrinks them)
 RESNET = dict(arch="resnet18", num_classes=10, image_size=32, width_mult=1.0)
@@ -4504,7 +4524,7 @@ MESH_CHILD_TIMEOUT = 900
 MESH_HELD_BAR = 0.65          # the reference's bar (tests/test_runtime.py)
 # 10c: a one-process async round replayed from the world's state after
 # these many rounds (a fresh server, then its checkpoints)
-ASYNC_REPLAYS = (0, 2, 4, 6)
+ASYNC_REPLAYS = (0, 4)      # (0, 2, 4, 6) before main path 14
 
 
 def _digest(tree):
@@ -4712,6 +4732,7 @@ def mesh_child(directory, rank, world, kind):
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch.distributed as dist
 
+    from repro_torch.analysis.harness import audit_next_round
     from repro_torch.kernels.build import library_path
     from repro_torch.kernels.flash_attention import kernel as fkernel
     from repro_torch.kernels.hsic_gram import kernel
@@ -4733,6 +4754,9 @@ def mesh_child(directory, rank, world, kind):
     if kind == "2x1":
         server = cnn_server(np, quiet=True, runtime="sharded")
         out["mesh"] = dict(server.runtime.mesh.shape)
+        # the round's collectives (the recorders around run_stacked read
+        # the card, so no transfer probe here: main path 14 has it)
+        out["audit"] = audit_next_round(server.runtime, probe=False)
         out["rounds"], saved["rounds"] = _child_rounds(
             torch, kernels, server, MESH_ROUNDS)
         stack = three_cohort_stack(server)
@@ -4774,6 +4798,9 @@ def mesh_child(directory, rank, world, kind):
         server = cnn_server(np, quiet=True, runtime="sharded",
                             model_parallel=2)
         out["mesh"] = dict(server.runtime.mesh.shape)
+        # the round's collectives (the recorders around run_stacked read
+        # the card, so no transfer probe here: main path 14 has it)
+        out["audit"] = audit_next_round(server.runtime, probe=False)
         out["rounds"], saved["rounds"] = _child_rounds(
             torch, kernels, server, MESH_ROUNDS)
         del server
@@ -4891,6 +4918,29 @@ def _async_replay(torch, np, directory, k, world_after):
     return dict(after=k, rel=rel, bar=bar, one_process_eps_rel=sens)
 
 
+def check_mesh_audit(name, results):
+    """Each rank's audit of its world's first round (``mesh_child``,
+    ``analysis.harness.audit_next_round``): no un-waived error; across
+    "data" only the Eq. 1 all-reduces (between 1 and one a trainable leaf
+    plus 2) and one counted consensus gather; at a model axis of 2 at most
+    0.55 of the trainable bytes held."""
+    audits = [r["audit"] for r in results]
+    for rank, a in enumerate(audits):
+        check(a.get("ok"), f"{name} rank {rank}: the audited round: "
+              f"{a.get('findings')}")
+    arts = audits[0]["artifacts"]
+    summary = dict(stage=arts["stage"], mesh=arts["mesh"],
+                   trainable_ratio=arts["trainable_ratio"],
+                   **{k: arts["collectives"][k] for k in (
+                       "by_kind", "data_axis_all_reduces",
+                       "consensus_gathers", "bytes")})
+    check(summary["consensus_gathers"] == 1
+          and summary["data_axis_all_reduces"] >= 1,
+          f"{name}: the audited round: {summary}")
+    print(f"  {name} audited round (rank 0): {summary}", flush=True)
+    return summary
+
+
 def mesh_2x1_path(torch, kernels, np, stacks, rt, asy, directory):
     """10b, ``resnet18-sharded-2x1``, and 10c,
     ``resnet18-async-sharded-2x1``, in one world of 2 (``mesh_child``).
@@ -4907,7 +4957,8 @@ def mesh_2x1_path(torch, kernels, np, stacks, rt, asy, directory):
     saved = torch.load(os.path.join(directory, "2x1_params.pt"))
     check(results[0]["mesh"] == {"data": 2, "model": 1},
           f"10b: mesh {results[0]['mesh']}")
-    out = {"seconds": seconds, "mesh": results[0]["mesh"],
+    audit = check_mesh_audit("10b", results)
+    out = {"seconds": seconds, "mesh": results[0]["mesh"], "audit": audit,
            "child_seconds": {k: results[0][k] for k in ("seconds_10b",
                                                         "seconds_10c")},
            "rounds": _world_rounds_check(torch, "10b", results,
@@ -4991,6 +5042,7 @@ def mesh_2x2_path(torch, kernels, np, stacks, rt, held_1x1, directory):
     saved = torch.load(os.path.join(directory, "2x2_params.pt"))
     check(results[0]["mesh"] == {"data": 2, "model": 2},
           f"10d: mesh {results[0]['mesh']}")
+    audit = check_mesh_audit("10d", results)
     rows = _world_rounds_check(torch, "10d", results, saved["rounds"],
                                stacks, rt)
     for row, whole in zip(rows, held_1x1):
@@ -5019,7 +5071,7 @@ def mesh_2x2_path(torch, kernels, np, stacks, rt, held_1x1, directory):
           f"{ex['acc']:.4f}, simulated {ex['sim_time']:.1f} s, server "
           f"version {ex['server_version']}", flush=True)
     out = {"seconds": seconds, "rounds": rows, "throughput": tput,
-           "example": ex,
+           "example": ex, "audit": audit,
            "child_seconds": {k: results[0][k] for k in (
                "seconds_10d", "seconds_throughput", "seconds_example")}}
     return out, _child_counts(results, lambda r: _sum_launches(r["rounds"]))
@@ -5575,6 +5627,8 @@ BUILDER_BATCH = (4, 256)          # 12c: (B, S) of the builders' steps
 BUILDER_PROMPT = (2, 256)         # 12c: the prefill's (B, P), as 11a's
 MUSICGEN_TRAIN = (4, 256, 4)      # 12e: B, S, decode steps after S
 MUSICGEN_DEPTH = 24               # 12e: depth cut 48 -> 24, for the time
+EXAMPLE_STEPS = 60                # 12d: the example's steps (its
+                                  # default 120 before main path 14)
 # 12f: llava-next-34b's depth cut 60 -> 2 layers (4 until the run's time
 # needed it), B 2, 128 text tokens after its 2880 patches
 LLAVA_DEPTH, LLAVA_BATCH, LLAVA_TEXT = 2, 2, 128
@@ -5976,16 +6030,17 @@ def builders_leg(torch, np, kernels, counts):
 
 
 def example_leg(torch, kernels, counts):
-    """12d: ``examples/progressive_llm_pretrain.main()`` at its own size:
-    K4 once a layer run and K1-K3 twice a NeuLite step, K4 once a layer
-    an E2E step; its ms/step, CE and speedup printed beside the paper's
-    1.84-2.31x (not gated)."""
+    """12d: ``examples/progressive_llm_pretrain.main()`` at its own size,
+    EXAMPLE_STEPS steps: K4 once a layer run and K1-K3 twice a NeuLite
+    step, K4 once a layer an E2E step; its ms/step, CE and speedup printed
+    beside the paper's 1.84-2.31x (not gated)."""
     from repro_torch.core.memory import estimate_full_memory
     from repro_torch.core.progressive import make_adapter
     from repro_torch.examples import progressive_llm_pretrain as ex
     torch.cuda.reset_peak_memory_stats()
-    out, got = counted(kernels, counts, ex.main, [])
-    cfg, args = out["config"], ex.parser().parse_args([])
+    argv = ["--steps", str(EXAMPLE_STEPS)]
+    out, got = counted(kernels, counts, ex.main, argv)
+    cfg, args = out["config"], ex.parser().parse_args(argv)
     adapter = make_adapter(cfg, args.stages)
     plan = adapter.plan
     mem = leg_memory(torch, "12d", estimate_full_memory(
@@ -6259,11 +6314,14 @@ MOE_SERVE_ARGV = ["--arch", DSL, "--full", "--batch", "4", "--prompt-len",
 MOE_GREEDY_STEPS = 8              # 13a: the greedy runs' decode steps
 MLA_CHECK = (2, 512, 16)          # the MLA mixer alone: B, prefill, decodes
 MOE_TOKENS = (4, 512)             # the MoE FFN alone: (B, S), 2048 tokens
-# 13b: train.main on deepseek-v2-lite-16b at full width, depth 27 -> 4
-MOE_TRAIN_DEPTH = 4
-MOE_TRAIN_ARGV = ["--arch", DSL, "--full", "--rounds", "4", "--clients",
-                  "256", "--cohort", "2", "--batch", "8", "--seq", "64",
-                  "--lr", str(TRAIN_LR), "--seed", str(SEED)]
+# 13b: train.main on deepseek-v2-lite-16b at full width, depth 27 -> 2 in
+# 2 stages, one round a stage (4 layers in 4 stages before main path 14
+# took its seconds)
+MOE_TRAIN_DEPTH = 2
+MOE_TRAIN_ARGV = ["--arch", DSL, "--full", "--rounds", "2", "--clients",
+                  "256", "--cohort", "2", "--stages", str(MOE_TRAIN_DEPTH),
+                  "--batch", "8", "--seq", "64", "--lr", str(TRAIN_LR),
+                  "--seed", str(SEED)]
 DS236_DEPTH, DS236_SERVE = 2, (2, 256, 8)   # 13c: depth 60 -> 2; B, P, steps
 JAMBA_LAYER = (2, 512, 500, 12)   # 13d: B, S, Mamba prefill, decode steps
 JAMBA_SERVE = (2, 24, 12)         # 13e: B, prompt, generated tokens
@@ -6601,12 +6659,12 @@ def moe_aux_check(torch, name, adapter, params, batch, hp):
 
 
 def moe_train_leg(torch, np, kernels, counts):
-    """13b deepseek-lite-train-full-depth4: ``train.main`` at
-    MOE_TRAIN_ARGV with deepseek-v2-lite-16b's depth cut 27 -> 4 (bf16):
-    every round's loss finite, K1-K3 twice a local step and K4 never (MLA
-    attends with sdpa); then per stage one f32 step through the kernels
-    against the plain path (``stage_step_check``) and the aux term
-    (``moe_aux_check``)."""
+    """13b deepseek-lite-train-full-depth2: ``train.main`` at
+    MOE_TRAIN_ARGV with deepseek-v2-lite-16b's depth cut 27 -> 2 in 2
+    stages (bf16): every round's loss finite, K1-K3 twice a local step
+    and K4 never (MLA attends with sdpa); then per stage one f32 step
+    through the kernels against the plain path (``stage_step_check``) and
+    the aux term (``moe_aux_check``)."""
     import shutil
     import tempfile
     from repro_torch.common.tree import tree_map
@@ -6617,7 +6675,7 @@ def moe_train_leg(torch, np, kernels, counts):
     from repro_torch.data.synthetic import make_lm_dataset
     from repro_torch.launch import train
     cfg = dataclasses.replace(get_config(DSL), num_layers=MOE_TRAIN_DEPTH)
-    adapter = make_transformer_adapter(cfg, 4)
+    adapter = make_transformer_adapter(cfg, MOE_TRAIN_DEPTH)
     out_dir = tempfile.mkdtemp(prefix="train_moe_")
     torch.cuda.reset_peak_memory_stats()
     try:
@@ -6630,7 +6688,7 @@ def moe_train_leg(torch, np, kernels, counts):
     mem = leg_memory(torch, "13b", max(
         estimate_stage_memory(adapter, t, 8, seq=64).total
         for t in range(adapter.plan.num_stages)))
-    check([r["stage"] for r in rows] == [0, 1, 2, 3], f"13b: {rows}")
+    check([r["stage"] for r in rows] == [0, 1], f"13b: {rows}")
     for r in rows:
         n = r["local_steps"]
         check(n > 0 and math.isfinite(r["loss"]), f"13b: {r}")
@@ -6646,7 +6704,8 @@ def moe_train_leg(torch, np, kernels, counts):
     gc.collect()
     torch.cuda.empty_cache()
     kern = make_transformer_adapter(dataclasses.replace(cfg,
-                                                        dtype="float32"), 4)
+                                                        dtype="float32"),
+                                    MOE_TRAIN_DEPTH)
     ds = make_lm_dataset(SEED + 1, 8, 64, cfg.vocab_size)
     batch = train.lm_batches(ds, np.arange(8), 8, SEED, "cuda")
     hp = CurriculumHP(lambda1_max=2.0, lambda2_max=1.0, mu=0.01)
@@ -6972,6 +7031,106 @@ def moe_path(torch, np, kernels):
     return out, counts
 
 
+# --------------------------------------------------------------------------- #
+# main path 14: the auditors (repro_torch.analysis)
+# --------------------------------------------------------------------------- #
+AUDIT_FUZZ = 50                    # 14a: draws a kernel family, at seed 0
+AUDIT_RUNS = [(b, a) for b in ("seq", "vec", "async") for a in ("tx", "cnn")]
+# K1-K5 and K5's backward: what the fuzzer must launch
+AUDIT_LAUNCHED = STREAMING + ("flash_attention_fwd", "slstm_scan_fwd",
+                              "slstm_scan_bwd")
+
+
+def audit_kernels_leg(torch, kernels):
+    """14a: ``run_kernel_audits(fuzz=AUDIT_FUZZ, seed=0)``: a resource row
+    for every instance of the nine ``__global__`` kernels, no mismatch and
+    no error in the fuzz, K1-K5 and K5's backward each launched."""
+    from repro_torch.analysis import kernel_audit
+    from repro_torch.kernels.audit import global_kernels
+    reset_all(kernels)
+    report = kernel_audit.run_kernel_audits(fuzz=AUDIT_FUZZ, seed=0)
+    counts = read_all(kernels)
+    print(kernel_audit.render_tables(report), flush=True)
+    rows = report.artifacts["kernel_resources"]
+    fuzz = report.artifacts["kernel_fuzz"]
+    want = {g for k in kernels for g in global_kernels(k.SOURCE)}
+    check({r["kernel"].split("<")[0] for r in rows} == want and len(want)
+          == 9, f"14a: resource rows for {[r['kernel'] for r in rows]}, "
+          f"the sources' kernels {sorted(want)}")
+    check(report.ok() and all(f["failures"] == 0 and f["errors"] == 0
+                              and f["cases"] == AUDIT_FUZZ
+                              for f in fuzz.values()),
+          f"14a: {report.render()}")
+    check(all(counts[n] > 0 for n in AUDIT_LAUNCHED),
+          f"14a: launches {counts}")
+    print(f"  14a launches {counts}; findings "
+          f"{[(f.check, f.program) for f in report.findings]}", flush=True)
+    return {"resources": rows, "fuzz": fuzz, "launches": counts,
+            "findings": report.to_dict()["findings"]}, counts
+
+
+def audit_rounds_leg(torch):
+    """14b: ``run_audits`` of the sequential, vectorized and async
+    runtimes on the audit transformer and ResNet18, the host-sync probe
+    and the sync debug mode on: no un-waived error (no read or implicit
+    sync in ``run_round``, one ``to_host`` a server round and an
+    evaluation, no f64 op, no held state, every stage below its full
+    step)."""
+    from repro_torch.analysis.harness import run_audits
+    out = {}
+    for backend, arch in AUDIT_RUNS:
+        t0 = time.perf_counter()
+        # the stage-peak measurement is one client's eager training, the
+        # same for every backend: taken once an arch
+        measure = backend == AUDIT_RUNS[0][0]
+        report = run_audits(backend, arch=arch, memory=measure)
+        gc.collect()
+        torch.cuda.empty_cache()
+        d = report.to_dict()
+        stages = d["artifacts"].get("memory", {}).get("stages", {})
+        host = d["artifacts"]["hostsync"]
+        out[f"{backend}/{arch}"] = dict(
+            ok=d["ok"], seconds=time.perf_counter() - t0, hostsync=host,
+            stage_to_full=[round(r["ratio_to_full"], 4)
+                           for r in stages.values()],
+            findings=[(f["check"], f["severity"], f["location"])
+                      for f in d["findings"]])
+        row = out[f"{backend}/{arch}"]
+        print(f"  14b {backend}/{arch}: ok {row['ok']}, stage / full peak "
+              f"{row['stage_to_full']}, server reads "
+              f"{host['NeuLiteServer.run_round']['to_host']} + "
+              f"{host['NeuLiteServer.evaluate']['to_host']}, "
+              f"{row['seconds']:.1f} s; findings {row['findings']}",
+              flush=True)
+        check(report.ok() and len(stages) == 4 * measure
+              and host["NeuLiteServer.run_round"]["to_host"] == 1
+              and host["NeuLiteServer.evaluate"]["to_host"] == 1,
+              f"14b {backend}/{arch}: {report.render(verbose=True)}")
+    return out
+
+
+def audit_path(torch, kernels):
+    """Main path 14: 14a the kernel audit, 14b the round audits, 14c the
+    contract rules on the port's tree; each part's seconds."""
+    from repro_torch.analysis import contracts
+    took, out = {}, {}
+    t0 = time.perf_counter()
+    out["14a"], counts = audit_kernels_leg(torch, kernels)
+    took["14a"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    out["14b"] = audit_rounds_leg(torch)
+    took["14b"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    found = contracts.run(ROOT)
+    check(not found, "14c: " + "; ".join(f.render() for f in found))
+    took["14c"] = time.perf_counter() - t1
+    took["total"] = time.perf_counter() - t0
+    out["seconds"] = took
+    print(f"  main path 14 parts (s): "
+          f"{ {k: round(v, 1) for k, v in took.items()} }", flush=True)
+    return out, counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7149,6 +7308,11 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase("main path 14: the auditors")
+    audits, auditcounts = audit_path(torch, kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     phase("main path 7: Tables 1 and 2 at full width")
     tables, tabcounts = tables_path(torch, kernels, np)
     phase("Fig. 7: stage step against full step")
@@ -7177,6 +7341,7 @@ def main():
                "fig2": f2counts, "fig5": f5counts, "fig8": f8counts,
                "quickstart": qcounts, "serving": servcounts,
                "training": traincounts, "moe": moecounts,
+               "audit": auditcounts,
                **{p: {n: c.get(n, 0) for n in xcounts}
                   for p, c in mcounts.items()}}
     launches = {n: sum(c[n] for c in by_path.values()) for n in xcounts}
@@ -7274,11 +7439,13 @@ def main():
                    "fig2": fig2_out, "fig5": fig5_out, "fig8": fig8_out,
                    "quickstart": quick_out, "async": asy, "mesh": mesh,
                    "serving": serving, "training": training, "moe": moe,
+                   "audit": audits,
                    "kernels": out_kernels, "device": device}, f, indent=1)
     phase("done")
     print(f"main path 11 took {serving['seconds']['total']:.1f} s, main "
           f"path 12 {training['seconds']['total']:.1f} s, main path 13 "
-          f"{moe['seconds']['total']:.1f} s; the whole run "
+          f"{moe['seconds']['total']:.1f} s, main path 14 "
+          f"{audits['seconds']['total']:.1f} s; the whole run "
           f"{time.perf_counter() - START:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": out_kernels}), flush=True)

@@ -19,7 +19,13 @@ captured step's private memory pool and static buffers belong to the
 simulation, not to the client.
 
 A measurement needs a CUDA device.  On any other it raises: it never
-returns the analytic estimate (``core.memory``) in place of a measurement.
+returns the analytic estimate (``core.memory``) in place of a measurement;
+``audit_stage_peaks`` then reports that nothing was measured.
+
+The reference's second claim, ~0.5x the trainable bytes a device at
+``model_parallel=2``, is read here from what a ``ShardedRuntime`` rank held
+in its last round (``held_trainable_bytes``) against the replicated
+footprint (``trainable_ratio``), gated at <= 0.55 (``audit_trainable``).
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.common.device import DeviceLike, resolve_device
-from repro_torch.common.tree import tree_map
+from repro_torch.common.tree import tree_leaves, tree_map
 from repro_torch.core.curriculum import CurriculumHP
 from repro_torch.core.progressive import make_full_step, make_stage_step
 from repro_torch.federated.client import (run_local_training,
@@ -98,11 +104,85 @@ def measure_local_training(adapter, params, batches: Sequence[dict],
     return PeakMemory(resident, peak, out.num_batches, float(out.mean_loss))
 
 
-def audit_memory(stage_peaks: Mapping[int, int], full_peak: int
+RATIO_LIMIT_DEFAULT = 0.55
+
+
+def replicated_nbytes(tree) -> int:
+    """Bytes of a tree of tensors held whole (unsharded)."""
+    return sum(leaf.numel() * leaf.element_size()
+               for leaf in tree_leaves(tree))
+
+
+def trainable_ratio(runtime, trainable) -> Optional[float]:
+    """Bytes of the stage's trainable tree a rank of ``runtime`` held in
+    its last round (``held_trainable_bytes``) over the replicated
+    footprint of ``trainable``; None where the runtime holds no such
+    count (not on a mesh, or before its first round)."""
+    held = getattr(runtime, "held_trainable_bytes", None)
+    full = replicated_nbytes(trainable)
+    if held is None or full == 0:
+        return None
+    return held / full
+
+
+def model_parallel_of(spec) -> int:
+    """The size of a spec's model axis (1 off a mesh)."""
+    if spec.mesh is None or spec.model_axis is None:
+        return 1
+    return dict(spec.mesh.shape).get(spec.model_axis, 1)
+
+
+def audit_trainable(report, ratio: Optional[float], model_parallel: int, *,
+                    program: str,
+                    ratio_limit: float = RATIO_LIMIT_DEFAULT) -> None:
+    """At ``model_parallel >= 2`` a rank holds at most ``ratio_limit`` of
+    the replicated trainable bytes."""
+    if model_parallel >= 2 and ratio is not None and ratio > ratio_limit:
+        report.add(
+            "memory.trainable-ratio",
+            f"trainable bytes a rank holds are {ratio:.3f}x the replicated "
+            f"footprint at model_parallel={model_parallel} (limit "
+            f"{ratio_limit}): model-axis sharding regressed; check "
+            f"fit_spec placements (launch.sharding).", program=program)
+
+
+def audit_stage_peaks(report, adapter, params, batches: Sequence[dict],
+                      optimizer, *, hp: Optional[CurriculumHP] = None,
+                      device: DeviceLike = None,
+                      program: str = "local-training") -> dict:
+    """Every stage's measured peak against the full-model step's on the
+    same host ``batches`` (``measure_local_training``), through
+    ``audit_memory``; returns its table with each stage's ratio to the
+    full step.  On a device with no allocator peak (the CPU) it measures
+    nothing and says so as an ``info`` finding."""
+    device = resolve_device(device)
+    if device.type != "cuda":
+        report.add("memory.unavailable",
+                   f"{device} has no allocator peak: the stage-vs-full "
+                   f"peak gate needs the card; nothing was measured.",
+                   severity="info", program=program)
+        return {}
+    host = tree_map(lambda p: p.detach().cpu(), params)
+    full = measure_local_training(adapter, host, batches, optimizer,
+                                  device=device)
+    peaks = {t: measure_local_training(adapter, host, batches, optimizer,
+                                       stage=t, hp=hp,
+                                       device=device).peak_bytes
+             for t in range(adapter.plan.num_stages)}
+    table, _ = audit_memory(peaks, full.peak_bytes, report=report,
+                            program=program)
+    for t, row in table["stages"].items():
+        row["ratio_to_full"] = row["peak_bytes"] / full.peak_bytes
+    return table
+
+
+def audit_memory(stage_peaks: Mapping[int, int], full_peak: int, *,
+                 report=None, program: str = "local-training"
                  ) -> Tuple[dict, Dict[int, str]]:
     """The reference's gate on measured peaks: every stage's peak bytes
     must be below the full-model step's.  Returns the table and, for each
-    stage that fails, the reference's message."""
+    stage that fails, the reference's message (with ``report``, also a
+    ``memory.stage-peak`` finding)."""
     table = {"reference": {"program": "full-model-step",
                            "peak_bytes": full_peak},
              "stages": {}}
@@ -119,4 +199,7 @@ def audit_memory(stage_peaks: Mapping[int, int], full_peak: int
                 f"no longer saves memory; check that frozen params stay out "
                 f"of grads/optimizer state (split_stage) and that the stage "
                 f"program is not materializing the full tree.")
+            if report is not None:
+                report.add("memory.stage-peak", failures[t],
+                           program=f"{program}/stage{t}")
     return table, failures

@@ -91,7 +91,8 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import hsic
-    from repro_torch.kernels.build import BUILD_DIR, NVCC_FLAGS, nvcc
+    from repro_torch.kernels.build import (BUILD_DIR, NVCC_FLAGS, nvcc,
+                                           open_library)
     from repro_torch.kernels.hsic_gram import kernel
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -122,7 +123,7 @@ def main(argv=None) -> int:
                                f"{name}:\n{log}")
 
     def bind(name):
-        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
+        lib = open_library(out_dir / f"{name}.so")
         for fn, argtypes in kernel._ARGTYPES.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int

@@ -50,7 +50,8 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import hsic
-    from repro_torch.kernels.build import BUILD_DIR, NVCC_FLAGS, nvcc
+    from repro_torch.kernels.build import (BUILD_DIR, NVCC_FLAGS, nvcc,
+                                           open_library)
     from repro_torch.kernels.hsic_gram import kernel, ref
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -105,7 +106,7 @@ def main(argv=None) -> int:
     want = {}
     lines = []
     for name in copies:
-        lib = ctypes.CDLL(str(out_dir / f"{name.replace('=', '')}.so"))
+        lib = open_library(out_dir / f"{name.replace('=', '')}.so")
         for fn, argtypes in kernel._ARGTYPES.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int

@@ -70,7 +70,8 @@ def main(argv=None) -> int:
         return 2
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels.build import BUILD_DIR, NVCC_FLAGS, nvcc
+    from repro_torch.kernels.build import (BUILD_DIR, NVCC_FLAGS, nvcc,
+                                           open_library)
     from repro_torch.kernels.slstm_scan import kernel
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -124,7 +125,7 @@ def main(argv=None) -> int:
     saved = None
     lines = []
     for name in ["full", *(p for p, _ in CUTS), "full"]:
-        lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
+        lib = open_library(out_dir / f"{name}.so")
         for fn, argtypes in kernel._ARGTYPES.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int

@@ -1,4 +1,5 @@
-"""Device resolution and the input checks every kernel wrapper makes.
+"""Device resolution, the one sanctioned read of device values
+(``to_host``) and the input checks every kernel wrapper makes.
 
 The port runs on CUDA unless the caller asks for the CPU.  ``resolve_device``
 never falls back: with no card and no explicit ``"cpu"`` it raises.
@@ -26,12 +27,32 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 def to_device(tree, device: torch.device):
-    """numpy / tensor leaves of a dict tree -> tensors on ``device``."""
+    """numpy / tensor leaves of a dict tree -> tensors on ``device``.  Host
+    data goes to a CUDA device through a pinned copy and an asynchronous
+    copy from it: a copy from pageable memory waits for the stream to
+    drain (a host sync, which ``analysis.hostsync`` flags)."""
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, np.ndarray):
         tree = torch.from_numpy(np.ascontiguousarray(tree))
-    return torch.as_tensor(tree).to(device)
+    t = torch.as_tensor(tree)
+    if t.device.type == "cpu" and torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def to_host(tree):
+    """A tree's tensor leaves as numpy arrays, other leaves as they are:
+    the port's ``jax.device_get``, the seam through which the server reads
+    the device (once a round, once an evaluation;
+    ``analysis.hostsync`` counts its calls and flags any other read)."""
+    if isinstance(tree, dict):
+        return {k: to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_host(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return tree
 
 
 def check_kernel_inputs(name: str, device: torch.device, *,

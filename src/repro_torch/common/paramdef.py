@@ -105,6 +105,7 @@ def init_params(seed: int, tree, device: DeviceLike = None, *,
     seconds less per billion params on a card, other values than the CPU
     generator's (still the same for the same seed and device)."""
     dev = resolve_device(device)
-    gen = torch.Generator(dev if draw_on_device else "cpu")
+    # the caller's seed: the init seam is whoever passes it
+    gen = torch.Generator(dev if draw_on_device else "cpu")  # contracts: allow=CON-TORCHRNG
     gen.manual_seed(int(seed))
     return tree_map(lambda d: _init_leaf(gen, d).to(dev), tree)

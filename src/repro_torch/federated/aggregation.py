@@ -12,6 +12,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.common.device import to_device
 from repro_torch.common.tree import tree_leaves, tree_map
 
 STALENESS_SCHEDULES = ("constant", "polynomial")
@@ -48,11 +49,14 @@ def stacked_weighted_average(tree, weights: Sequence[float],
     w = w / total
     if discounts is not None:
         w = w * np.asarray(discounts, np.float64)
-    w32 = torch.from_numpy(w.astype(np.float32))
+    w32 = w.astype(np.float32)
+    on = {}                 # the weights on each leaf's device, copied once
 
     def avg(leaf):
-        wd = w32.to(leaf.device)
-        return torch.einsum("c...,c->...", leaf.float(), wd).to(leaf.dtype)
+        if leaf.device not in on:
+            on[leaf.device] = to_device(w32, leaf.device)
+        return torch.einsum("c...,c->...", leaf.float(),
+                            on[leaf.device]).to(leaf.dtype)
 
     return tree_map(avg, tree)
 

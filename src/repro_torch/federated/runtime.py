@@ -45,6 +45,7 @@ come back unchanged with a NaN loss.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -58,7 +59,8 @@ from repro_torch.common.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.core.curriculum import CurriculumHP
 from repro_torch.core.progressive import (Adapter, CapturedStep,
                                           donation_supported, jit_stage_step,
-                                          make_stage_loss, own_outputs)
+                                          make_full_step, make_stage_loss,
+                                          make_stage_step, own_outputs)
 from repro_torch.data.loader import (Batcher, RoundStack, stack_round,
                                      truncate_step_mask)
 from repro_torch.federated import aggregation as agg
@@ -132,7 +134,7 @@ def _local_training(call, optimizer, params, batches, step_mask):
     batch e of the (C, E, ...) stack.  Returns (locals_ (C, ...), losses
     (C,), the masked mean local loss of each cohort)."""
     device = tree_leaves(params)[0].device
-    mask = torch.as_tensor(np.asarray(step_mask, bool), device=device)
+    mask = to_device(np.asarray(step_mask, bool), device)
     C, E = mask.shape
     # every cohort starts from params and a fresh optimizer state: views
     # of one copy, which the first step reads (a captured step copies them
@@ -177,8 +179,8 @@ def eq1_aggregate(locals_, weights, losses):
     ``(new_trainable, mean_loss)``."""
     w = np.asarray(weights, np.float64)
     new = agg.stacked_weighted_average(locals_, w)
-    wn = torch.from_numpy((w / w.sum()).astype(np.float32))
-    return new, (losses * wn.to(losses.device)).sum()
+    wn = to_device((w / w.sum()).astype(np.float32), losses.device)
+    return new, (losses * wn).sum()
 
 
 def make_round_program(adapter: Adapter, optimizer, hp: CurriculumHP, t: int):
@@ -240,6 +242,51 @@ def cohort_batches_specs(cfg, num_cohorts: int, local_steps: int,
     return {"inputs": tree_map(stack, token_inputs(cfg, per_cohort_batch,
                                                    seq)),
             "labels": stack(label_specs(cfg, per_cohort_batch, seq))}
+
+
+# =========================================================================== #
+# the auditors' registry: runnable round programs (see repro_torch.analysis)
+# =========================================================================== #
+@dataclasses.dataclass
+class RoundProgramSpec:
+    """One round program of a runtime and the contracts it must meet (port
+    of the reference's ``RoundProgramSpec``).
+
+    The runtimes contribute these through ``trace_specs`` /
+    ``full_reference_spec``; ``repro_torch.analysis`` runs each once
+    (``run``) to check purity, held state and collectives.  A torch
+    program cannot be traced without running, so ``args`` are real
+    tensors on the runtime's device, built from a real stack, where the
+    reference holds abstract ones.
+
+    kind          : "round" (local training fused with Eq. 1), "local"
+                    (no aggregation: nothing may cross the data axis),
+                    "aggregation" (the bare Eq. 1 seam), "step" (one client
+                    step), "reference" (the full-model program every
+                    stage's peak must undercut).
+    alias_argnums : arguments whose every leaf the program must leave held
+                    once: the optimizer state of a step, the trainable tree
+                    of a round (the reference donates them).  ``global_ref``
+                    is held by design and is not among them.
+    n_agg_leaves  : leaves of the Eq. 1 contraction; bounds the legal count
+                    of data-axis all-reduces.
+    """
+
+    name: str
+    backend: str
+    kind: str
+    fn: Any
+    args: tuple
+    alias_argnums: tuple = ()
+    mesh: Any = None
+    data_axis: Optional[str] = None
+    model_axis: Optional[str] = None
+    stage: Optional[int] = None
+    n_agg_leaves: int = 0
+
+    def run(self):
+        """The program once, on its arguments."""
+        return self.fn(*self.args)
 
 
 @dataclasses.dataclass
@@ -326,7 +373,7 @@ class ClientRuntime:
         _, trainable = self.adapter.split_stage(params, t)
         return RoundOutcome(
             params=params, trainable=trainable,
-            mean_loss=torch.tensor(float("nan"), device=self.device),
+            mean_loss=torch.full((), float("nan"), device=self.device),
             cohort_losses=torch.zeros(len(num_batches), device=self.device),
             num_batches=list(num_batches),
             num_samples=[float(n) for n in num_samples], n_uploads=0,
@@ -359,6 +406,32 @@ class ClientRuntime:
             num_batches=list(stack.num_batches),
             num_samples=[float(w) for w in stack.weights], **extras)
 
+    # -- the auditors' registry (repro_torch.analysis) --------------------- #
+    def _device_stack(self, stack: RoundStack):
+        """(batches on the device, host weights, host step mask): what a
+        round program takes."""
+        return (to_device(stack.batches, self.device),
+                np.asarray(stack.weights), np.asarray(stack.step_mask, bool))
+
+    def trace_specs(self, params, t: int,
+                    stack: RoundStack) -> List[RoundProgramSpec]:
+        """This runtime's stage-``t`` programs on ``stack`` (``params`` on
+        the runtime's device): the auditors' entry point."""
+        raise NotImplementedError
+
+    def full_reference_spec(self, params,
+                            stack: RoundStack) -> RoundProgramSpec:
+        """The full-model (FedAvg) round on the same stack: the program
+        every stage's peak must undercut."""
+        batches, weights, mask = self._device_stack(stack)
+        model = {"model": params["model"]}
+        return RoundProgramSpec(
+            name=f"{self.name}/full-model-round", backend=self.name,
+            kind="reference",
+            fn=make_full_round_program(self.adapter, self.optimizer),
+            args=(model, batches, weights, mask),
+            n_agg_leaves=len(tree_leaves(model)))
+
 
 class SequentialRuntime(ClientRuntime):
     """Clients one by one, one stage step per batch; losses stay on the
@@ -374,7 +447,7 @@ class SequentialRuntime(ClientRuntime):
     def _weighted_loss(self, losses, weights):
         cohort_losses = torch.stack(losses)
         w = np.asarray(weights, np.float32)
-        w = torch.from_numpy(w / w.sum()).to(self.device)
+        w = to_device(w / w.sum(), self.device)
         return (cohort_losses * w).sum(), cohort_losses
 
     def _run_stack(self, t, trainable, frozen, stack: RoundStack):
@@ -434,6 +507,29 @@ class SequentialRuntime(ClientRuntime):
             cohort_losses=cohort_losses, num_batches=num_batches,
             num_samples=num_samples)
 
+    def _first_batch(self, stack: RoundStack):
+        return to_device(tree_map(lambda x: x[0, 0], stack.batches),
+                         self.device)
+
+    def trace_specs(self, params, t, stack):
+        frozen, trainable = self.adapter.split_stage(params, t)
+        return [RoundProgramSpec(
+            name=f"sequential/stage{t}/step", backend=self.name, kind="step",
+            fn=make_stage_step(self.adapter, self.optimizer, self.hp, t),
+            args=(self.optimizer.init(trainable), trainable, frozen,
+                  self._first_batch(stack), trainable),
+            alias_argnums=(0,), stage=t)]
+
+    def full_reference_spec(self, params, stack):
+        model = {"model": params["model"]}
+        return RoundProgramSpec(
+            name="sequential/full-model-step", backend=self.name,
+            kind="reference",
+            fn=make_full_step(self.adapter, self.optimizer),
+            args=(self.optimizer.init(model), model,
+                  self._first_batch(stack)),
+            alias_argnums=(0,))
+
 
 class VectorizedRuntime(ClientRuntime):
     """All cohorts at once (``cohort_stage_step``): on the card one captured
@@ -474,6 +570,17 @@ class VectorizedRuntime(ClientRuntime):
                                                  losses)
         return new_trainable, {"mean_local_loss": mean_loss,
                                "cohort_losses": losses}
+
+    def trace_specs(self, params, t, stack):
+        frozen, trainable = self.adapter.split_stage(params, t)
+        batches, weights, mask = self._device_stack(stack)
+        return [RoundProgramSpec(
+            name=f"{self.name}/stage{t}/round", backend=self.name,
+            kind="round",
+            fn=make_round_program(self.adapter, self.optimizer, self.hp, t),
+            args=(trainable, frozen, batches, weights, mask),
+            alias_argnums=(0,), stage=t,
+            n_agg_leaves=len(tree_leaves(trainable)))]
 
 
 # =========================================================================== #
@@ -664,8 +771,7 @@ class ShardedRuntime(VectorizedRuntime):
         its slice (a copy: the step's outputs are its graph's buffers)."""
         step = self._step(t)
         batches = to_device(stack.batches, self.device)
-        mask = torch.as_tensor(np.asarray(stack.step_mask, bool),
-                               device=self.device)
+        mask = to_device(np.asarray(stack.step_mask, bool), self.device)
         C, E = mask.shape
         init = self.optimizer.init(held)
         local = tree_map(lambda p: p.expand(C, *p.shape), held)
@@ -710,22 +816,42 @@ class ShardedRuntime(VectorizedRuntime):
         training on a mesh."""
         padded, start, _, locals_, losses, held = self._train_block(
             t, trainable, frozen, stack, cohorts)
-        C, n = stack.num_cohorts, padded.num_cohorts
+        deltas, losses = self._exchange_deltas(
+            start, padded.num_cohorts, stack.num_cohorts, locals_, held,
+            losses)
+        return deltas, losses, held
+
+    def _exchange_deltas(self, start, n_padded, n, locals_, held, losses):
+        """This rank's block of trained cohorts as every cohort's f32 delta
+        against ``held`` and every cohort's loss, on every rank: one
+        all-reduce over "data" of a zero (n_padded, ...) stack a leaf,
+        and one of the losses."""
         deltas = tree_map(lambda loc, base: self._all_cohorts(
-            loc.float() - base.float(), start, n, C), locals_, held)
-        return deltas, self._all_cohorts(losses, start, n, C), held
+            loc.float() - base.float(), start, n_padded, n), locals_, held)
+        return deltas, self._all_cohorts(losses, start, n_padded, n)
 
     def _run_stack(self, t, trainable, frozen, stack: RoundStack,
                    cohorts=None):
-        padded, start, stop, locals_, losses, _ = self._train_block(
+        padded, start, _, locals_, losses, _ = self._train_block(
             t, trainable, frozen, stack, cohorts)
-        w = np.asarray(padded.weights, np.float64)
+        return self._eq1_seam(t, start, stack.num_cohorts, locals_,
+                              padded.weights, losses)
+
+    def _eq1_seam(self, t, start, n, locals_, weights, losses):
+        """Eq. 1 on the mesh: ``locals_`` and ``losses`` are this rank's
+        block (from cohort ``start``) of the padded cohort axis, whose host
+        ``weights`` are normalised by their global total here; each leaf
+        is summed over the block in f32, all-reduced over "data" and, where
+        model-sharded, gathered whole over "model"; the losses all-reduce
+        as one zero (C_pad,) vector with this block written in.  Returns
+        ``(new_trainable, metrics)`` of the first ``n`` cohorts."""
+        w = np.asarray(weights, np.float64)
         total = w.sum()
         if not np.isfinite(total) or total <= 0:
             raise ValueError(f"aggregation needs a positive finite weight "
                              f"sum; got {total}")
-        wn = torch.from_numpy((w / total).astype(np.float32)).to(self.device)
-        mine = wn[start:stop]
+        wn = to_device((w / total).astype(np.float32), self.device)
+        mine = wn[start:start + losses.shape[0]]
 
         def eq1(leaf, p):
             part = torch.einsum("c...,c->...", leaf.float(), mine)
@@ -735,12 +861,47 @@ class ShardedRuntime(VectorizedRuntime):
             return whole.to(leaf.dtype)
 
         new_trainable = tree_map(eq1, locals_, self.placements(t))
-        C = stack.num_cohorts
-        cohort_losses = self._all_cohorts(losses, start, padded.num_cohorts,
-                                          C)
-        mean_loss = (cohort_losses * wn[:C]).sum()
+        cohort_losses = self._all_cohorts(losses, start, len(w), n)
+        mean_loss = (cohort_losses * wn[:n]).sum()
         return new_trainable, {"mean_local_loss": mean_loss,
                                "cohort_losses": cohort_losses}
+
+    def _mesh_spec(self, t, n_leaves) -> dict:
+        return dict(backend=self.name, mesh=self.mesh, data_axis=self.axis,
+                    model_axis=self.model_axis, stage=t,
+                    n_agg_leaves=n_leaves)
+
+    def _block_of_locals(self, t, trainable, stack: RoundStack):
+        """(start, padded weights, a stand-in for this rank's block of
+        trained locals: the trainable tree as held, once a cohort, and zero
+        losses): the Eq. 1 seam's arguments without running a round."""
+        padded = pad_cohorts(stack, self.data_shards)
+        start, stop = sharding.block(padded.num_cohorts, self.data_shards,
+                                     self.mesh.index(self.axis))
+        held = self.shard_trainable(t, trainable)
+        locals_ = tree_map(lambda p: p.expand(stop - start, *p.shape)
+                           .clone(), held)
+        return (start, np.asarray(padded.weights), locals_,
+                torch.zeros(stop - start, device=self.device), held)
+
+    def trace_specs(self, params, t, stack):
+        """The whole round on this rank (every rank runs it: its
+        collectives are real) and the Eq. 1 seam alone, on a block of
+        stand-in locals."""
+        frozen, trainable = self.adapter.split_stage(params, t)
+        kw = self._mesh_spec(t, len(tree_leaves(trainable)))
+        layout = "sharded2d" if self.model_shards > 1 else "sharded1d"
+        start, weights, locals_, losses, _ = self._block_of_locals(
+            t, trainable, stack)
+        return [RoundProgramSpec(
+            name=f"{layout}/stage{t}/round", kind="round",
+            fn=functools.partial(self._run_stack, t),
+            args=(trainable, frozen, stack), alias_argnums=(0,), **kw),
+            RoundProgramSpec(
+                name=f"{layout}/stage{t}/eq1-seam", kind="aggregation",
+                fn=functools.partial(self._eq1_seam, t, start,
+                                     stack.num_cohorts),
+                args=(locals_, weights, losses), **kw)]
 
     def _round_from_stack(self, params, t, stack, cohorts):
         new_trainable, metrics = self.run_stacked(params, t, stack,
@@ -1152,8 +1313,8 @@ class AsyncBufferedRuntime(VectorizedRuntime):
             carried = [(e, s) for e, s in pairs if id(e) not in new_ids]
             parts = []
             if fresh:
-                pos = torch.as_tensor([e.cohort for e, _ in fresh],
-                                      device=self.device)
+                pos = to_device(np.asarray([e.cohort for e, _ in fresh]),
+                                self.device)
                 parts.append(tree_map(lambda x: x[pos], deltas))
             if carried:
                 parts.append(tree_map(lambda *xs: torch.stack(xs),
@@ -1180,13 +1341,12 @@ class AsyncBufferedRuntime(VectorizedRuntime):
         if self._sharded is not None:
             new_trainable = self._sharded.unshard_trainable(t, new_trainable)
         if n_flushed:
-            w = torch.from_numpy(
-                (np.asarray(eff_w) / np.sum(eff_w)).astype(np.float32))
-            mean_loss = (torch.stack(flushed_losses)
-                         * w.to(self.device)).sum()
+            w = to_device((np.asarray(eff_w) / np.sum(eff_w))
+                          .astype(np.float32), self.device)
+            mean_loss = (torch.stack(flushed_losses) * w).sum()
         else:
             # deliveries only buffered: params unchanged, nothing averaged
-            mean_loss = torch.tensor(float("nan"), device=self.device)
+            mean_loss = torch.full((), float("nan"), device=self.device)
         return new_trainable, {
             "mean_local_loss": mean_loss,
             "cohort_losses": losses,
@@ -1214,6 +1374,62 @@ class AsyncBufferedRuntime(VectorizedRuntime):
         # not the synchronous straggler time of a barrier never held
         return {"round_sim_time": 0.0,
                 "sim_times": [0.0] * stack.num_cohorts}
+
+    def _flush_program(self):
+        """flush(stacked_deltas) -> update: one buffered flush of K f32
+        deltas at weight 1 and staleness 0 (weights and staleness are host
+        numbers at flush time)."""
+        schedule, alpha = self.staleness_schedule, self.staleness_alpha
+
+        def flush(stacked):
+            K = tree_leaves(stacked)[0].shape[0]
+            update, _ = agg.buffered_flush_average(
+                stacked, [1.0] * K, [0] * K, schedule=schedule, alpha=alpha)
+            return update
+
+        return flush
+
+    def trace_specs(self, params, t, stack):
+        """The local training and the flush seam.  On a mesh the local
+        training is this rank's block (every rank runs it) and the seam
+        starts from a block of stand-in locals: their exchange over "data"
+        (every cohort's delta on every rank), then the flush."""
+        frozen, trainable = self.adapter.split_stage(params, t)
+        n_leaves = len(tree_leaves(trainable))
+        flush = self._flush_program()
+        if self._sharded is None:
+            batches, _, mask = self._device_stack(stack)
+            C = stack.num_cohorts
+            deltas = tree_map(lambda p: torch.zeros(
+                (C, *p.shape), device=p.device), trainable)
+            return [RoundProgramSpec(
+                name=f"async/stage{t}/local", backend=self.name,
+                kind="local",
+                fn=make_local_program(self.adapter, self.optimizer, self.hp,
+                                      t),
+                args=(trainable, frozen, batches, mask), stage=t),
+                RoundProgramSpec(
+                    name=f"async/stage{t}/flush-seam", backend=self.name,
+                    kind="aggregation", fn=flush, args=(deltas,), stage=t,
+                    n_agg_leaves=n_leaves)]
+        sh = self._sharded
+        kw = dict(sh._mesh_spec(t, n_leaves), backend=self.name)
+        start, weights, locals_, losses, held = sh._block_of_locals(
+            t, trainable, stack)
+
+        def exchange_and_flush(locals_, held, losses):
+            deltas, _ = sh._exchange_deltas(start, len(weights),
+                                            stack.num_cohorts, locals_,
+                                            held, losses)
+            return flush(deltas)
+
+        return [RoundProgramSpec(
+            name=f"async/stage{t}/local", kind="local",
+            fn=functools.partial(sh._train_block, t),
+            args=(trainable, frozen, stack), **dict(kw, n_agg_leaves=0)),
+            RoundProgramSpec(
+                name=f"async/stage{t}/flush-seam", kind="aggregation",
+                fn=exchange_and_flush, args=(locals_, held, losses), **kw)]
 
 
 RUNTIMES = {"sequential": SequentialRuntime,

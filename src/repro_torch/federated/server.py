@@ -9,7 +9,8 @@
   5. Model growing       — next stage (round-robin by default).
 
 ``RoundResult.mean_loss`` is the |D_c|-weighted mean of client losses.  Each
-round reads the device once, for its losses; ``evaluate`` reads it once.
+round reads the device once, for its losses; ``evaluate`` reads it once;
+both through ``common.device.to_host`` (``analysis.hostsync`` checks it).
 On a CUDA device the server makes cuDNN deterministic (deterministic
 algorithms, no autotuning), so a run repeats bit for bit, as the
 reference's rounds do.  The port has the sequential, vectorized, sharded
@@ -41,7 +42,8 @@ from repro_torch import bridge
 from repro_torch.checkpoint import (checkpoint_path, latest_checkpoint,
                                     load_checkpoint, read_checkpoint_meta,
                                     save_checkpoint)
-from repro_torch.common.device import DeviceLike, resolve_device, to_device
+from repro_torch.common.device import (DeviceLike, resolve_device,
+                                      to_device, to_host)
 from repro_torch.core.curriculum import CurriculumHP
 from repro_torch.core.memory import (estimate_full_memory,
                                      estimate_stage_memory)
@@ -261,8 +263,8 @@ class NeuLiteServer:
                     else len(selected))
             upload = agg.tree_bytes(out.trainable) * n_up
             # the round's one host sync: mean loss and cohort losses together
-            losses = torch.cat([out.mean_loss.reshape(1).float(),
-                                out.cohort_losses.float()]).cpu().numpy()
+            losses = to_host(torch.cat([out.mean_loss.reshape(1).float(),
+                                        out.cohort_losses.float()]))
             mean_loss = float(losses[0])
             if out.round_sim_time is not None:
                 # async: open to the last flush (0 when it only buffered),
@@ -474,7 +476,7 @@ class NeuLiteServer:
             total += int(mask.sum())
         if total == 0:
             return 0.0
-        return int(correct.item()) / total
+        return int(to_host(correct)) / total
 
     @property
     def participation_rate(self) -> float:

@@ -62,7 +62,13 @@ def build_libraries(sources) -> None:
         raise RuntimeError("\n".join(failed))
 
 
+def open_library(path) -> ctypes.CDLL:
+    """Load a built library: the one place the port calls ``ctypes.CDLL``
+    (``analysis/contracts.py``, CON-LOAD-SEAM)."""
+    return ctypes.CDLL(str(path))
+
+
 def load_library(source: Path) -> ctypes.CDLL:
     """Compile ``source`` unless its library exists, then load it."""
     build_libraries([source])
-    return ctypes.CDLL(str(library_path(Path(source))))
+    return open_library(library_path(Path(source)))

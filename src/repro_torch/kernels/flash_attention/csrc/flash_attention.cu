@@ -459,6 +459,29 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
   return launch<T, DMAX>(q, k, v, o, B, Sq, Skv, H, KV, D, causal, window, s);
 }
 
+// The resources of each __global__ kernel of this file as the card built
+// it, for the kernel audit (analysis/kernel_audit.py), which runs none:
+// per kernel, 5 ints: registers a thread, static shared bytes, local
+// (spill) bytes a thread, cudaFuncAttributes.maxThreadsPerBlock and the
+// block its launches use.  `rows` holds `n` kernels' rows; returns the
+// CUDA error (0 = read).
+int read_attributes(const void* const* fns, const int* blocks, int count,
+                    int* rows, int n) {
+  if (n < count) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < count; ++i) {
+    cudaFuncAttributes a;
+    const cudaError_t err = cudaFuncGetAttributes(&a, fns[i]);
+    if (err != cudaSuccess) return (int)err;
+    int* r = rows + 5 * i;
+    r[0] = a.numRegs;
+    r[1] = (int)a.sharedSizeBytes;
+    r[2] = (int)a.localSizeBytes;
+    r[3] = a.maxThreadsPerBlock;
+    r[4] = blocks[i];
+  }
+  return 0;
+}
+
 }  // namespace
 
 // C interface, loaded with ctypes by kernels/flash_attention/kernel.py.
@@ -478,4 +501,23 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                         causal, window, s)
               : launch_d<float>(q, k, v, o, B, Sq, Skv, H, KV, D, causal,
                                 window, s);
+}
+
+// Each instance's resources (read_attributes), in this order: float at
+// head dims 16, 32, 64 and 128, then bfloat16 at the same; every launch
+// uses THREADS.
+extern "C" int flash_attention_attributes(int* rows, int n) {
+  using F = float;
+  using H = __nv_bfloat16;
+  const void* fns[] = {reinterpret_cast<const void*>(&flash_fwd_kernel<F, 16>),
+                       reinterpret_cast<const void*>(&flash_fwd_kernel<F, 32>),
+                       reinterpret_cast<const void*>(&flash_fwd_kernel<F, 64>),
+                       reinterpret_cast<const void*>(&flash_fwd_kernel<F, DMAX>),
+                       reinterpret_cast<const void*>(&flash_fwd_kernel<H, 16>),
+                       reinterpret_cast<const void*>(&flash_fwd_kernel<H, 32>),
+                       reinterpret_cast<const void*>(&flash_fwd_kernel<H, 64>),
+                       reinterpret_cast<const void*>(&flash_fwd_kernel<H, DMAX>)};
+  const int blocks[] = {THREADS, THREADS, THREADS, THREADS,
+                        THREADS, THREADS, THREADS, THREADS};
+  return read_attributes(fns, blocks, 8, rows, n);
 }

@@ -8,7 +8,9 @@ falls back.  The library is built with ``nvcc`` at the first launch
 a compiler.
 
 ``LAUNCHES`` counts the kernel's launches (one per call on the card, none
-on the CPU); ``reset_launches`` sets the count to 0.
+on the CPU); ``reset_launches`` sets the count to 0.  ``kernel_resources``
+reads each built instance's registers, shared memory and spills (it
+launches nothing).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.common.device import check_kernel_inputs
+from repro_torch.kernels.audit import read_resources
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.flash_attention import ref
 
@@ -29,6 +32,11 @@ LAUNCHES = {"flash_attention_fwd": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 4 + [_I] * 9 + [_P]
+_ATTR_ARGTYPES = [_P, _I]     # flash_attention_attributes
+# the instances of flash_fwd_kernel, in flash_attention_attributes' order
+RESOURCE_KERNELS = tuple(f"flash_fwd_kernel<{t}, {d}>"
+                         for t in ("float", "__nv_bfloat16")
+                         for d in (16, 32, 64, MAX_HEAD_DIM))
 _lib = None
 _fwd = None   # the bound C entry point, looked up once
 
@@ -45,8 +53,17 @@ def library() -> ctypes.CDLL:
         lib = load_library(SOURCE)
         lib.flash_attention_fwd.argtypes = _ARGTYPES
         lib.flash_attention_fwd.restype = ctypes.c_int
+        lib.flash_attention_attributes.argtypes = _ATTR_ARGTYPES
+        lib.flash_attention_attributes.restype = ctypes.c_int
         _lib, _fwd = lib, lib.flash_attention_fwd
     return _lib
+
+
+def kernel_resources():
+    """Registers, shared memory, spills and block limits of every instance
+    of the built kernel (``kernels.audit.read_resources``)."""
+    return read_resources(library().flash_attention_attributes,
+                          RESOURCE_KERNELS)
 
 
 def _shapes(q, k, v):

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.audit import KernelAuditCase
 from repro_torch.kernels.flash_attention import kernel, ref
 
 
@@ -49,3 +50,28 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
     version)."""
     return FlashAttention.apply(q.contiguous(), k.contiguous(),
                                 v.contiguous(), bool(causal), int(window))
+
+
+# --------------------------------------------------------------------------- #
+# the kernel audit's registry (analysis/kernel_audit.py)
+# --------------------------------------------------------------------------- #
+def _flash_case(name, B, H, S, D, dtype, notes=""):
+    shape = (B, S, H, D)
+    return KernelAuditCase(
+        family="flash_attention", name=name, source=kernel.SOURCE,
+        kernels=("flash_fwd_kernel",), shapes=(shape, shape, shape),
+        dtypes=(dtype,) * 3, notes=notes)
+
+
+def AUDIT_CASES():
+    """The reference's flash audit cases: its shapes and dtypes, q, k and
+    v in the port's (B, S, H, D) layout."""
+    return [
+        _flash_case("fwd_f32_B2H2S1024D64", 2, 2, 1024, 64, "float32"),
+        _flash_case("fwd_bf16_B2H2S512D64", 2, 2, 512, 64, "bfloat16",
+                    "bf16 operands, f32 accumulation"),
+        _flash_case("fwd_f32_pad_S200", 1, 2, 200, 64, "float32",
+                    "a ragged sequence: the kernel masks the last tile"),
+        _flash_case("fwd_f32_windowed", 1, 1, 512, 32, "float32",
+                    "causal=False, window=64"),
+    ]

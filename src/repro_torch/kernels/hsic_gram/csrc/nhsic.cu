@@ -1068,7 +1068,9 @@ __device__ __forceinline__ T warp_sum(T v) {
 // the tile in rank order (the same bits as K2's and K3's entries), forms
 // Kx and Kz, and adds each row's 32 entries (a warp a row) to a running
 // sum over the column tiles; it writes rx and rz of its rows.
-__global__ void __launch_bounds__(THREADS)
+// One block an SM is all the cluster needs: without the bound ptxas keeps
+// 128 registers and spills 4 bytes (-Xptxas -v).
+__global__ void __launch_bounds__(THREADS, 1)
 nhsic_rowsums_kernel(const float* __restrict__ x, const float* __restrict__ z,
                      const float* __restrict__ s2, float* __restrict__ rx,
                      float* __restrict__ rz, int B, int Dx, int Dz, int lx,
@@ -1423,6 +1425,29 @@ constexpr int SMEM_OPTIN = 227 * 1024;
 
 int tiles(int B) { return (B + TILE - 1) / TILE; }
 
+// The resources of each __global__ kernel of this file as the card built
+// it, for the kernel audit (analysis/kernel_audit.py), which runs none:
+// per kernel, 5 ints: registers a thread, static shared bytes, local
+// (spill) bytes a thread, cudaFuncAttributes.maxThreadsPerBlock and the
+// block its launches use.  `rows` holds `n` kernels' rows; returns the
+// CUDA error (0 = read).
+int read_attributes(const void* const* fns, const int* blocks, int count,
+                    int* rows, int n) {
+  if (n < count) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < count; ++i) {
+    cudaFuncAttributes a;
+    const cudaError_t err = cudaFuncGetAttributes(&a, fns[i]);
+    if (err != cudaSuccess) return (int)err;
+    int* r = rows + 5 * i;
+    r[0] = a.numRegs;
+    r[1] = (int)a.sharedSizeBytes;
+    r[2] = (int)a.localSizeBytes;
+    r[3] = a.maxThreadsPerBlock;
+    r[4] = blocks[i];
+  }
+  return 0;
+}
+
 }  // namespace
 
 // C interface, bound with ctypes.  Pointers are device pointers to
@@ -1552,4 +1577,18 @@ extern "C" int gram_stats(const void* kx, const void* kz, void* out, int B,
       (float*)out, B, (int)(B % 4 == 0 && aligned16(kx) && aligned16(kz)));
   const int last = (int)cudaGetLastError();
   return err != 0 ? err : last;
+}
+
+// Each kernel's resources (read_attributes), in this order:
+// sum_partials_kernel, gram_kernel, nhsic_stats_kernel, nhsic_grad_kernel,
+// nhsic_rowsums_kernel, gram_stats_kernel; every launch uses THREADS.
+extern "C" int nhsic_kernel_attributes(int* rows, int n) {
+  const void* fns[] = {reinterpret_cast<const void*>(&sum_partials_kernel),
+                       reinterpret_cast<const void*>(&gram_kernel),
+                       reinterpret_cast<const void*>(&nhsic_stats_kernel),
+                       reinterpret_cast<const void*>(&nhsic_grad_kernel),
+                       reinterpret_cast<const void*>(&nhsic_rowsums_kernel),
+                       reinterpret_cast<const void*>(&gram_stats_kernel)};
+  const int blocks[] = {THREADS, THREADS, THREADS, THREADS, THREADS, THREADS};
+  return read_attributes(fns, blocks, 6, rows, n);
 }

@@ -13,6 +13,8 @@ so importing this module needs neither a card nor a compiler.
 card, whatever the number of cohorts; none on the CPU); ``reset_launches``
 sets the counts to 0.  A replayed CUDA graph runs no Python: the captured
 step adds the counts it recorded at capture (``core.progressive``).
+``kernel_resources`` reads each built kernel's registers, shared memory
+and spills (it launches nothing).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.common.device import check_kernel_inputs
+from repro_torch.kernels.audit import read_resources
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.hsic_gram import ref
 
@@ -39,7 +42,12 @@ _ARGTYPES = {
     "nhsic_grad": [_P] * 7 + [_I] * 6 + [_P],
     "gram": [_P] * 3 + [_I] * 3 + [_P],
     "gram_stats": [_P] * 3 + [_I] + [_P],
+    "nhsic_kernel_attributes": [_P, _I],
 }
+# the __global__ kernels of nhsic.cu, in nhsic_kernel_attributes' order
+RESOURCE_KERNELS = ("sum_partials_kernel", "gram_kernel",
+                    "nhsic_stats_kernel", "nhsic_grad_kernel",
+                    "nhsic_rowsums_kernel", "gram_stats_kernel")
 _lib = None
 _fns = {}     # the bound C entry points, looked up once
 
@@ -61,6 +69,14 @@ def library() -> ctypes.CDLL:
             _fns[name] = fn
         _lib = lib
     return _lib
+
+
+def kernel_resources():
+    """Registers, shared memory, spills and block limits of every kernel
+    of the built library (``kernels.audit.read_resources``)."""
+    library()
+    return read_resources(_fns["nhsic_kernel_attributes"],
+                          RESOURCE_KERNELS)
 
 
 def _launch(name: str, *args) -> None:

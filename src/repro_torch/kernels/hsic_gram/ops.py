@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.hsic import rbf_sigma2
+from repro_torch.kernels.audit import KernelAuditCase
 from repro_torch.kernels.hsic_gram import kernel
 
 _EPS = 1e-8
@@ -116,3 +117,32 @@ def nhsic_unfused(x, z, *, kernel_x: str = "rbf", kernel_z: str = "rbf"):
         kz = kernel.gram(z, one if lz else rbf_sigma2(z), linear=lz)
         t, nx2, nz2 = kernel.gram_stats(kx, kz)
         return t / (torch.sqrt(nx2) * torch.sqrt(nz2) + _EPS)
+
+
+# --------------------------------------------------------------------------- #
+# the kernel audit's registry (analysis/kernel_audit.py)
+# --------------------------------------------------------------------------- #
+def AUDIT_CASES():
+    """The reference's five hsic_gram audit cases (B = 256, Dx = 256,
+    Dz = 64, float32) and the kernels each runs on the card: K2 at
+    B > 32 adds its partial-sum kernel."""
+    B, Dx, Dz = 256, 256, 64
+    x, z, r = (B, Dx), (B, Dz), (B,)
+
+    def case(name, kernels, shapes, notes=""):
+        return KernelAuditCase(
+            family="hsic_gram", name=name, source=kernel.SOURCE,
+            kernels=kernels, shapes=shapes,
+            dtypes=("float32",) * len(shapes), notes=notes)
+
+    return [
+        case(f"gram_rbf_B{B}D{Dx}", ("gram_kernel",), (x, (1,))),
+        case(f"gram_stats_B{B}", ("gram_stats_kernel",), ((B, B), (B, B))),
+        case(f"nhsic_rowsums_B{B}", ("nhsic_rowsums_kernel",),
+             (x, z, (2,))),
+        case(f"nhsic_stats_feats_B{B}",
+             ("nhsic_stats_kernel", "sum_partials_kernel"),
+             (x, z, r, r, (4,))),
+        case(f"nhsic_grad_B{B}", ("nhsic_grad_kernel",),
+             (x, z, r, r, (7,)), "linear z"),
+    ]

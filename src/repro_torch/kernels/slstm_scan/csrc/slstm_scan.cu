@@ -597,8 +597,11 @@ struct Saved {
   float dh, g[4], c, n, c_p, n_p, m_p;
 };
 
+// One block an SM: without the bound ptxas keeps the resident form at 128
+// registers and spills 12 bytes (-Xptxas -v); the launch asks the
+// occupancy API how many fit (choose).
 template <bool RESIDENT>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 slstm_bwd_kernel(const float* __restrict__ gs, const float* __restrict__ cs,
                  const float* __restrict__ ns, const float* __restrict__ ms,
                  const float* __restrict__ r, const float* __restrict__ c0,
@@ -890,6 +893,28 @@ cudaError_t launch_heads(const Launch& L, Dims d, void** args, int nargs,
   return cudaGetLastError();
 }
 
+// The resources of each __global__ kernel of this file as the card built
+// it, for the kernel audit (analysis/kernel_audit.py), which runs none:
+// per kernel, 5 ints: registers a thread, static shared bytes, local
+// (spill) bytes a thread, cudaFuncAttributes.maxThreadsPerBlock and the
+// block its launches use.  `rows` holds `n` kernels' rows; returns the
+// CUDA error (0 = read).
+int read_attributes(const void* const* fns, const int* blocks, int count,
+                    int* rows, int n) {
+  if (n < count) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < count; ++i) {
+    cudaFuncAttributes a;
+    const cudaError_t err = cudaFuncGetAttributes(&a, fns[i]);
+    if (err != cudaSuccess) return (int)err;
+    int* r = rows + 5 * i;
+    r[0] = a.numRegs;
+    r[1] = (int)a.sharedSizeBytes;
+    r[2] = (int)a.localSizeBytes;
+    r[3] = a.maxThreadsPerBlock;
+    r[4] = blocks[i];
+  }
+  return 0;
+}
 }  // namespace
 
 extern "C" {
@@ -952,6 +977,18 @@ int slstm_scan_bwd(const float* gs, const float* cs, const float* ns,
                   &m0,  &dhs, &dc,  &dn,  &dm, &dh,      &dg,
                   &dc0, &dn0, &dm0, &dh0, &scratch, &counters, nullptr};
   return static_cast<int>(launch_heads(L, d, args, 21, launches, stream));
+}
+
+// Each kernel's resources (read_attributes), in this order: the forward
+// with r resident, with r streamed, then the backward the same two ways;
+// every launch uses THREADS.
+int slstm_kernel_attributes(int* rows, int n) {
+  const void* fns[] = {reinterpret_cast<const void*>(&slstm_fwd_kernel<true>),
+                       reinterpret_cast<const void*>(&slstm_fwd_kernel<false>),
+                       reinterpret_cast<const void*>(&slstm_bwd_kernel<true>),
+                       reinterpret_cast<const void*>(&slstm_bwd_kernel<false>)};
+  const int blocks[] = {THREADS, THREADS, THREADS, THREADS};
+  return read_attributes(fns, blocks, 4, rows, n);
 }
 
 }  // extern "C"

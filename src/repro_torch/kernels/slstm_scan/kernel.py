@@ -15,7 +15,8 @@ so importing this module needs neither a card nor a compiler.
 more where the heads of all cohorts exceed what the card holds at once;
 none on the CPU); ``reset_launches`` sets the counts to 0.  A replayed
 CUDA graph runs no Python: the captured step adds the counts it recorded
-at capture (``core.progressive``).
+at capture (``core.progressive``).  ``kernel_resources`` reads each built
+kernel's registers, shared memory and spills (it launches nothing).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import torch
 from torch import Tensor
 
 from repro_torch.common.device import check_kernel_inputs
+from repro_torch.kernels.audit import read_resources
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.slstm_scan import ref
 
@@ -39,7 +41,11 @@ TILE = 16                   # TW in slstm_scan.cu: columns per block
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {"slstm_scan_fwd": [_P] * 17 + [_I] * 5 + [_P] * 2,
-             "slstm_scan_bwd": [_P] * 20 + [_I] * 5 + [_P] * 2}
+             "slstm_scan_bwd": [_P] * 20 + [_I] * 5 + [_P] * 2,
+             "slstm_kernel_attributes": [_P, _I]}
+# the instances of the two kernels, in slstm_kernel_attributes' order
+RESOURCE_KERNELS = ("slstm_fwd_kernel<true>", "slstm_fwd_kernel<false>",
+                    "slstm_bwd_kernel<true>", "slstm_bwd_kernel<false>")
 _lib = None
 
 
@@ -58,6 +64,13 @@ def library() -> ctypes.CDLL:
             getattr(lib, name).restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def kernel_resources():
+    """Registers, shared memory, spills and block limits of every instance
+    of the built kernels (``kernels.audit.read_resources``)."""
+    return read_resources(library().slstm_kernel_attributes,
+                          RESOURCE_KERNELS)
 
 
 def _shapes(name, gates, others, steps=None, states=None):

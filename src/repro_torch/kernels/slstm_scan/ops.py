@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.audit import KernelAuditCase
 from repro_torch.kernels.slstm_scan import kernel
 from repro_torch.kernels.slstm_scan.kernel import STATE
 
@@ -62,3 +63,22 @@ def slstm_scan(g_in, r, b, state0: dict):
     save = torch.is_grad_enabled() and any(t.requires_grad for t in inputs)
     hs, *fin = SLSTMScan.apply(*(t.contiguous() for t in inputs), save)[:5]
     return hs, dict(zip(STATE, fin))
+
+
+# --------------------------------------------------------------------------- #
+# the kernel audit's registry (analysis/kernel_audit.py)
+# --------------------------------------------------------------------------- #
+def _slstm_case(name, B, H, S, Dh):
+    state = (B, H, Dh)
+    return KernelAuditCase(
+        family="slstm_scan", name=name, source=kernel.SOURCE,
+        kernels=("slstm_fwd_kernel", "slstm_bwd_kernel"),
+        shapes=((B, S, 4, H, Dh), (4, H, Dh, Dh), (4, H, Dh)) + (state,) * 4,
+        dtypes=("float32",) * 7,
+        notes="r resident or streamed: the launch picks the kernel's form")
+
+
+def AUDIT_CASES():
+    """The reference's two sLSTM-scan audit cases."""
+    return [_slstm_case("scan_Dh512_S256", 2, 2, 256, 512),
+            _slstm_case("scan_Dh64_S128", 2, 4, 128, 64)]

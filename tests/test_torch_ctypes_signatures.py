@@ -21,7 +21,8 @@ from repro_torch.kernels.slstm_scan import kernel as skernel
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 # module -> {entry point: argtypes}
 BINDINGS = {hkernel: hkernel._ARGTYPES,
-            fkernel: {"flash_attention_fwd": fkernel._ARGTYPES},
+            fkernel: {"flash_attention_fwd": fkernel._ARGTYPES,
+                      "flash_attention_attributes": fkernel._ATTR_ARGTYPES},
             skernel: skernel._ARGTYPES}
 _ONE = re.compile(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)')
 _BLOCK = re.compile(r'extern\s+"C"\s*\{(.*?)\}\s*//\s*extern\s+"C"', re.S)

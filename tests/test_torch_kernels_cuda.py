@@ -1283,3 +1283,91 @@ def test_launches_after_replays_and_vectorized_rounds(cuda):
     diff = max(float((a - b).abs().max()) for a, b in
                zip(out["sequential"][0], out["vectorized"][0]) if a.numel())
     assert diff <= 1e-3 * scale
+
+
+# --------------------------------------------------------------------------- #
+# the auditors on the card (repro_torch.analysis)
+# --------------------------------------------------------------------------- #
+def test_resource_audit_of_every_kernel(cuda):
+    """Every instance of the nine ``__global__`` kernels reports its
+    registers and limits, and every launch's block fits."""
+    from repro_torch.analysis import kernel_audit
+    from repro_torch.analysis.report import Report
+    from repro_torch.kernels.audit import global_kernels
+    report = Report()
+    rows = kernel_audit.audit_kernels(report)
+    names = {g for k in (kernel, fa_kernel, sl_kernel)
+             for g in global_kernels(k.SOURCE)}
+    assert len(names) == 9
+    assert {r["kernel"].split("<")[0] for r in rows} == names
+    assert len(rows) == 18
+    assert all(0 < r["registers"] <= 255 and r["block"] <= r["max_threads"]
+               for r in rows), rows
+    assert report.ok(), report.render()
+    # no kernel spills (K1's and K5's backward did at 128 registers before
+    # their launch bounds said one block an SM); K3 keeps a 16-byte stack
+    # array, no spill (ptxas -v)
+    assert {r["kernel"]: r["local_bytes"] for r in rows
+            if r["local_bytes"]} == {"nhsic_grad_kernel": 16}
+
+
+def test_ten_fuzz_draws_a_family(cuda):
+    """The first 10 draws of the reference's stream at seed 0, every
+    kernel family's op against its plain version, forward and
+    gradients."""
+    from repro_torch.analysis import kernel_audit
+    from repro_torch.analysis.report import Report
+    for k in (kernel, fa_kernel, sl_kernel):
+        k.reset_launches()
+    report = Report()
+    summary = kernel_audit.fuzz_families(report, n_cases=10, seed=0)
+    assert report.ok() and not report.findings, report.render()
+    assert all(s["checks"] > 0 for s in summary.values())
+    launched = {**kernel.LAUNCHES, **fa_kernel.LAUNCHES,
+                **sl_kernel.LAUNCHES}
+    assert all(launched[n] > 0 for n in (
+        "nhsic_rowsums", "nhsic_stats_feats", "nhsic_grad",
+        "flash_attention_fwd", "slstm_scan_fwd", "slstm_scan_bwd"))
+
+
+def test_a_pageable_host_copy_is_a_sync_and_to_device_is_not(cuda):
+    """The sync debug mode names a copy from pageable host memory (which
+    waits for the stream to drain) at its line; ``to_device``'s pinned,
+    asynchronous copy is not one."""
+    from repro_torch.analysis import hostsync as hs
+    from repro_torch.common.device import to_device
+    host = np.ones((4, 8), np.float32)
+    with hs.sync_watch(hs.TransferProbe()) as probe:
+        torch.from_numpy(host).to(cuda)
+    assert len(probe.syncs) == 1 and not probe.syncs[0].explicit
+    assert probe.syncs[0].location.startswith("test_torch_kernels_cuda.py")
+    with hs.sync_watch(hs.TransferProbe()) as probe:
+        moved = to_device({"x": host, "y": np.arange(3)}, cuda)
+    assert not probe.syncs
+    torch.cuda.synchronize()
+    assert torch.equal(moved["x"].cpu(), torch.from_numpy(host))
+
+
+def test_runtime_rounds_make_no_implicit_sync(cuda):
+    """A captured sequential round and a vectorized round of the audit
+    ResNet18 under the transfer probe and the sync debug mode: no read,
+    no implicit sync."""
+    from repro_torch.analysis import hostsync as hs
+    from repro_torch.analysis.harness import tiny_setup
+    from repro_torch.analysis.report import Report
+    from repro_torch.core.curriculum import CurriculumHP
+    from repro_torch.data.loader import Batcher
+    from repro_torch.federated.runtime import make_runtime
+    from repro_torch.optim.optimizers import sgd
+    adapter, params, datasets, _, kind, bs = tiny_setup("cnn", cuda)
+    for name in ("sequential", "vectorized"):
+        runtime = make_runtime(name, adapter, sgd(0.05, 0.9, 5e-4),
+                               CurriculumHP(mu=0.01), cuda)
+        batchers = [Batcher(ds, bs, seed=i, kind=kind)
+                    for i, ds in enumerate(datasets)]
+        report = Report()
+        hs.audit_runtime_round(runtime, params, 1, batchers, [0, 1, 2], 1,
+                               report)
+        assert report.ok(), report.render()
+        assert report.artifacts["hostsync"][f"{name}.run_round"][
+            "implicit_syncs"] == 0
