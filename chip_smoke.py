@@ -105,8 +105,7 @@
    clients, 5 a round, E = 1, B = 32, 4 stages), two rounds a method;
    then ResNet18 and ResNet34, ResNet34 on ResNet18's device budgets.
    K1-K3 launch twice per NeuLite local step and never in a baseline
-   round; every loss and accuracy is finite; ResNet18's ten methods run
-   again from the seed and repeat params and accuracies bit for bit; each
+   round; every loss and accuracy is finite; each
    distinct baseline step (the full model, AllSmall's width, each HeteroFL
    ratio, each DepthFL level, ProgFed's stage 0) runs once on the card
    against the same step on the CPU (1e-4, or 10x the CPU step's own
@@ -344,8 +343,35 @@
    first round's collectives, host reads and held bytes
    (``audit_next_round``).
 
+23. Main path 15, after main path 14: the dry-run
+   (``repro_torch.launch.dryrun``).  15a: four children ``python -m
+   repro_torch.launch.dryrun`` (fake tensors on a fake process group: no
+   card, no kernel build) trace rank 0's program of qwen3-1.7b
+   ``prefill_32k`` and ``decode_32k`` on the (16, 16) mesh,
+   deepseek-v2-lite-16b ``train_4k`` on (2, 16, 16) and xlstm-1.3b
+   ``train_4k`` in neulite mode on (16, 16), started before main path 13
+   and joined after Fig. 6 (records in ``chiprun_out/dryrun_*.json``,
+   outside the sweep's ``results/dryrun_torch``): each ``ok``, K4's
+   counted FLOPs above 0 in
+   qwen3's prefill, K5's and its backward's in the xLSTM, one all-gather
+   over "model" a
+   model-sharded leaf, one data-axis all-reduce a trainable leaf (train,
+   neulite); each prints its trace seconds, FLOPs per rank counted and
+   partitioned, peak, ``fits_h100``, collectives and bottleneck.  15b: the
+   two qwen3-1.7b programs run for real on the card (``--calibrate``; the
+   collectives over the same fake group): the dry-run's peak within 10% of
+   ``max_memory_allocated``, the fake and real ``FlopCounterMode`` counts
+   equal, the counted step's ms beside the roofline's terms; then K4
+   alone at the prefill's shape (B 2, S 32768, 16 heads over 8 of 128,
+   causal, bf16), timed with CUDA events after a warm-up and its first
+   1024 rows held against the plain version.
+
+``python3 chip_smoke.py --fig7-overlap`` times Fig. 7's rows alone, beside
+15a's four traces and alone again (the traces' host load on the figure's
+host-bound step times).
+
 Each main path is driven with the launch counts set to 0 just before it
-and read just after.  Prints the card's name and power limit, a JSON line
+and read just after (main path 15: its 15b child's).  Prints the card's name and power limit, a JSON line
 of per-kernel numbers (``max_rel_err`` beside ``max_abs_err``), and as
 the last line ``{"ok": true, "device": {...}}``.  Any failure exits
 non-zero.  Details go to ``chiprun_out/chip_smoke.json``.
@@ -366,7 +392,6 @@ BENCH_OUT = os.path.join(ROOT, "chiprun_out", "bench_kernels.json")
 FIG6_OUT = os.path.join(ROOT, "chiprun_out", "fig6_memory.json")
 BENCH_FL_OUT = os.path.join(ROOT, "chiprun_out", "bench_fl_round.json")
 TABLE1_OUT = os.path.join(ROOT, "chiprun_out", "table1.json")
-TABLE1_REPEAT_OUT = os.path.join(ROOT, "chiprun_out", "table1_repeat.json")
 TABLE2_OUT = os.path.join(ROOT, "chiprun_out", "table2.json")
 FIG7_OUT = os.path.join(ROOT, "chiprun_out", "fig7_time.json")
 # Fig. 7 at the reference's size and at full width: (width, image size)
@@ -633,87 +658,48 @@ def time_ms(torch, fn, runs=30, warmup=5):
 
 # --------------------------------------------------------------------------- #
 # least time of each kernel: bytes each input read once and each output
-# written once, FLOPs the function needs; bound = max of the two times
+# written once, FLOPs the function needs; bound = max of the two times.
+# Each kernel family's ``work.py`` holds its formula, which the dry-run's
+# FLOP count (``FlopCounterMode``) reads too; the products' rate is the
+# card's for their type.
 # --------------------------------------------------------------------------- #
-def gram_flops(B, D, linear):
-    """(products, elementwise) FLOPs of the Gram of (B, D) rows with
-    themselves.  It is symmetric, so it needs B(B+1)/2 dot products of 2D
-    FLOPs; RBF adds the B squared norms (2D each, products too) and
-    |a|^2+|b|^2-2ab, clamp, scale and exp (6) per distinct entry."""
-    dots = B * (B + 1) * D
-    return (dots, 0) if linear else (dots + 2 * B * D, 3 * B * (B + 1))
+def _work(module, fn, *shape, rate=F32_PRODUCT_FLOPS_PER_S):
+    import importlib
+    work = importlib.import_module(f"repro_torch.kernels.{module}.work")
+    return (*getattr(work, fn)(*shape), rate)
 
 
 def flash_work(B, Sq, Skv, H, KV, D, causal, window, dtype):
-    """Bytes, product and elementwise FLOPs and the products' rate of one
-    K4 call: q, k, v read once, o written once; QK^T and PV (2 D FLOPs
-    each per allowed (query, key) pair), the softmax (max, subtract, exp,
-    sum, rescale: 5 per pair) and q's scale.  Only the pairs the masks
-    allow count."""
-    size = 2 if dtype == "bfloat16" else 4
-    nbytes = size * (2 * B * Sq * H * D + 2 * B * Skv * KV * D)
-    pairs = 0
-    for i in range(Sq):
-        lo = max(0, i - window + 1) if window > 0 else 0
-        hi = min(Skv - 1, i) if causal else Skv - 1
-        pairs += max(0, hi - lo + 1)
-    pairs *= B * H
-    rate = (BF16_PRODUCT_FLOPS_PER_S if dtype == "bfloat16"
-            else F32_PRODUCT_FLOPS_PER_S)
-    return nbytes, 4 * pairs * D, 5 * pairs + B * Sq * H * D, rate
+    """One K4 call (``flash_attention/work.py``)."""
+    return _work("flash_attention", "flash_work", B, Sq, Skv, H, KV, D,
+                 causal, window, dtype,
+                 rate=(BF16_PRODUCT_FLOPS_PER_S if dtype == "bfloat16"
+                       else F32_PRODUCT_FLOPS_PER_S))
 
 
-def slstm_work(B, S, H, Dh, *_):
-    """One K5 call: g_in, r, b and the four initial states read once, hs
-    and the four final states written once; the four recurrent products
-    (2 Dh^2 FLOPs per gate, step, row and head), ~30 FLOPs of gate
-    arithmetic per (step, row, head, column)."""
-    nbytes = 4 * (B * S * 4 * H * Dh + 4 * H * Dh * Dh + 4 * H * Dh
-                  + 4 * B * H * Dh + B * S * H * Dh + 4 * B * H * Dh)
-    return (nbytes, 2 * B * S * H * 4 * Dh * Dh, 30 * B * S * H * Dh,
-            F32_PRODUCT_FLOPS_PER_S)
+def slstm_work(*shape):
+    """One K5 call (``slstm_scan/work.py``)."""
+    return _work("slstm_scan", "slstm_work", *shape)
 
 
-def slstm_bwd_work(B, S, H, Dh, *_):
-    """One K5 backward call: the saved g, c, n, m, the cotangent of hs, r,
-    the initial c, n, m and the four final-state cotangents read once, dg
-    and the four initial-state gradients written once; the recurrent
-    products dh = dg r^T (2 Dh^2 FLOPs per gate, step, row and head), ~60
-    FLOPs of gate arithmetic per (step, row, head, column).  dr and db are
-    plain products outside the kernel."""
-    step = B * S * H * Dh
-    nbytes = 4 * (4 * step + 3 * step + step + 4 * H * Dh * Dh
-                  + 7 * B * H * Dh + 4 * step + 4 * B * H * Dh)
-    return (nbytes, 2 * step * 4 * Dh, 60 * step, F32_PRODUCT_FLOPS_PER_S)
+def slstm_bwd_work(*shape):
+    """One K5 backward call (``slstm_scan/work.py``)."""
+    return _work("slstm_scan", "slstm_bwd_work", *shape)
 
 
 def gram_work(B, D, linear):
-    """One K6 call: x and sigma^2 read, the Gram written."""
-    return (4 * B * D + 4 + 4 * B * B, *gram_flops(B, D, linear),
-            F32_PRODUCT_FLOPS_PER_S)
+    """One K6 call (``hsic_gram/work.py``)."""
+    return _work("hsic_gram", "gram_work", B, D, linear)
 
 
 def gram_stats_work(B):
-    """One K7 call: two Grams read, three sums written; per entry of each
-    Gram its row and column sums (2), its centring (3), and the three
-    products with their sums (6 in all), all elementwise."""
-    return 8 * B * B + 12, 0, 16 * B * B, F32_PRODUCT_FLOPS_PER_S
+    """One K7 call (``hsic_gram/work.py``)."""
+    return _work("hsic_gram", "gram_stats_work", B)
 
 
 def nhsic_work(name, B, Dx, Dz, lx, lz=False):
-    """One K1, K2 or K3 call."""
-    (px, ex), (pz, ez) = gram_flops(B, Dx, lx), gram_flops(B, Dz, lz)
-    prod, elem = px + pz, ex + ez
-    act = 4 * B * (Dx + Dz)
-    rate = F32_PRODUCT_FLOPS_PER_S
-    if name == "nhsic_rowsums":
-        return act + 8 + 8 * B, prod, elem + 2 * B * B, rate
-    if name == "nhsic_stats_feats":
-        # centring (3 per entry per Gram) and three products with sums
-        return act + 8 * B + 16 + 12, prod, elem + 12 * B * B, rate
-    # centring, G (3 each), W (2 each), the row-sum term; W.x a product
-    return (act + 8 * B + 28 + act, prod + 2 * B * B * (Dx + Dz),
-            elem + 16 * B * B + 4 * B * (Dx + Dz), rate)
+    """One K1, K2 or K3 call (``hsic_gram/work.py``)."""
+    return _work("hsic_gram", "nhsic_work", name, B, Dx, Dz, lx, lz)
 
 
 WORK = {"flash_attention_fwd": flash_work, "slstm_scan_fwd": slstm_work,
@@ -1608,12 +1594,10 @@ def _same_run(torch, rounds_a, params_a, rounds_b, params_b):
 def determinism_phase(torch, kernels, np, rounds, params):
     """Main path 1's four rounds again from the same seed: the port as it
     is (a server on a CUDA device makes cuDNN deterministic) must repeat
-    the first run bit for bit, round losses and params.  Then, for the
-    record, twice with ``cudnn.deterministic`` back at PyTorch's default
-    (what the port did before): their s/round, whether they repeat each
-    other, and once more under ``torch.use_deterministic_algorithms(True,
-    warn_only=True)``: the ops on this path that PyTorch names as having
-    no deterministic implementation."""
+    the first run bit for bit, round losses and params.  Then once more
+    under ``torch.use_deterministic_algorithms(True, warn_only=True)``:
+    the ops on this path that PyTorch names as having no deterministic
+    implementation."""
     import warnings
 
     def run(default_cudnn):
@@ -1631,9 +1615,6 @@ def determinism_phase(torch, kernels, np, rounds, params):
     print(f"  the port again from seed {SEED}: round losses {losses} and "
           f"params {'identical' if repeats else 'DIFFER'}", flush=True)
     check(repeats, "main path 1 does not repeat itself bit for bit")
-    base = [run(True) for _ in range(2)]
-    base_repeats = _same_run(torch, base[0][0], base[0][1], base[1][0],
-                             base[1][1])
     convs = conv_repeats(torch)
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
@@ -1651,16 +1632,9 @@ def determinism_phase(torch, kernels, np, rounds, params):
 
     out = {"repeats": repeats, "seconds": per_round(rounds),
            "again_seconds": per_round(again),
-           "default_cudnn_seconds": [per_round(b[0]) for b in base],
-           "default_cudnn_losses": [[r["mean_loss"] for r in b[0]]
-                                    for b in base],
-           "default_cudnn_repeats": base_repeats,
            "conv_repeats": convs, "flagged_ops": flagged}
     print(f"  s/round, deterministic cuDNN: {per_round(rounds)}, "
-          f"{per_round(again)}; PyTorch's default cuDNN: "
-          f"{out['default_cudnn_seconds']} (losses "
-          f"{out['default_cudnn_losses']}, "
-          f"{'identical' if base_repeats else 'differ'})", flush=True)
+          f"{per_round(again)}", flush=True)
     print(f"  ops without a deterministic implementation: {flagged or 'none'}",
           flush=True)
     print(f"  cuDNN conv passes that repeat their bits over three calls "
@@ -3334,12 +3308,6 @@ class _TableRecorder:
         self.runners.clear()
 
 
-def _state_of(runner):
-    """What a method's rounds move: its params (and a depth method's
-    heads)."""
-    return {"params": runner.params, "heads": getattr(runner, "heads", None)}
-
-
 def _cpu_tree(tree):
     from repro_torch.common.tree import tree_map
     return tree_map(lambda t: t.detach().cpu(), tree)
@@ -3492,7 +3460,6 @@ def tables_path(torch, kernels, np):
     10 classes, the reference's fleet (20 clients, 5 a round, E = 1,
     B = 32, 4 stages), TABLE_ROUNDS rounds a method."""
     from repro_torch.benchmarks import table1_accuracy, table2_complexity
-    from repro_torch.common.tree import tree_leaves
     out = {}
     rec = _TableRecorder(kernels, keep=("resnet18",))
     reset_all(kernels)
@@ -3527,8 +3494,6 @@ def tables_path(torch, kernels, np):
           "table 1: NeuLite took no local step on ResNet18")
     bad = rec.finite(torch)
     check(not bad, f"non-finite local losses in {bad}")
-    first = {m: _cpu_tree(_state_of(r))
-             for (a, m), r in rec.runners.items()}
     runners = {m: r for (a, m), r in rec.runners.items()}
 
     phase("main path 7: the baselines' steps, card against CPU")
@@ -3542,23 +3507,6 @@ def tables_path(torch, kernels, np):
                       scatter_check(torch, runners["fedrolex"], 1)]
     rec.release()
     del runners
-
-    phase("main path 7: ResNet18's ten methods again from the seed")
-    again = _TableRecorder(kernels, keep=("resnet18",))
-    t1b = table1_accuracy.run(rounds=TABLE_ROUNDS, archs=("resnet18",),
-                              device="cuda", out_path=TABLE1_REPEAT_OUT,
-                              hooks=again, quiet=True, **TABLE_SIZE)
-    differ = [m for (a, m), r in again.runners.items()
-              if not all(torch.equal(x.cpu(), y) for x, y in zip(
-                  tree_leaves(_state_of(r)), tree_leaves(first[m])))
-              or repr(t1b[(a, m)]["acc"]) != repr(t1[(a, m)]["acc"])]
-    again.release()
-    print(f"  params and accuracies {'identical' if not differ else 'DIFFER'}"
-          f" ({len(first)} methods){': ' + str(differ) if differ else ''}",
-          flush=True)
-    check(not differ, f"ResNet18's Table 1 methods do not repeat bit for "
-          f"bit: {differ}")
-    del first
 
     phase("main path 7: Table 2")
     rec2 = _TableRecorder(kernels)
@@ -7131,6 +7079,262 @@ def audit_path(torch, kernels):
     return out, counts
 
 
+# --------------------------------------------------------------------------- #
+# main path 15: the dry-run (repro_torch.launch.dryrun)
+# --------------------------------------------------------------------------- #
+# 15a: (arch, shape, mesh, mode); the first two are 15b's calibration pair
+DRYRUN_CASES = [("qwen3-1.7b", "prefill_32k", "pod", "prefill"),
+                ("qwen3-1.7b", "decode_32k", "pod", "decode"),
+                ("deepseek-v2-lite-16b", "train_4k", "multipod", "train"),
+                ("xlstm-1.3b", "train_4k", "pod", "neulite")]
+DRYRUN_LIMIT_S = 400               # each trace's own time limit
+DRYRUN_PEAK_TOL = 0.10             # 15b: dry-run peak against the card's
+
+
+def dryrun_start():
+    """15a's four traces, each ``python -m repro_torch.launch.dryrun`` in a
+    child of its own (a fake process group is one per process; they run
+    on fake tensors on the CPU and touch no card), all started together
+    before main path 13, so that they trace while the later paths run;
+    ``dryrun_path`` joins them after Fig. 6.  Each record goes to
+    ``dryrun_record_path``, outside the sweep's ``results/dryrun_torch``."""
+    import atexit
+    import subprocess
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    os.makedirs(os.path.dirname(OUT), exist_ok=True)
+    procs = []
+    for arch, shape, mesh, mode in DRYRUN_CASES:
+        if os.path.exists(dryrun_record_path(arch, shape)):
+            os.remove(dryrun_record_path(arch, shape))
+        log = open(os.path.join(os.path.dirname(OUT),
+                                f"dryrun_{arch}_{shape}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--mode", mode,
+             "--out", dryrun_record_path(arch, shape),
+             "--time-limit", str(DRYRUN_LIMIT_S)],
+            cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT), log))
+
+    def stop():
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+
+    atexit.register(stop)
+    return procs, time.perf_counter(), stop
+
+
+def dryrun_record_path(arch, shape):
+    return os.path.join(os.path.dirname(OUT), f"dryrun_{arch}_{shape}.json")
+
+
+def dryrun_record(arch, shape):
+    with open(dryrun_record_path(arch, shape)) as f:
+        return json.load(f)
+
+
+def dryrun_traces(started):
+    """15a: join the four traces and check each record: ``ok``; K4's
+    counted FLOPs above 0 where attention runs through it (qwen3's
+    prefill), K5's (and its backward's) in the xLSTM; one all-gather over
+    "model" a model-sharded leaf; train and neulite one data-axis
+    all-reduce a trainable leaf.  Prints each one's trace seconds, counted
+    and partitioned FLOPs per rank, peak, ``fits_h100``, collectives per
+    kind and bottleneck."""
+    procs, t0, stop = started
+    try:
+        codes = [proc.wait(timeout=max(1.0, DRYRUN_LIMIT_S + 60
+                                       - (time.perf_counter() - t0)))
+                 for proc, _ in procs]
+    finally:
+        stop()
+    waited = time.perf_counter() - t0
+    out = {}
+    for (arch, shape, mesh, mode), code in zip(DRYRUN_CASES, codes):
+        rec = dryrun_record(arch, shape)
+        name = f"{arch}/{shape}/{mesh}/{mode}"
+        check(code == 0 and rec["ok"],
+              f"15a {name}: exit {code}, {rec.get('error')}")
+        kern = rec["counted"]["flops_by_kernel"]
+        ch = rec["checks"]
+        coll = {k: v for k, v in rec["collectives"].items()
+                if isinstance(v, dict) and v.get("count")}
+        rf, ma = rec["roofline"], rec["memory_analysis"]
+        print(f"  15a {name}: trace {rec['trace_s']} s, FLOPs/rank counted "
+              f"{rec['counted']['flops_per_chip']:.4e} against partitioned "
+              f"{rec['analytic']['flops_per_chip_partitioned']:.4e} "
+              f"({rec['analytic']['counted_over_partitioned']:.2f}x), "
+              f"kernels {kern}, peak {ma['peak_bytes'] / 1e9:.2f} GB "
+              f"fits_h100 {ma['fits_h100']}, collectives "
+              f"{ {k: v for k, v in coll.items() if k != 'by_axis'} }, "
+              f"bottleneck {rf['bottleneck']} (compute {rf['compute_s']:.4f}"
+              f" s, memory {rf['memory_s']:.4f} s, collective "
+              f"{rf['collective_s']:.4f} s)", flush=True)
+        if mode == "prefill" and arch.startswith("qwen3"):
+            check(kern.get("K4", 0) > 0, f"15a {name}: K4 counted {kern}")
+        if arch.startswith("xlstm"):
+            check(kern.get("K5", 0) > 0 and (mode in ("prefill", "decode")
+                                             or kern.get("K5 bwd", 0) > 0),
+                  f"15a {name}: K5 counted {kern}")
+        check(ch["model_all_gathers"] == ch["model_sharded_leaves"],
+              f"15a {name}: {ch}")
+        if mode in ("train", "neulite"):
+            check(ch["data_all_reduces"] == ch["expected_data_all_reduces"]
+                  > 0, f"15a {name}: {ch}")
+        out[name] = {k: rec[k] for k in ("trace_s", "memory_analysis",
+                                         "counted", "analytic", "checks",
+                                         "roofline")}
+        out[name]["collectives"] = coll
+    return out, waited
+
+
+def dryrun_calibration(torch, records):
+    """15b: rank 0's program of the two qwen3-1.7b combinations run for
+    real on the card in a child (``--calibrate``: its collectives over the
+    same fake group): the dry-run's peak within 10% of the allocator's
+    peak, the fake and real ``FlopCounterMode`` counts equal, the real
+    step's ms beside the roofline's terms (its share of the larger of
+    compute and memory: the run's collectives move nothing)."""
+    import subprocess
+    import tempfile
+    gc.collect()
+    torch.cuda.empty_cache()
+    specs = [f"{a}:{s}:{m}:{mode}" for a, s, m, mode in DRYRUN_CASES[:2]]
+    with tempfile.TemporaryDirectory(prefix="dryrun-") as tmp:
+        path = os.path.join(tmp, "calibration.json")
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun",
+             "--calibrate", *specs, "--out", path], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            timeout=600)
+        check(proc.returncode == 0, f"15b: exit {proc.returncode}:\n"
+              f"{proc.stdout[-3000:]}")
+        with open(path) as f:
+            rows = json.load(f)
+    out, counts = {}, {}
+    for (arch, shape, mesh, mode), row in zip(DRYRUN_CASES, rows):
+        name = f"{arch}/{shape}/{mesh}/{mode}"
+        rec = records[name]
+        dry = rec["memory_analysis"]["peak_bytes"]
+        real = row["max_memory_allocated"]
+        fake_flops = rec["counted"]["flops_per_chip"]
+        rf = rec["roofline"]
+        term = max(("compute_s", "memory_s", "collective_s"),
+                   key=lambda k: rf[k])
+        # the run's collectives move nothing: its time is held against
+        # the larger of the compute and memory terms
+        card = max(("compute_s", "memory_s"), key=lambda k: rf[k])
+        share = rf[card] * 1e3 / row["ms"]
+        print(f"  15b {name}: peak dry-run {dry / 1e9:.3f} GB, card "
+              f"{real / 1e9:.3f} GB ({dry / real:.4f}x); FLOPs fake "
+              f"{fake_flops} real {row['flops']}; step {row['ms']:.2f} ms "
+              f"(counted run) against the roofline's compute "
+              f"{rf['compute_s'] * 1e3:.2f} / memory "
+              f"{rf['memory_s'] * 1e3:.2f} / collective "
+              f"{rf['collective_s'] * 1e3:.2f} ms (largest: {term}); "
+              f"{card} is {share:.3f} of the step; launches "
+              f"{row['launches']}", flush=True)
+        check(abs(dry - real) <= DRYRUN_PEAK_TOL * real,
+              f"15b {name}: dry-run peak {dry} against the card's {real}")
+        check(row["flops"] == fake_flops
+              and row["flops_by_kernel"] == rec["counted"]["flops_by_kernel"],
+              f"15b {name}: FLOPs fake {fake_flops} "
+              f"{rec['counted']['flops_by_kernel']}, real {row['flops']} "
+              f"{row['flops_by_kernel']}")
+        for c in row["launches"]:
+            for k, v in c.items():
+                counts[k] = counts.get(k, 0) + v
+        out[name] = dict(row, dry_peak_bytes=dry, roofline_term=term,
+                         card_term=card, card_term_share=share)
+    return out, counts
+
+
+# 15b: K4 alone at qwen3-1.7b prefill_32k's per-rank shape on (16, 16)
+# (B 2, S 32768, 16 heads over 8 of 128, causal, bf16): the call each of
+# the calibration prefill's 28 layers makes
+FLASH_PREFILL_32K = (2, 32768, 32768, 16, 8, 128, True, 0, "bfloat16")
+FLASH_PREFILL_ROWS = 1024      # query rows held against the plain version
+
+
+def dryrun_k4_alone(torch, fkernel, fref, record, step_ms):
+    """15b: K4 alone at the calibration prefill's shape (``record`` is
+    15a's, whose counted K4 calls must be at it): CUDA events around each
+    of three calls after one warm-up, their median beside the bound and
+    as a share of the counted step (``step_ms``, 28 calls in it).  Causal
+    query rows see only keys up to their own position, so the first
+    FLASH_PREFILL_ROWS rows of the output are held against the plain
+    version on the first as many queries and keys."""
+    case = FLASH_PREFILL_32K
+    B, Sq, Skv, H, KV, D, causal, window, _ = case
+    calls = [c for c in record["counted"]["kernel_calls"]
+             if c["op"] == "flash_attention_fwd"]
+    check([c["args"] for c in calls] == [[[B, Sq, H, D], [B, Skv, KV, D],
+                                          [B, Skv, KV, D]]]
+          and calls[0]["kwargs"].get("causal") == causal,
+          f"15b: K4's counted calls {calls} are not at {case}")
+    g = torch.Generator(device="cuda").manual_seed(Sq)
+    q, k, v = (torch.randn(shp, generator=g, device="cuda",
+                           dtype=torch.bfloat16)
+               for shp in [(B, Sq, H, D), (B, Skv, KV, D), (B, Skv, KV, D)])
+    out = fkernel.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    n = FLASH_PREFILL_ROWS
+    want = fref.attention_ref(q[:, :n], k[:, :n], v[:, :n], causal=causal,
+                              window=window)
+    rel, _ = rel_abs(out[:, :n].float(), want.float())
+    check(bool(torch.isfinite(out).all()) and rel <= BF16_TOL,
+          f"15b: K4 at {case}: first {n} rows rel err {rel}")
+    times = []
+    for _ in range(3):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fkernel.flash_attention_fwd(q, k, v, causal=causal, window=window)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    ms = statistics.median(times)
+    b_ms, b_by = bound_ms("flash_attention_fwd", case)
+    flops = flash_work(*case)[1]
+    calls_ms = ms * calls[0]["calls"]
+    print(f"  15b K4 alone at {case}: {ms:.2f} ms a call (CUDA events, "
+          f"median of {[round(t, 2) for t in times]} after a warm-up), "
+          f"{flops / ms / 1e9:.2f} TFLOP/s, bound {b_ms:.2f} ms ({b_by}); "
+          f"x{calls[0]['calls']} calls {calls_ms:.0f} ms, "
+          f"{calls_ms / step_ms:.3f} of the counted step's {step_ms:.0f} "
+          f"ms; first {n} rows rel err {rel:.2e}", flush=True)
+    del q, k, v, out, want
+    torch.cuda.empty_cache()
+    return {"shape": list(case), "ms": ms, "times_ms": times,
+            "flops": flops, "bound_ms": b_ms, "bound_by": b_by,
+            "calls": calls[0]["calls"], "share_of_step": calls_ms / step_ms,
+            "rel_err_first_rows": rel}
+
+
+def dryrun_path(torch, kernels, fkernel, fref, started):
+    """Main path 15: 15a's traces (started by ``dryrun_start``) joined and
+    checked, then 15b's calibration on the card.  The launches are 15b's
+    child's (the traces run fake kernels and launch none)."""
+    t0 = time.perf_counter()
+    out = {"15a": {}, "15b": {}, "seconds": {}}
+    out["15a"], out["seconds"]["15a_wait"] = dryrun_traces(started)
+    t1 = time.perf_counter()
+    out["15b"], counts = dryrun_calibration(torch, out["15a"])
+    name = "/".join(DRYRUN_CASES[0])
+    out["15b"]["k4_alone"] = dryrun_k4_alone(
+        torch, fkernel, fref, out["15a"][name], out["15b"][name]["ms"])
+    out["seconds"]["15b"] = time.perf_counter() - t1
+    out["seconds"]["total"] = time.perf_counter() - t0
+    check(counts.get("flash_attention_fwd", 0) > 0,
+          f"15b: K4 launches {counts}")
+    print(f"  main path 15 parts (s): "
+          f"{ {k: round(v, 1) for k, v in out['seconds'].items()} }",
+          flush=True)
+    return out, {n: counts.get(n, 0) for k in kernels for n in k.LAUNCHES}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7303,6 +7507,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
+    phase("main path 15: the dry-run's traces start (joined at the end)")
+    dryrun_started = dryrun_start()
+
     phase("main path 13: Mamba, MoE and MLA")
     moe, moecounts = moe_path(torch, np, kernels)
     gc.collect()
@@ -7330,6 +7537,10 @@ def main():
     phase("Fig. 6: peak memory of each stage against the full-model step")
     fig6_out, fcounts = fig6_phase(torch, kernels)
 
+    phase("main path 15: the dry-run")
+    dryrun, drycounts = dryrun_path(torch, kernels, fkernel, fref,
+                                    dryrun_started)
+
     by_path = {"resnet18": counts, "vit12": vcounts, "xlstm": xcounts,
                "kernels_bench": bcounts,
                **{a: z["launches"] for a, z in zoo.items()},
@@ -7341,7 +7552,7 @@ def main():
                "fig2": f2counts, "fig5": f5counts, "fig8": f8counts,
                "quickstart": qcounts, "serving": servcounts,
                "training": traincounts, "moe": moecounts,
-               "audit": auditcounts,
+               "audit": auditcounts, "dryrun": drycounts,
                **{p: {n: c.get(n, 0) for n in xcounts}
                   for p, c in mcounts.items()}}
     launches = {n: sum(c[n] for c in by_path.values()) for n in xcounts}
@@ -7439,17 +7650,86 @@ def main():
                    "fig2": fig2_out, "fig5": fig5_out, "fig8": fig8_out,
                    "quickstart": quick_out, "async": asy, "mesh": mesh,
                    "serving": serving, "training": training, "moe": moe,
-                   "audit": audits,
+                   "audit": audits, "dryrun": dryrun,
                    "kernels": out_kernels, "device": device}, f, indent=1)
     phase("done")
     print(f"main path 11 took {serving['seconds']['total']:.1f} s, main "
           f"path 12 {training['seconds']['total']:.1f} s, main path 13 "
           f"{moe['seconds']['total']:.1f} s, main path 14 "
-          f"{audits['seconds']['total']:.1f} s; the whole run "
+          f"{audits['seconds']['total']:.1f} s, main path 15 "
+          f"{dryrun['seconds']['total']:.1f} s; the whole run "
           f"{time.perf_counter() - START:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": out_kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
+    return 0
+
+
+# --------------------------------------------------------------------------- #
+# Fig. 7's step times beside 15a's traces
+# --------------------------------------------------------------------------- #
+FIG7_OVERLAP_LEAD_S = 8.0          # the traces' imports before the rows
+FIG7_OVERLAP_OUT = os.path.join(ROOT, "chiprun_out", "fig7_overlap.json")
+
+
+def fig7_overlap():
+    """``python3 chip_smoke.py --fig7-overlap``: Fig. 7's rows
+    (``fig7_time.run`` as the Fig. 7 phase runs it) after one warm-up run,
+    alone, then with 15a's four traces running beside them on the host's
+    other cores (started FIG7_OVERLAP_LEAD_S before, past their imports),
+    then alone again, on one card in one process: what the traces' host
+    load does to the figure's host-bound step times.  Prints each row's
+    three full-step times and its stages' largest ratio to the mean of
+    the two runs alone, and writes the rows to
+    ``chiprun_out/fig7_overlap.json``."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.benchmarks import fig7_time
+    from repro_torch.benchmarks.common import smi_line
+    from repro_torch.kernels.build import build_libraries
+    from repro_torch.kernels.hsic_gram import kernel
+    print(smi_line(), flush=True)
+    card_settings(torch)
+    build_libraries([kernel.SOURCE])
+    kernel.library()
+
+    def rows():
+        return fig7_time.run(archs=FIG7_ARCHS, batch=FIG7_BATCH,
+                             device="cuda", sizes=FIG7_SIZES, quiet=True)
+
+    rows()                                      # warm-up, not kept
+    runs = {"alone": rows()}
+    procs, _, stop = dryrun_start()
+    try:
+        time.sleep(FIG7_OVERLAP_LEAD_S)
+        runs["beside the traces"] = rows()
+        running = [" ".join(c[:2]) for c, (p, _) in zip(DRYRUN_CASES, procs)
+                   if p.poll() is None]
+    finally:
+        stop()
+    runs["alone again"] = rows()
+    print(f"  traces still running at the end of the run beside them: "
+          f"{running}", flush=True)
+    for label, archs in runs["alone"].items():
+        for arch, row in archs.items():
+            for kind in row:
+                r = [runs[k][label][arch][kind] for k in runs]
+                if any(isinstance(x, str) for x in r):   # not measured
+                    continue
+                alone = [(a + b) / 2 for a, b in zip(r[0]["stage_ms"],
+                                                     r[2]["stage_ms"])]
+                worst = max(b / a for a, b in zip(alone, r[1]["stage_ms"]))
+                print(f"  {label} {arch:8s} {kind:8s} full ms alone "
+                      f"{r[0]['full_ms']:.3f}, beside the traces "
+                      f"{r[1]['full_ms']:.3f}, alone again "
+                      f"{r[2]['full_ms']:.3f}; stages beside / alone at "
+                      f"most {worst:.3f}x", flush=True)
+    os.makedirs(os.path.dirname(FIG7_OVERLAP_OUT), exist_ok=True)
+    with open(FIG7_OVERLAP_OUT, "w") as f:
+        json.dump({"runs": runs, "running": running}, f, indent=1)
     return 0
 
 
@@ -7458,4 +7738,6 @@ if __name__ == "__main__":
         sys.exit(resume_child(*sys.argv[2:4]))
     if sys.argv[1:2] == ["--mesh-child"]:
         sys.exit(mesh_child(*sys.argv[2:6]))
+    if sys.argv[1:2] == ["--fig7-overlap"]:
+        sys.exit(fig7_overlap())
     sys.exit(main())

@@ -73,6 +73,8 @@ class CollectiveRecord:
     location: str                   # the port's file:line
     phase: str                      # local | aggregation | consensus | other
     crossed_axes: Tuple[str, ...] = ()
+    result_nbytes: int = 0          # its first argument's: the output list
+                                    # or the tensor reduced in place
 
     def where(self) -> str:
         return f"{self.kind} over ranks {list(self.ranks)} ({self.location})"
@@ -115,7 +117,8 @@ def record_collectives():
             stack = traceback.extract_stack()[:-1]
             records.append(CollectiveRecord(
                 kind=name, ranks=ranks, nbytes=_nbytes(args, kwargs),
-                location=port_frame(stack), phase=_phase(stack)))
+                location=port_frame(stack), phase=_phase(stack),
+                result_nbytes=_nbytes(args[:1], {})))
             return fn(*args, **kwargs)
         return wrapped
 

@@ -10,6 +10,7 @@ from typing import Union
 
 import numpy as np
 import torch
+from torch._guards import detect_fake_mode
 
 DeviceLike = Union[str, torch.device, None]
 
@@ -30,13 +31,15 @@ def to_device(tree, device: torch.device):
     """numpy / tensor leaves of a dict tree -> tensors on ``device``.  Host
     data goes to a CUDA device through a pinned copy and an asynchronous
     copy from it: a copy from pageable memory waits for the stream to
-    drain (a host sync, which ``analysis.hostsync`` flags)."""
+    drain (a host sync, which ``analysis.hostsync`` flags).  Under a fake
+    tensor mode (the dry-run) nothing is copied, so nothing is pinned."""
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, np.ndarray):
         tree = torch.from_numpy(np.ascontiguousarray(tree))
     t = torch.as_tensor(tree)
-    if t.device.type == "cpu" and torch.device(device).type == "cuda":
+    if (t.device.type == "cpu" and torch.device(device).type == "cuda"
+            and detect_fake_mode() is None):
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
 

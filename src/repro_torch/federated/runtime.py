@@ -183,15 +183,18 @@ def eq1_aggregate(locals_, weights, losses):
     return new, (losses * wn).sum()
 
 
-def make_round_program(adapter: Adapter, optimizer, hp: CurriculumHP, t: int):
+def make_round_program(adapter: Adapter, optimizer, hp: CurriculumHP, t: int,
+                       aggregate=None):
     """round_fn(trainable, frozen, batches, weights, step_mask)
          -> (new_trainable, {"mean_local_loss", "cohort_losses"}):
-    ``make_local_program`` then ``eq1_aggregate``."""
+    ``make_local_program`` then ``aggregate`` (``eq1_aggregate`` by
+    default)."""
     local_fn = make_local_program(adapter, optimizer, hp, t)
+    aggregate = eq1_aggregate if aggregate is None else aggregate
 
     def round_fn(trainable, frozen, batches, weights, step_mask):
         locals_, losses = local_fn(trainable, frozen, batches, step_mask)
-        new_trainable, mean_loss = eq1_aggregate(locals_, weights, losses)
+        new_trainable, mean_loss = aggregate(locals_, weights, losses)
         return new_trainable, {"mean_local_loss": mean_loss,
                                "cohort_losses": losses}
 
@@ -214,11 +217,12 @@ def make_full_round_program(adapter: Adapter, optimizer):
     return round_fn
 
 
-def make_fl_round_step(adapter: Adapter, optimizer, hp: CurriculumHP, t: int):
+def make_fl_round_step(adapter: Adapter, optimizer, hp: CurriculumHP, t: int,
+                       aggregate=None):
     """round_fn(trainable, frozen, batches, weights) -> (new_trainable,
-    {"mean_local_loss"}): ``make_round_program`` with every step of the
-    (C, E, ...) stack taken."""
-    program = make_round_program(adapter, optimizer, hp, t)
+    {"mean_local_loss"}): ``make_round_program`` (with ``aggregate``) with
+    every step of the (C, E, ...) stack taken."""
+    program = make_round_program(adapter, optimizer, hp, t, aggregate)
 
     def round_fn(trainable, frozen, batches, weights):
         C, E = tree_leaves(batches)[0].shape[:2]
@@ -247,6 +251,52 @@ def cohort_batches_specs(cfg, num_cohorts: int, local_steps: int,
 # =========================================================================== #
 # the auditors' registry: runnable round programs (see repro_torch.analysis)
 # =========================================================================== #
+# dtypes off JAX's x64 mode: what the reference's ``abstract_like`` gives
+_CANONICAL = {torch.float64: torch.float32, torch.int64: torch.int32,
+              torch.complex128: torch.complex64}
+
+
+def abstract_like(tree):
+    """A tree of ``meta`` tensors with the shapes of ``tree``'s leaves and
+    the dtypes ``torch.as_tensor`` gives them, 64-bit types canonicalised
+    to 32 bits as the reference canonicalises off x64 (float64 -> float32,
+    int64 -> int32): nothing is allocated.  Leaves are tensors, numpy
+    arrays and Python or numpy numbers; a dataclass (a ``RoundStack``) is
+    rebuilt from its fields' abstracts; ``None`` stays."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: abstract_like(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(abstract_like(v) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: abstract_like(getattr(tree, f.name))
+            for f in dataclasses.fields(tree) if f.init})
+    if isinstance(tree, torch.Tensor):
+        shape, dtype = tuple(tree.shape), tree.dtype
+    else:
+        t = torch.as_tensor(np.asarray(tree))
+        shape, dtype = tuple(t.shape), t.dtype
+    return torch.empty(shape, dtype=_CANONICAL.get(dtype, dtype),
+                       device="meta")
+
+
+def shard_abstract(abstract, placements, mesh):
+    """The per-rank shard of each leaf of an abstract tree: a ``meta``
+    tensor of the shape ``launch.sharding.shard`` gives this rank's block
+    under its ``Placement`` (``model_dim`` over "model", the cohort or
+    batch dim ``cohort_dim`` over ``cohort_axis``)."""
+    def cut(a, p):
+        shape = list(a.shape)
+        if p.cohort_axis is not None:
+            shape[p.cohort_dim] //= sharding.axes_size(mesh, p.cohort_axis)
+        if p.model_dim is not None:
+            shape[p.model_dim] //= mesh.shape[sharding.MODEL]
+        return torch.empty(shape, dtype=a.dtype, device="meta")
+    return tree_map(cut, abstract, placements)
+
+
 @dataclasses.dataclass
 class RoundProgramSpec:
     """One round program of a runtime and the contracts it must meet (port
@@ -283,6 +333,12 @@ class RoundProgramSpec:
     model_axis: Optional[str] = None
     stage: Optional[int] = None
     n_agg_leaves: int = 0
+
+    @property
+    def abstract_args(self) -> tuple:
+        """``args`` as ``abstract_like`` gives them, as the reference's
+        spec carries them."""
+        return abstract_like(self.args)
 
     def run(self):
         """The program once, on its arguments."""
@@ -646,6 +702,115 @@ def _round_digest(stack: RoundStack, cohorts) -> np.ndarray:
     return np.frombuffer(h.digest(), np.int64).copy()
 
 
+class StagePlacements:
+    """Cached per-stage placements on a ``(data, model)`` mesh (port of the
+    reference's ``StagePlacements``).
+
+    One instance per runtime on a mesh: ``placements(t)`` gives the
+    ``(trainable, frozen, cohort axis)`` ``Placement``s of stage ``t``
+    (fitted from the adapter's ParamDef specs), ``stacked_locals(t)`` those
+    of per-cohort locals (C, *param), and ``place_inputs`` cuts a round's
+    inputs to this rank's part: the trainable tree to its model shards,
+    the cohort stack to this rank's block of the data axis.  ``shard`` /
+    ``unshard`` cut a stage-t trainable tree to this rank's model shards
+    and gather it whole again.  The port keeps the frozen prefix whole on
+    every rank, where the reference commits it to its model shards."""
+
+    def __init__(self, adapter: Adapter, mesh, axis: str = "data",
+                 model_axis: str = "model"):
+        self.adapter = adapter
+        self.mesh = mesh
+        self.axis = axis
+        self.model_axis = model_axis
+        self._cache: Dict[int, Any] = {}
+
+    def placements(self, t: int):
+        if t not in self._cache:
+            frozen_defs, trainable_defs = self.adapter.split_stage(
+                self.adapter.defs, t)
+            self._cache[t] = (
+                sharding.tree_placements(trainable_defs, self.mesh),
+                sharding.tree_placements(frozen_defs, self.mesh),
+                sharding.Placement(None, self.axis))
+        return self._cache[t]
+
+    def stacked_locals(self, t: int):
+        """Per-cohort local weights (C, *param): the cohort axis over
+        ``axis``, the param dims as ``placements``."""
+        return sharding.stacked_tree_placements(
+            self.adapter.split_stage(self.adapter.defs, t)[1], self.mesh,
+            self.axis)
+
+    def shard(self, t: int, tree, lead: int = 0):
+        """This rank's model shards of a stage-t trainable tree (``lead``
+        leading axes in front of every leaf)."""
+        return tree_map(lambda x, p: sharding.shard(
+            x, None if p.model_dim is None else p.model_dim + lead,
+            self.mesh, self.model_axis), tree, self.placements(t)[0])
+
+    def unshard(self, t: int, tree, lead: int = 0):
+        """A stage-t trainable tree whole from every rank's shards (a
+        collective: every rank calls it)."""
+        return tree_map(lambda x, p: sharding.unshard(
+            x, None if p.model_dim is None else p.model_dim + lead,
+            self.mesh, self.model_axis), tree, self.placements(t)[0])
+
+    def place_inputs(self, t: int, trainable, stack: RoundStack):
+        """(held, padded stack, start, stop, this rank's block of it):
+        ``trainable`` cut to this rank's model shards (itself at a model
+        size of 1), the cohort axis padded to a multiple of the data size
+        (``pad_cohorts``) and this rank's contiguous block
+        ``[start, stop)`` of it."""
+        shards = self.mesh.shape[self.axis]
+        padded = pad_cohorts(stack, shards)
+        start, stop = sharding.block(padded.num_cohorts, shards,
+                                     self.mesh.index(self.axis))
+        return (self.shard(t, trainable), padded, start, stop,
+                _cohort_block(padded, start, stop))
+
+
+def all_cohorts(mesh, axis, block, start, n_padded, n):
+    """A (block, ...) tensor of this rank's cohorts as the (n, ...) tensor
+    of every rank's: written into zeros, all-reduced over ``axis`` (exact:
+    every entry sums one value and zeros), the padding trimmed."""
+    out = torch.zeros((n_padded, *block.shape[1:]), dtype=block.dtype,
+                      device=block.device)
+    out[start:start + block.shape[0]] = block
+    return mesh.all_reduce(out, axis)[:n]
+
+
+def eq1_over_mesh(mesh, axis, model_axis, placements, start, n, locals_held,
+                  weights, losses):
+    """Eq. 1 on a ``(data, model)`` mesh, the sharded runtime's seam:
+    ``locals_held`` (C_block, ...) and ``losses`` (C_block,) are this rank's
+    block (from cohort ``start``) of the padded cohort axis, each leaf cut
+    to its model shard by ``placements`` (the stage's trainable
+    ``Placement``s); the host ``weights`` (C_pad,) are normalised by their
+    global total here (a zero or non-finite total raises).  Each leaf is
+    summed over the block in f32, all-reduced over ``axis`` and, where
+    model-sharded, gathered whole over ``model_axis``; the losses
+    all-reduce as one zero (C_pad,) vector with this block written in.
+    Returns ``(new_trainable, mean_loss, cohort_losses)`` of the first
+    ``n`` cohorts."""
+    w = np.asarray(weights, np.float64)
+    total = w.sum()
+    if not np.isfinite(total) or total <= 0:
+        raise ValueError(f"aggregation needs a positive finite weight "
+                         f"sum; got {total}")
+    wn = to_device((w / total).astype(np.float32), losses.device)
+    mine = wn[start:start + losses.shape[0]]
+
+    def eq1(leaf, p):
+        part = torch.einsum("c...,c->...", leaf.float(), mine)
+        whole = sharding.unshard(mesh.all_reduce(part, axis), p.model_dim,
+                                 mesh, model_axis)
+        return whole.to(leaf.dtype)
+
+    new_trainable = tree_map(eq1, locals_held, placements)
+    cohort_losses = all_cohorts(mesh, axis, losses, start, len(w), n)
+    return new_trainable, (cohort_losses * wn[:n]).sum(), cohort_losses
+
+
 class ShardedRuntime(VectorizedRuntime):
     """The vectorized round over a 2-D ``(data, model)`` mesh of ranks
     (``launch.mesh.HostMesh``; the default ``make_host_mesh`` lays the
@@ -695,7 +860,7 @@ class ShardedRuntime(VectorizedRuntime):
                                        model_axis)
         self.axis = axis
         self.model_axis = model_axis
-        self._placements: Dict[int, Any] = {}
+        self.place = StagePlacements(adapter, self.mesh, axis, model_axis)
         self.held_trainable_bytes: Optional[int] = None
 
     @property
@@ -705,27 +870,6 @@ class ShardedRuntime(VectorizedRuntime):
     @property
     def model_shards(self) -> int:
         return dict(self.mesh.shape).get(self.model_axis, 1)
-
-    def placements(self, t: int):
-        """Stage t's trainable ``launch.sharding.Placement`` tree."""
-        if t not in self._placements:
-            defs = self.adapter.split_stage(self.adapter.defs, t)[1]
-            self._placements[t] = sharding.tree_placements(defs, self.mesh)
-        return self._placements[t]
-
-    def shard_trainable(self, t: int, tree, lead: int = 0):
-        """This rank's model shards of a stage-t trainable tree (``lead``
-        leading axes in front of every leaf)."""
-        return tree_map(lambda x, p: sharding.shard(
-            x, None if p.model_dim is None else p.model_dim + lead,
-            self.mesh, self.model_axis), tree, self.placements(t))
-
-    def unshard_trainable(self, t: int, tree, lead: int = 0):
-        """A stage-t trainable tree whole from every rank's shards (a
-        collective: every rank calls it)."""
-        return tree_map(lambda x, p: sharding.unshard(
-            x, None if p.model_dim is None else p.model_dim + lead,
-            self.mesh, self.model_axis), tree, self.placements(t))
 
     def _check_same_round(self, stack: RoundStack, cohorts) -> None:
         """Every rank's round digest (``_round_digest``) against rank 0's,
@@ -750,15 +894,11 @@ class ShardedRuntime(VectorizedRuntime):
         (padded stack, start, stop, locals_ (block, ...) as held, losses
         (block,), the stage's trainable as held)."""
         self._check_same_round(stack, cohorts)
-        padded = pad_cohorts(stack, self.data_shards)
-        start, stop = sharding.block(padded.num_cohorts, self.data_shards,
-                                     self.mesh.index(self.axis))
-        mine = _cohort_block(padded, start, stop)
+        held, padded, start, stop, mine = self.place.place_inputs(
+            t, trainable, stack)
         if self.model_shards == 1:
             locals_, losses = self._train_cohorts(t, trainable, frozen, mine)
-            held = trainable
         else:
-            held = self.shard_trainable(t, trainable)
             locals_, losses = self._train_sharded(t, held, trainable,
                                                   frozen, mine)
         self.held_trainable_bytes = sharding.per_device_nbytes(held)
@@ -786,27 +926,17 @@ class ShardedRuntime(VectorizedRuntime):
         for e in range(E):
             batch = tree_map(lambda x: x[:, e].contiguous(), batches)
             opt_state, local, metrics = step(
-                opt_map(lambda m: self.unshard_trainable(t, m, lead=1),
+                opt_map(lambda m: self.place.unshard(t, m, lead=1),
                         opt_state),
-                self.unshard_trainable(t, local, lead=1), frozen, batch,
+                self.place.unshard(t, local, lead=1), frozen, batch,
                 trainable, mask[:, e])
-            local = self.shard_trainable(t, local, lead=1)
+            local = self.place.shard(t, local, lead=1)
             opt_state = opt_map(
-                lambda m: self.shard_trainable(t, m, lead=1),
+                lambda m: self.place.shard(t, m, lead=1),
                 dict(opt_state, step=opt_state["step"].clone()))
             total = total + metrics["loss"]
         self.release()
         return local, total / torch.clamp(mask.sum(1), min=1)
-
-    def _all_cohorts(self, block, start, n_padded, n):
-        """A (block, ...) tensor of this rank's cohorts as the (n, ...)
-        tensor of every rank's: written into zeros, all-reduced over
-        "data" (exact: every entry sums one value and zeros), the padding
-        trimmed."""
-        out = torch.zeros((n_padded, *block.shape[1:]), dtype=block.dtype,
-                          device=block.device)
-        out[start:start + block.shape[0]] = block
-        return self.mesh.all_reduce(out, self.axis)[:n]
 
     def cohort_deltas(self, t, trainable, frozen, stack: RoundStack,
                       cohorts=None):
@@ -826,9 +956,11 @@ class ShardedRuntime(VectorizedRuntime):
         against ``held`` and every cohort's loss, on every rank: one
         all-reduce over "data" of a zero (n_padded, ...) stack a leaf,
         and one of the losses."""
-        deltas = tree_map(lambda loc, base: self._all_cohorts(
-            loc.float() - base.float(), start, n_padded, n), locals_, held)
-        return deltas, self._all_cohorts(losses, start, n_padded, n)
+        deltas = tree_map(lambda loc, base: all_cohorts(
+            self.mesh, self.axis, loc.float() - base.float(), start,
+            n_padded, n), locals_, held)
+        return deltas, all_cohorts(self.mesh, self.axis, losses, start,
+                                   n_padded, n)
 
     def _run_stack(self, t, trainable, frozen, stack: RoundStack,
                    cohorts=None):
@@ -838,31 +970,11 @@ class ShardedRuntime(VectorizedRuntime):
                               padded.weights, losses)
 
     def _eq1_seam(self, t, start, n, locals_, weights, losses):
-        """Eq. 1 on the mesh: ``locals_`` and ``losses`` are this rank's
-        block (from cohort ``start``) of the padded cohort axis, whose host
-        ``weights`` are normalised by their global total here; each leaf
-        is summed over the block in f32, all-reduced over "data" and, where
-        model-sharded, gathered whole over "model"; the losses all-reduce
-        as one zero (C_pad,) vector with this block written in.  Returns
+        """``eq1_over_mesh`` of this rank's block of stage-t locals:
         ``(new_trainable, metrics)`` of the first ``n`` cohorts."""
-        w = np.asarray(weights, np.float64)
-        total = w.sum()
-        if not np.isfinite(total) or total <= 0:
-            raise ValueError(f"aggregation needs a positive finite weight "
-                             f"sum; got {total}")
-        wn = to_device((w / total).astype(np.float32), self.device)
-        mine = wn[start:start + losses.shape[0]]
-
-        def eq1(leaf, p):
-            part = torch.einsum("c...,c->...", leaf.float(), mine)
-            whole = sharding.unshard(self.mesh.all_reduce(part, self.axis),
-                                     p.model_dim, self.mesh,
-                                     self.model_axis)
-            return whole.to(leaf.dtype)
-
-        new_trainable = tree_map(eq1, locals_, self.placements(t))
-        cohort_losses = self._all_cohorts(losses, start, len(w), n)
-        mean_loss = (cohort_losses * wn[:n]).sum()
+        new_trainable, mean_loss, cohort_losses = eq1_over_mesh(
+            self.mesh, self.axis, self.model_axis, self.place.placements(t)[0],
+            start, n, locals_, weights, losses)
         return new_trainable, {"mean_local_loss": mean_loss,
                                "cohort_losses": cohort_losses}
 
@@ -875,10 +987,8 @@ class ShardedRuntime(VectorizedRuntime):
         """(start, padded weights, a stand-in for this rank's block of
         trained locals: the trainable tree as held, once a cohort, and zero
         losses): the Eq. 1 seam's arguments without running a round."""
-        padded = pad_cohorts(stack, self.data_shards)
-        start, stop = sharding.block(padded.num_cohorts, self.data_shards,
-                                     self.mesh.index(self.axis))
-        held = self.shard_trainable(t, trainable)
+        held, padded, start, stop, _ = self.place.place_inputs(
+            t, trainable, stack)
         locals_ = tree_map(lambda p: p.expand(stop - start, *p.shape)
                            .clone(), held)
         return (start, np.asarray(padded.weights), locals_,
@@ -1222,7 +1332,7 @@ class AsyncBufferedRuntime(VectorizedRuntime):
         each entry's delta is cut to this rank's shard."""
         if self.model_shards > 1:
             for e in state.entries:
-                e.delta = self._sharded.shard_trainable(e.stage, e.delta)
+                e.delta = self._sharded.place.shard(e.stage, e.delta)
         self.state = state
 
     def checkpoint_state(self):
@@ -1235,7 +1345,7 @@ class AsyncBufferedRuntime(VectorizedRuntime):
         whole = AsyncServerState()
         whole.version, whole.clock = self.state.version, self.state.clock
         whole.entries = [dataclasses.replace(
-            e, delta=self._sharded.unshard_trainable(e.stage, e.delta))
+            e, delta=self._sharded.place.unshard(e.stage, e.delta))
             for e in self.state.entries]
         return whole.state_dict()
 
@@ -1339,7 +1449,7 @@ class AsyncBufferedRuntime(VectorizedRuntime):
         new_trainable = tree_map(lambda b, ref: b.to(ref.dtype), new_tr,
                                  base)
         if self._sharded is not None:
-            new_trainable = self._sharded.unshard_trainable(t, new_trainable)
+            new_trainable = self._sharded.place.unshard(t, new_trainable)
         if n_flushed:
             w = to_device((np.asarray(eff_w) / np.sum(eff_w))
                           .astype(np.float32), self.device)

@@ -10,7 +10,8 @@ a compiler.
 ``LAUNCHES`` counts the kernel's launches (one per call on the card, none
 on the CPU); ``reset_launches`` sets the count to 0.  ``kernel_resources``
 reads each built instance's registers, shared memory and spills (it
-launches nothing).
+launches nothing).  ``FlopCounterMode`` counts a call's product FLOPs from
+``work.flash_work``, the formula of its bound.
 """
 from __future__ import annotations
 
@@ -18,11 +19,12 @@ import ctypes
 from pathlib import Path
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.common.device import check_kernel_inputs
 from repro_torch.kernels.audit import read_resources
 from repro_torch.kernels.build import load_library
-from repro_torch.kernels.flash_attention import ref
+from repro_torch.kernels.flash_attention import ref, work
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 MAX_HEAD_DIM = 128          # DMAX in flash_attention.cu
@@ -120,6 +122,14 @@ def _(q, k, v, *, causal, window=0):
 @flash_attention_fwd.register_fake
 def _(q, k, v, *, causal, window=0):
     return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_fwd)
+def _(q_shape, k_shape, v_shape, *, causal, window=0, out_shape=None,
+      **_):
+    B, Sq, H, D = q_shape
+    return work.flash_work(B, Sq, k_shape[1], H, k_shape[2], D, causal,
+                           window, "float32")[1]
 
 
 @torch.library.register_vmap(flash_attention_fwd)

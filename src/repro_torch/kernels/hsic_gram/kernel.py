@@ -14,7 +14,8 @@ card, whatever the number of cohorts; none on the CPU); ``reset_launches``
 sets the counts to 0.  A replayed CUDA graph runs no Python: the captured
 step adds the counts it recorded at capture (``core.progressive``).
 ``kernel_resources`` reads each built kernel's registers, shared memory
-and spills (it launches nothing).
+and spills (it launches nothing).  ``FlopCounterMode`` counts a K1-K3
+call's product FLOPs from ``work.nhsic_work``, the formula of its bound.
 """
 from __future__ import annotations
 
@@ -23,11 +24,12 @@ import math
 from pathlib import Path
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.common.device import check_kernel_inputs
 from repro_torch.kernels.audit import read_resources
 from repro_torch.kernels.build import load_library
-from repro_torch.kernels.hsic_gram import ref
+from repro_torch.kernels.hsic_gram import ref, work
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "nhsic.cu"
 TILE = 32   # rows and columns of one Gram tile, as in nhsic.cu
@@ -196,6 +198,20 @@ def _(x, z, rx, rz, s, *, linear_x=False, linear_z=False):
 @nhsic_grad.register_fake
 def _(x, z, rx, rz, scal, *, linear_x=False, linear_z=False):
     return torch.empty_like(x), torch.empty_like(z)
+
+
+def _nhsic_flop_formula(name):
+    def flops(x_shape, z_shape, *_, linear_x=False, linear_z=False,
+              out_shape=None, **__):
+        *lead, B, Dx = x_shape
+        return math.prod(lead) * work.nhsic_work(
+            name, B, Dx, z_shape[-1], linear_x, linear_z)[1]
+    return flops
+
+
+for _name in ("nhsic_rowsums", "nhsic_stats_feats", "nhsic_grad"):
+    register_flop_formula(getattr(torch.ops.repro_torch, _name))(
+        _nhsic_flop_formula(_name))
 
 
 def _batched_args(info, in_dims, *args):

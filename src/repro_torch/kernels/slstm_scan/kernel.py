@@ -17,6 +17,8 @@ none on the CPU); ``reset_launches`` sets the counts to 0.  A replayed
 CUDA graph runs no Python: the captured step adds the counts it recorded
 at capture (``core.progressive``).  ``kernel_resources`` reads each built
 kernel's registers, shared memory and spills (it launches nothing).
+``FlopCounterMode`` counts a call's product FLOPs from ``work.py``, the
+formulas of the kernels' bounds.
 """
 from __future__ import annotations
 
@@ -26,11 +28,12 @@ from pathlib import Path
 
 import torch
 from torch import Tensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.common.device import check_kernel_inputs
 from repro_torch.kernels.audit import read_resources
 from repro_torch.kernels.build import load_library
-from repro_torch.kernels.slstm_scan import ref
+from repro_torch.kernels.slstm_scan import ref, work
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "slstm_scan.cu"
 MAX_HEAD_DIM = 1024         # MAX_DH in slstm_scan.cu
@@ -179,6 +182,18 @@ def _(g_in, r, b, c0, n0, m0, h0, save):
     return (hs, *fin, *saved)
 
 
+def _scan_flops(work_fn, g_shape):
+    """Product FLOPs of one call on gates (..., B, S, 4, H, Dh): each
+    leading cohort's scan."""
+    *lead, B, S, _, H, Dh = g_shape
+    return math.prod(lead) * work_fn(B, S, H, Dh)[1]
+
+
+@register_flop_formula(torch.ops.repro_torch.slstm_scan_fwd)
+def _(g_shape, *_, out_shape=None, **__):
+    return _scan_flops(work.slstm_work, g_shape)
+
+
 def slstm_scan_fwd(g_in, r, b, c0, n0, m0, h0, *, save=False):
     """g_in: (B, S, 4, H, Dh); r: (4, H, Dh, Dh); b: (4, H, Dh); the
     initial states (B, H, Dh), all float32; each may carry one leading
@@ -223,6 +238,11 @@ def _(g, cs, ns, ms, r, c0, n0, m0, dhs, dc, dn, dm, dh):
 @_scan_bwd.register_fake
 def _(g, cs, ns, ms, r, c0, n0, m0, dhs, dc, dn, dm, dh):
     return (torch.empty_like(g), *(torch.empty_like(c0) for _ in STATE))
+
+
+@register_flop_formula(torch.ops.repro_torch.slstm_scan_bwd)
+def _(g_shape, *_, out_shape=None, **__):
+    return _scan_flops(work.slstm_bwd_work, g_shape)
 
 
 def slstm_scan_bwd(g, cs, ns, ms, r, c0, n0, m0, dhs, dc, dn, dm, dh):

@@ -20,8 +20,19 @@ printed.  gloo takes the three collectives the runtimes run (all-reduce,
 all-gather, broadcast) on CUDA tensors as they are (PyTorch 2.11 on the
 H100), so no collective is copied through host memory.
 
-The reference's production mesh (a TPU pod) and its roofline constants
-are not ported.
+``make_production_mesh`` lays out the reference's production meshes,
+(data=16, model=16) and (pod=2, data=16, model=16), over a fake process
+group (``FakeStore``, backend ``"fake"``): every collective on it returns
+at once and moves nothing, and nothing is set up on a card.  The dry-run
+(``launch.dryrun``) runs rank 0's program of such a mesh on fake tensors
+and records the collectives it issues.
+
+The roofline constants are an NVIDIA H100 SXM's (the hopper-kernels
+guide, NVIDIA's H100 SXM data sheet): bf16 dense peak, HBM3 rate and
+size, NVLink 4 to the other 7 cards of a DGX H100 host, and one 400 Gb/s
+ConnectX-7 port per card between hosts.  A host is 8 consecutive ranks;
+``link_bw`` gives a collective over a group of ranks the NVLink rate when
+the group stays inside one host and the network's otherwise.
 """
 from __future__ import annotations
 
@@ -41,6 +52,24 @@ from repro_torch.common.device import DeviceLike, resolve_device
 
 AXES = ("data", "model")
 WORLD_TIMEOUT_S = 900
+
+# Hardware constants for the roofline (NVIDIA H100 SXM, per card):
+PEAK_FLOPS_BF16 = 989e12          # dense bf16 tensor-core FLOP/s
+HBM_BW = 3.35e12                  # HBM3 bytes/s
+HBM_BYTES = 80e9                  # HBM3 capacity, "80GB"
+NVLINK_BW = 450e9                 # bytes/s each way, to the host's 7 others
+NET_BW = 50e9                     # bytes/s each way: one 400 Gb/s port
+HOST_RANKS = 8                    # cards (consecutive ranks) of one host
+
+PRODUCTION_SHAPES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def link_bw(ranks) -> float:
+    """Bytes/s each way of a collective over ``ranks``: NVLink inside one
+    host, the network across hosts."""
+    hosts = {r // HOST_RANKS for r in ranks}
+    return NVLINK_BW if len(hosts) <= 1 else NET_BW
 
 
 def host_mesh_shape(n: int, model_parallel: int = 1) -> Tuple[int, int]:
@@ -66,35 +95,69 @@ def choose_backend(device: torch.device, ranks_per_host: int) -> str:
 
 
 class HostMesh:
-    """A ``(data, model)`` ``DeviceMesh`` over the world and the
-    collectives the runtimes run on it.  ``shape`` maps each axis to its
-    size and ``axis_names`` lists them, as the reference's ``Mesh`` does
-    (what ``launch.sharding`` reads); ``index(axis)`` is this rank's place
-    along an axis."""
-
-    axis_names = AXES
+    """A ``DeviceMesh`` over the world (``(data, model)``, or the
+    production mesh's ``(pod, data, model)``) and the collectives the
+    runtimes run on it.  ``shape`` maps each axis to its size and
+    ``axis_names`` lists them, both read from the device mesh (``(data,
+    model)`` where it names none), as the
+    reference's ``Mesh`` gives them (what ``launch.sharding`` reads);
+    ``index(axis)`` is this rank's place along an axis and ``grid`` the
+    ranks' layout.  A collective's ``axis`` is a name or a tuple of names
+    (the ranks that share every other coordinate, e.g. ``("pod",
+    "data")``)."""
 
     def __init__(self, device_mesh, device: torch.device, backend: str):
         self.device_mesh = device_mesh
         self.device = device
         self.backend = backend
-        self.shape: Dict[str, int] = {a: device_mesh.size(i)
-                                      for i, a in enumerate(AXES)}
+        self.axis_names = tuple(getattr(device_mesh, "mesh_dim_names", None)
+                                or AXES)
+        self.shape: Dict[str, int] = {a: device_mesh.size(i) for i, a in
+                                      enumerate(self.axis_names)}
         self.rank = dist.get_rank()
-        self._index = {a: device_mesh.get_local_rank(a) for a in AXES}
-        self._groups = {a: device_mesh.get_group(a) for a in AXES}
+        # read now: inside a fake mode the device mesh's tensor is fake
+        ranks = getattr(device_mesh, "mesh", None)
+        self.grid = (np.asarray(ranks.tolist()) if ranks is not None else
+                     np.arange(self.size).reshape(tuple(self.shape.values())))
+        self._index = {a: device_mesh.get_local_rank(a)
+                       for a in self.axis_names}
+        self._groups = {a: device_mesh.get_group(a)
+                        for a in self.axis_names}
 
     def __repr__(self):
         return (f"HostMesh(shape={self.shape}, backend={self.backend!r}, "
                 f"device={self.device})")
 
+    @property
+    def size(self) -> int:
+        return int(np.prod(list(self.shape.values())))
+
     def index(self, axis: str) -> int:
         return self._index[axis]
 
-    def all_reduce(self, tensor: torch.Tensor, axis: str) -> torch.Tensor:
+    def group(self, axis):
+        """The process group of this rank along ``axis`` (a name or a
+        tuple of names).  A tuple's groups are made on first use, every
+        one of them, as ``new_group`` asks of every rank."""
+        key = axis if isinstance(axis, str) else tuple(axis)
+        if len(key) == 1 and not isinstance(key, str):
+            key = key[0]
+        if key not in self._groups:
+            grid = self.grid
+            along = [self.axis_names.index(a) for a in key]
+            rest = [i for i in range(grid.ndim) if i not in along]
+            lines = np.transpose(grid, rest + along).reshape(
+                -1, int(np.prod([grid.shape[i] for i in along])))
+            for line in lines:
+                g = dist.new_group([int(r) for r in line])
+                if self.rank in line:
+                    self._groups[key] = g
+        return self._groups[key]
+
+    def all_reduce(self, tensor: torch.Tensor, axis) -> torch.Tensor:
         """Sum ``tensor`` over ``axis`` in place (over one rank too: the
         same collective at every size); returns it."""
-        dist.all_reduce(tensor, group=self._groups[axis])
+        dist.all_reduce(tensor, group=self.group(axis))
         return tensor
 
     def all_gather(self, tensor: torch.Tensor, axis: str,
@@ -106,7 +169,7 @@ class HostMesh:
             return tensor
         src = tensor.contiguous()
         parts = [torch.empty_like(src) for _ in range(n)]
-        dist.all_gather(parts, src, group=self._groups[axis])
+        dist.all_gather(parts, src, group=self.group(axis))
         return torch.cat(parts, dim)
 
     def gather_host(self, values: np.ndarray) -> np.ndarray:
@@ -155,6 +218,48 @@ def make_host_mesh(model_parallel: int = 1,
     shape = host_mesh_shape(dist.get_world_size(), model_parallel)
     dm = init_device_mesh(dev.type, shape, mesh_dim_names=AXES)
     return HostMesh(dm, dev, dist.get_backend())
+
+
+def production_shape(multi_pod: bool = False, world=None):
+    """(shape, axis names) of the production mesh, or of a smaller one of
+    the same axes: ``world`` a tuple of sizes, one per axis."""
+    shape, axes = PRODUCTION_SHAPES[bool(multi_pod)]
+    if world is not None:
+        world = tuple(int(n) for n in world)
+        if len(world) != len(axes):
+            raise ValueError(f"world {world} does not name one size per "
+                             f"axis of {axes}")
+        shape = world
+    return shape, axes
+
+
+def make_production_mesh(multi_pod: bool = False, world=None) -> HostMesh:
+    """The production mesh, (data=16, model=16) or (pod=2, data=16,
+    model=16) (``world``: a smaller one of the same axes), as a
+    ``HostMesh`` over a fake process group in which this process is rank
+    0: collectives on it record and move nothing, and no card is touched.
+    A fake default group of another size is replaced; a real one raises
+    (its collectives would run)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    shape, axes = production_shape(multi_pod, world)
+    n = int(np.prod(shape))
+    if dist.is_initialized():
+        if dist.get_backend() != "fake":
+            raise RuntimeError(
+                f"a {dist.get_backend()} process group is running: the "
+                f"production mesh needs a fake one (run it in a process "
+                f"of its own)")
+        if dist.get_world_size() != n:
+            dist.destroy_process_group()
+    if not dist.is_initialized():
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=n)
+    mesh = HostMesh(init_device_mesh("cpu", shape, mesh_dim_names=axes),
+                    torch.device("cpu"), "fake")
+    if "pod" in axes:
+        mesh.group(("pod", "data"))     # the batch axes' groups, made now
+    return mesh
 
 
 # --------------------------------------------------------------------------- #

@@ -94,10 +94,13 @@ class Placement:
     """Where one leaf lives on a (data, model) mesh: ``model_dim``, the
     dim split over "model" (``None``: whole on every model rank), and for
     a leaf stacked on a leading cohort axis ``cohort_axis``, the mesh axis
-    that axis splits over (``None``: every cohort on every rank).  A leaf
-    object, not a subtree, so that trees of them keep every leaf."""
+    (or tuple of axes) that axis splits over (``None``: every cohort on
+    every rank); ``cohort_dim`` is that axis's dim where it does not lead
+    (a cache's batch behind its period axis).  A leaf object, not a
+    subtree, so that trees of them keep every leaf."""
     model_dim: Optional[int]
     cohort_axis: Optional[str] = None
+    cohort_dim: int = 0
 
 
 def model_dim(fitted: tuple) -> Optional[int]:
@@ -113,6 +116,22 @@ def tree_placements(def_tree, mesh):
     counterpart of the reference's ``tree_shardings``)."""
     return tree_map(lambda d: Placement(model_dim(fit_spec(
         d.shape, d.spec, mesh))), def_tree)
+
+
+def data_tree_placements(def_tree, mesh):
+    """ParamDef tree -> ``Placement`` tree that also keeps the dim a
+    leaf's fitted spec splits over the data axes ("pod" and "data"), in
+    ``cohort_axis`` and ``cohort_dim``: a decode cache's batch, which each
+    data rank holds its block of."""
+    def fit(d):
+        fitted = fit_spec(d.shape, d.spec, mesh)
+        for dim, entry in enumerate(fitted):
+            names = tuple(n for n in _names(entry) if n != MODEL)
+            if names:
+                return Placement(model_dim(fitted),
+                                 names if len(names) > 1 else names[0], dim)
+        return Placement(model_dim(fitted))
+    return tree_map(fit, def_tree)
 
 
 def stacked_tree_placements(def_tree, mesh, leading_axis: str = "data"):
@@ -141,12 +160,27 @@ def block(n: int, parts: int, index: int) -> Tuple[int, int]:
     return index * size, (index + 1) * size
 
 
-def shard(x, dim: Optional[int], mesh, axis: str = MODEL):
-    """This rank's block of ``x`` along ``dim`` over ``axis`` (``x`` itself
-    where ``dim`` is ``None``), a copy with storage of its own."""
-    if dim is None or mesh.shape[axis] == 1:
+def axes_size(mesh, axes) -> int:
+    """Ranks along ``axes`` (a name or a tuple of names)."""
+    return math.prod(mesh.shape[a] for a in _names(axes))
+
+
+def axes_index(mesh, axes) -> int:
+    """This rank's place along ``axes``, the first name outermost."""
+    index = 0
+    for a in _names(axes):
+        index = index * mesh.shape[a] + mesh.index(a)
+    return index
+
+
+def shard(x, dim: Optional[int], mesh, axis=MODEL):
+    """This rank's block of ``x`` along ``dim`` over ``axis`` (a name or a
+    tuple of names; ``x`` itself where ``dim`` is ``None``), a copy with
+    storage of its own."""
+    n = axes_size(mesh, axis)
+    if dim is None or n == 1:
         return x
-    start, stop = block(x.shape[dim], mesh.shape[axis], mesh.index(axis))
+    start, stop = block(x.shape[dim], n, axes_index(mesh, axis))
     return x.narrow(dim, start, stop - start).clone()
 
 

@@ -99,6 +99,7 @@ def _on(device: DeviceLike, step):
             lambda a: a.to(dev) if torch.is_tensor(a) else a, args))
 
     on_device.device = dev
+    on_device.step = step           # the step itself (the dry-run's)
     return on_device
 
 
@@ -130,12 +131,17 @@ def _train_batch(cfg, shape):
 # --------------------------------------------------------------------------- #
 def build_full_train(cfg: ModelConfig, shape_name: str, mesh,
                      optimizer_name: str = "adamw",
-                     device: DeviceLike = None):
+                     device: DeviceLike = None, wrap_optimizer=None):
+    """``wrap_optimizer(optimizer)`` gives the optimizer the step runs in
+    place of ``make_optimizer(optimizer_name)``'s (the dry-run's reduces
+    the gradients over the data axes first); the abstract state is
+    ``optimizer_name``'s."""
     shape = SHAPES[shape_name]
     cfg = align_moe_dispatch(resolve_config(cfg, shape), mesh)
     adapter = make_transformer_adapter(cfg, num_stages=4)
-    step = _on(device, make_full_step(adapter,
-                                      make_optimizer(optimizer_name)))
+    opt = make_optimizer(optimizer_name)
+    step = _on(device, make_full_step(
+        adapter, opt if wrap_optimizer is None else wrap_optimizer(opt)))
 
     neulite_defs = adapter.defs
     opt_defs = _opt_state_defs(optimizer_name, neulite_defs)
@@ -157,18 +163,20 @@ def build_neulite_train(cfg: ModelConfig, shape_name: str, mesh,
                         stage: Optional[int] = None,
                         curriculum: bool = True,
                         use_hsic_kernel: bool = False,
-                        device: DeviceLike = None):
+                        device: DeviceLike = None, wrap_optimizer=None):
     """``use_hsic_kernel`` routes the curriculum's nHSIC through K1-K3
-    (the reference's default, its plain nHSIC, is off)."""
+    (the reference's default, its plain nHSIC, is off); ``wrap_optimizer``
+    as in ``build_full_train``."""
     shape = SHAPES[shape_name]
     cfg = align_moe_dispatch(resolve_config(cfg, shape), mesh)
     adapter = make_transformer_adapter(cfg, num_stages=num_stages)
     # the plan may clamp num_stages to the period count (small configs)
     t = adapter.plan.num_stages // 2 if stage is None else stage
     hp = CurriculumHP(enabled=curriculum, use_hsic_kernel=use_hsic_kernel)
-    step = _on(device, make_stage_step(adapter,
-                                       make_optimizer(optimizer_name), hp,
-                                       t))
+    opt = make_optimizer(optimizer_name)
+    step = _on(device, make_stage_step(
+        adapter, opt if wrap_optimizer is None else wrap_optimizer(opt), hp,
+        t))
 
     frozen_defs, trainable_defs = adapter.split_stage(adapter.defs, t)
     opt_defs = _opt_state_defs(optimizer_name, trainable_defs)
@@ -249,9 +257,12 @@ def build_serve(cfg: ModelConfig, shape_name: str, mesh,
 def build_fl_round(cfg: ModelConfig, shape_name: str, mesh,
                    optimizer_name: str = "sgd", num_stages: int = 4,
                    stage: Optional[int] = None, local_steps: int = 4,
-                   device: DeviceLike = None):
+                   device: DeviceLike = None, aggregate=None,
+                   use_hsic_kernel: bool = False):
     """Cohorts = batch shards; E local steps with no cross-cohort traffic;
-    the sample-weighted FedAvg of the trainable subtree ends the round."""
+    the sample-weighted FedAvg of the trainable subtree ends the round
+    (``aggregate``, ``federated.runtime.eq1_aggregate`` by default: the
+    dry-run's reduces over the mesh)."""
     from repro_torch.federated.runtime import (cohort_batches_specs,
                                                make_fl_round_step)
     shape = SHAPES[shape_name]
@@ -260,7 +271,8 @@ def build_fl_round(cfg: ModelConfig, shape_name: str, mesh,
     # the plan may clamp num_stages to the period count (small configs)
     t = adapter.plan.num_stages // 2 if stage is None else stage
     round_fn = _on(device, make_fl_round_step(
-        adapter, make_optimizer(optimizer_name), CurriculumHP(), t))
+        adapter, make_optimizer(optimizer_name),
+        CurriculumHP(use_hsic_kernel=use_hsic_kernel), t, aggregate))
 
     C = _mesh_batch_shards(mesh)
     B, S = shape.global_batch, shape.seq_len

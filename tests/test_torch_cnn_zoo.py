@@ -52,6 +52,16 @@ from repro_torch.core.progressive import make_stage_step as t_make_step
 from repro_torch.models import cnn as t_cnn
 from repro_torch.optim.optimizers import sgd as t_sgd
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread: the test processes share the cores, and each
+    running a pool of threads slows every one of them down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL = 1e-4
 STEP_BAR_CAP = 2e-3     # the largest bar reached: 1.9e-3
 ARCHS = ("vgg11", "squeezenet")

@@ -52,6 +52,16 @@ from repro_torch.models.cnn import CNNConfig as TConfig
 from repro_torch.models.config import ModelConfig as TModelConfig
 from repro_torch.optim.optimizers import sgd as t_sgd
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread: the test processes share the cores, and each
+    running a pool of threads slows every one of them down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL = 1e-4
 EPOCH_TOL = 1e-3
 LR = 0.05

@@ -38,6 +38,16 @@ from repro_torch.common.tree import flatten_paths, tree_map
 from repro_torch.models import ssm as t_ssm
 from test_torch_moe import _rel, init_defs
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread: the test processes share the cores, and each
+    running a pool of threads slows every one of them down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL = 1e-4
 ARCH = "jamba-1.5-large-398b"
 B = 2

@@ -27,6 +27,16 @@ from repro_torch.federated.server import FLConfig as TFLConfig
 from repro_torch.federated.server import NeuLiteServer as TServer
 from repro_torch.models.cnn import CNNConfig as TConfig
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread: the test processes share the cores, and each
+    running a pool of threads slows every one of them down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = 1e-3
 FL = dict(n_devices=20, clients_per_round=3, local_epochs=1, batch_size=8,
           lr=0.05, num_stages=2, mu=0.01, seed=0)

@@ -49,6 +49,16 @@ from repro_torch.kernels.flash_attention import kernel as t_flash_kernel
 from repro_torch.models.config import ModelConfig as TModelConfig
 from repro_torch.optim.optimizers import sgd as t_sgd
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread: the test processes share the cores, and each
+    running a pool of threads slows every one of them down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 RTOL = 1e-4
 SMALL = dict(num_classes=10, image_size=32, num_layers=6, d_model=48)
 

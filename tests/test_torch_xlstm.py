@@ -49,6 +49,16 @@ from repro_torch.federated.server import NeuLiteServer as TServer
 from repro_torch.kernels.slstm_scan import kernel as t_slstm_kernel
 from repro_torch.models import ssm as t_ssm
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One torch thread: the test processes share the cores, and each
+    running a pool of threads slows every one of them down."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SMALL = dict(num_layers=16, d_model=64, num_heads=4, vocab_size=64,
              dtype="float32")
 
